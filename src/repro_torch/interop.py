@@ -1,0 +1,45 @@
+"""Parameter interop: the JAX package's parameter tree, already converted to
+numpy, into the port's tensors, name for name.
+
+The port imports neither JAX nor the JAX package; a caller that has both
+converts first (``jax.tree.map(np.asarray, params)``) and hands the numpy
+tree over.  ``bfloat16`` leaves arrive as ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses: their bits are reinterpreted as ``uint16``,
+built into an ``int16`` tensor and viewed as ``torch.bfloat16``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["tensor_from_numpy", "params_from_numpy"]
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One numpy array (or scalar) as a tensor on ``device``, bit for bit.
+    Integer arrays — expert-perm stacks, page tables — keep their int type."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def params_from_numpy(tree, cfg=None, device="cpu"):
+    """The port's parameters from a numpy parameter tree (nested dicts of
+    arrays), same names, same shapes, same dtypes.  With ``cfg`` given, the
+    floating leaves are checked against ``cfg.dtype`` (the router stays
+    f32, as in both packages)."""
+
+    def conv(node, path):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}/{k}") for k, v in node.items()}
+        t = tensor_from_numpy(node, device)
+        if cfg is not None and t.is_floating_point() and not path.endswith("router"):
+            want = getattr(torch, cfg.dtype)
+            if t.dtype != want:
+                raise TypeError(f"{path}: {t.dtype} but the config says {want}")
+        return t
+
+    return conv(tree, "")

@@ -1,0 +1,257 @@
+"""Model assembly for attention-only block patterns: embeddings -> stacked
+block weights looped over repeats -> final norm -> LM head.
+
+Port of :mod:`repro.models.transformer`.  Parameters are the JAX package's
+tree as nested dicts of tensors, block weights stacked ``[reps, ...]`` per
+pattern position; the scan over repeats is a Python loop over that
+leading dim.  Modes: ``train``/``prefill`` (full sequence; prefill also
+returns stacked ``[reps, B, S, Hkv, dh]`` caches) and ``decode`` (a ``[B,
+C]`` chunk against dense or paged caches, written in place).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
+
+__all__ = [
+    "init_model", "model_apply", "logits_from_features", "init_caches",
+    "init_paged_caches", "paged_supported", "pad_caches", "ForwardAux",
+]
+
+
+def _check_supported(cfg) -> None:
+    if not paged_supported(cfg) or cfg.vision_patches or cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs attention-only GQA block patterns so far "
+            f"(got {cfg.block_pattern} / tail {cfg.tail_pattern} / mla={cfg.mla is not None})"
+        )
+    if not cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: dense MLP blocks come with a later slice")
+
+
+def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None) -> dict:
+    """Seeded parameters drawn directly on ``device`` (the card unless the
+    caller asks for the CPU) in ``cfg.dtype``."""
+    cfg.validate()
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    reps = cfg.pattern_repeats
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    d = cfg.d_model
+    params: dict = {"embed": L.normal(gen, (cfg.vocab_size, d), dtype, dev, d**-0.5)}
+    blocks = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        blocks[f"{i}_{kind}"] = {
+            "norm1": L.init_rms_norm(d, dtype, dev, reps),
+            "attn": L.init_attention(gen, cfg, plan, reps=reps, device=dev),
+            "norm2": L.init_rms_norm(d, dtype, dev, reps),
+            "moe": moe_mod.init_moe(gen, cfg, plan, reps=reps, device=dev),
+        }
+    params["blocks"] = blocks
+    params["final_norm"] = L.init_rms_norm(d, dtype, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.normal(gen, (d, cfg.vocab_size), dtype, dev, d**-0.5)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def paged_supported(cfg) -> bool:
+    """True when every decode-time cache is a plain GQA attention K/V pair —
+    the only layout the page pool holds."""
+    return (
+        all(k in ("global", "local") for k in cfg.block_pattern)
+        and not cfg.tail_pattern
+        and cfg.mla is None
+        and cfg.family != "audio"
+    )
+
+
+def init_caches(cfg, batch: int, max_len: int, *, device) -> dict:
+    """Dense per-slot caches: ``{"k","v": [reps, B, max_len, Hkv, dh]}`` per
+    pattern position."""
+    _check_supported(cfg)
+    reps = cfg.pattern_repeats
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        c = L.init_attention_cache(cfg, reps * batch, max_len, device=device)
+        out[f"{i}_{kind}"] = {k: v.reshape(reps, batch, *v.shape[1:]) for k, v in c.items()}
+    return out
+
+
+def init_paged_caches(cfg, num_pages: int, page_size: int, *, device) -> dict:
+    """Paged decode caches: one ``[reps, N, page, Hkv, dh]`` K/V page pool
+    per pattern position, shared by every serving slot through ONE
+    ``[slots, P]`` page table."""
+    if not paged_supported(cfg):
+        raise ValueError(
+            f"paged KV cache requires an attention-only pattern, got "
+            f"{cfg.block_pattern} / tail {cfg.tail_pattern} / mla={cfg.mla}"
+        )
+    reps = cfg.pattern_repeats
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        c = L.init_paged_attention_cache(cfg, reps * num_pages, page_size, device=device)
+        out[f"{i}_{kind}"] = {k: v.reshape(reps, num_pages, *v.shape[1:]) for k, v in c.items()}
+    return out
+
+
+def pad_caches(caches: dict, target_len: int) -> dict:
+    """Grow the sequence axis (dim 2) of every ``k``/``v`` cache leaf to
+    ``target_len`` with zeros."""
+    out = {}
+    for name, c in caches.items():
+        out[name] = {}
+        for key, x in c.items():
+            cur = x.shape[2]
+            if key in ("k", "v") and cur < target_len:
+                grown = x.new_zeros((*x.shape[:2], target_len, *x.shape[3:]))
+                grown[:, :, :cur] = x
+                x = grown
+            out[name][key] = x
+    return out
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ForwardAux:
+    moe_stats: torch.Tensor | None  # [reps, E] expert loads, or None
+    balance_loss: torch.Tensor
+    z_loss: torch.Tensor
+
+
+def _layer(tree: dict, li: int) -> dict:
+    """Repeat ``li``'s slice (views) of a stacked ``[reps, ...]`` tree."""
+    return {k: _layer(v, li) if isinstance(v, dict) else v[li] for k, v in tree.items()}
+
+
+def _apply_block(
+    kind, p, x, cfg, plan, mode, cache, t, expert_perm, positions,
+    wire_perm=None, gate_weights=None, page_table=None, writes=None,
+):
+    # Decode-time live mask: dead continuous-batching slots must not write
+    # K/V at their stale positions.
+    write_mask = None
+    if mode == "decode" and gate_weights is not None:
+        write_mask = gate_weights[:, 0] > 0
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, ac = L.attention_apply(
+        p["attn"], h, cfg, kind=kind, mode=mode, cache=cache, t=t,
+        positions=positions, plan=plan, write_mask=write_mask,
+        page_table=page_table, writes=writes,
+    )
+    x = x + y
+    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    y, stats = moe_mod.moe_apply(
+        p["moe"], h2, cfg, plan, expert_perm=expert_perm, wire_perm=wire_perm,
+        mode=mode, gate_weights=gate_weights,
+    )
+    return x + y, ac, stats
+
+
+def model_apply(
+    params,
+    batch: dict,
+    cfg,
+    plan: ShardingPlan,
+    *,
+    mesh=None,
+    mode: str = "train",
+    caches=None,
+    t=None,
+    expert_perm=None,
+    wire_perm=None,
+    gate_weights=None,
+    page_table=None,
+):
+    """Run the model.
+
+    ``batch["tokens"]``: ``[B, S]``.  ``expert_perm``: ``[reps, Ev]``
+    per-layer expert->slot maps; ``wire_perm``: optional ``[reps, P]``
+    device maps; ``gate_weights``: optional ``[B, S]`` telemetry weight (the
+    serving engine's live-slot mask); ``page_table``: optional ``[B, P]``
+    i32 page ids switching decode onto the paged pools.  Decode writes the
+    chunk's K/V into ``caches`` IN PLACE and returns the same dicts.
+    Returns ``(features [B, S, D], aux, caches)``.
+    """
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    x = x * (cfg.d_model**0.5)
+    positions = batch.get("positions")
+    reps = cfg.pattern_repeats
+    names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
+    if expert_perm is None:
+        ev, _ = virtual_experts(cfg.moe.num_experts, plan.model_size)
+        expert_perm = torch.arange(ev, dtype=torch.int32, device=dev).expand(reps, ev)
+
+    writes = None
+    if mode == "decode":
+        # One write plan for every layer of the step (see L.DecodeWrites).
+        gw = gate_weights
+        first = caches[names[0]]["k"]
+        writes = L.decode_writes(
+            t, b, s, write_mask=None if gw is None else gw[:, 0] > 0,
+            cache_len=None if page_table is not None else first.shape[2],
+            page_table=page_table,
+            page=first.shape[2] if page_table is not None else None, device=dev,
+        )
+
+    prefill_caches: dict = {n: [] for n in names}
+    loads, bal, zl = [], [], []
+    for li in range(reps):
+        stats_list = []
+        for i, kind in enumerate(cfg.block_pattern):
+            cache_i = _layer(caches[names[i]], li) if caches is not None else None
+            x, nc, st = _apply_block(
+                kind, _layer(params["blocks"][names[i]], li), x, cfg, plan, mode,
+                cache_i, t, expert_perm[li], positions,
+                wire_perm=None if wire_perm is None else wire_perm[li],
+                gate_weights=gate_weights, page_table=page_table, writes=writes,
+            )
+            if mode == "prefill":
+                prefill_caches[names[i]].append(nc)
+            stats_list.append(st)
+        bal.append(sum(st.balance_loss for st in stats_list) / len(stats_list))
+        zl.append(sum(st.z_loss for st in stats_list) / len(stats_list))
+        loads.append(stats_list[0].expert_load)
+    new_caches = caches
+    if mode == "prefill":
+        new_caches = {
+            n: {k: torch.stack([c[k] for c in cs]) for k in ("k", "v")}
+            for n, cs in prefill_caches.items()
+        }
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = ForwardAux(
+        moe_stats=torch.stack(loads),
+        balance_loss=torch.stack(bal).mean(),
+        z_loss=torch.stack(zl).mean(),
+    )
+    return x, aux, new_caches
+
+
+def logits_from_features(params, x, cfg):
+    if cfg.tie_embeddings:
+        out = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    else:
+        out = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    if cfg.final_softcap is not None:
+        out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
+    return out

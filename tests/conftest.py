@@ -33,6 +33,12 @@ def run_multidevice(code: str, devices: int = 8, timeout: int = 600):
     return proc.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips inside the test when none is present"
+    )
+
+
 @pytest.fixture
 def multidevice():
     return run_multidevice

@@ -1,0 +1,130 @@
+"""The port's ServeEngine (repro_torch.serve.engine): against the JAX
+package's ServeEngine on the same weights and requests, and against itself
+— tokens bit-identical with reconfiguration on and off, paged and dense KV
+bit-identical on the CPU (both read through the same full-softmax view),
+whole and chunked prefill token-equal — and the device rule of its entry
+points.  Reduced grok-1-314b (f32, 2 layers), greedy decoding."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jget_reduced
+from repro.models.transformer import init_model as jinit_model
+from repro.parallel.sharding import make_plan as jmake_plan
+from repro.serve.engine import ServeConfig as JServeConfig
+from repro.serve.engine import ServeEngine as JServeEngine
+from repro_torch.configs import get_reduced
+from repro_torch.interop import params_from_numpy
+from repro_torch.models.transformer import init_model
+from repro_torch.parallel.sharding import make_plan
+from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.workload import WorkloadGenerator
+
+PLAN = make_plan(None)
+SCFG = dict(slots=2, max_len=40, reconfig_min_gain=0.0, num_devices=4)
+
+
+def _requests(n, seed=3, vocab=256):
+    gen = WorkloadGenerator("chat", seed=seed, vocab_size=vocab)
+    reqs = [
+        dataclasses.replace(r, prompt_len=min(r.prompt_len, 20),
+                            max_new_tokens=min(r.max_new_tokens, 6))
+        for r in gen.generate(n)
+    ]
+    return gen, reqs
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _serve(params, cfg, reqs, gen, **kw):
+    eng = ServeEngine(_clone(params), cfg, PLAN, ServeConfig(**{**SCFG, **kw}), device="cpu")
+    rep = eng.run(reqs, gen)
+    return eng, rep, {r.rid: r.out for r in eng.batcher.finished}
+
+
+@pytest.fixture(scope="module")
+def port_model():
+    cfg = get_reduced("grok-1-314b")
+    return cfg, init_model(0, cfg, PLAN, device="cpu")
+
+
+def test_port_engine_matches_jax_engine():
+    jcfg = jget_reduced("grok-1-314b")
+    jplan = jmake_plan(None)
+    jparams = jax.jit(lambda k: jinit_model(k, jcfg, jplan)[0])(jax.random.PRNGKey(0))
+    gen, reqs = _requests(4)
+    jeng = JServeEngine(
+        jax.tree.map(lambda a: a, jparams), jcfg, jplan,
+        JServeConfig(**SCFG, reconfig_every=3),
+    )
+    jrep = jeng.run(reqs, gen)
+    cfg = get_reduced("grok-1-314b")
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg)
+    eng, rep, toks = _serve(params, cfg, reqs, gen, reconfig_every=3)
+    assert rep.completed == jrep.completed == len(reqs)
+    assert toks == {r.rid: r.out for r in jeng.batcher.finished}
+    assert rep.reconfig_count == jrep.reconfig_count > 0
+    np.testing.assert_array_equal(eng.controlplane.perm_stack(), jeng.controlplane.perm_stack())
+    assert rep.a2a_bytes == jrep.a2a_bytes
+    np.testing.assert_array_equal(rep.gate_load_total, jrep.gate_load_total)
+
+
+def test_port_reconfiguration_keeps_tokens_bit_identical(port_model):
+    cfg, params = port_model
+    gen, reqs = _requests(5, seed=4)
+    eng_on, rep_on, on = _serve(params, cfg, reqs, gen, reconfig_every=2)
+    _, rep_off, off = _serve(params, cfg, reqs, gen, reconfig_every=0)
+    assert rep_on.completed == rep_off.completed == len(reqs)
+    assert rep_on.reconfig_count > 0
+    assert (eng_on.controlplane.perm_stack() != np.arange(8)).any()
+    assert on == off
+
+
+def test_port_paged_and_dense_kv_bit_identical_on_cpu(port_model):
+    cfg, params = port_model
+    gen, reqs = _requests(5, seed=5)
+    eng_p, _, paged = _serve(params, cfg, reqs, gen, reconfig_every=3)
+    eng_d, _, dense = _serve(params, cfg, reqs, gen, reconfig_every=3, paged=False)
+    assert eng_p.batcher.paged and not eng_d.batcher.paged
+    assert paged == dense
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_port_whole_and_chunked_prefill_token_equal(port_model, paged):
+    cfg, params = port_model
+    gen, reqs = _requests(4, seed=6)
+    _, _, whole = _serve(params, cfg, reqs, gen, paged=paged)
+    _, rep, chunked = _serve(params, cfg, reqs, gen, paged=paged, prefill_chunk=5)
+    assert rep.completed == len(reqs)
+    assert whole == chunked
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    cfg = get_reduced("grok-1-314b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model(0, cfg, PLAN)
+    params = init_model(0, cfg, PLAN, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG))
+
+
+def test_slices_not_ported_yet_raise(port_model):
+    cfg, params = port_model
+    with pytest.raises(NotImplementedError):
+        ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, spec_k=2), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, sample=True), device="cpu")
+    eng = ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG), device="cpu")
+    with pytest.raises(NotImplementedError):
+        eng.save_checkpoint("unused")
+    mix = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, backend="mixnet"))
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        ServeEngine(params, mix, PLAN, ServeConfig(**SCFG), device="cpu").run(*_requests(1)[::-1])
