@@ -6,8 +6,8 @@
 Phases, one printed line (or more) each:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build  — ``nvcc`` builds every kernel of the serving path from
-   ``src/repro_torch/csrc`` (one process per source, all at once);
+2. build  — ``nvcc`` builds every kernel of the serving and training paths
+   from ``src/repro_torch/csrc`` (one process per source, all at once);
 3. kernels — each kernel at the serving path's shapes and at a small case
    with window, softcap, ragged lengths and -1 page-table entries, held
    against its plain PyTorch version on the card; kernel, plain and library
@@ -20,7 +20,27 @@ Phases, one printed line (or more) each:
    (the on-run permutes the expert weights in place).  Tokens must be
    bit-identical, the control plane must reconfigure, and every kernel's
    launch count must grow during the serve;
-6. the kernels line (JSON), the card line, and the result line
+6. train kernels — the serving model is freed; every training-path kernel
+   (MoE dispatch and combine, the dropless grouped GEMM, and the backward
+   kernels of the combine, the GEMM (dX, dW), the gate and attention) at
+   the Mixtral-8x7B training step's shapes and at small edge cases,
+   against its plain version (a backward against ``torch.autograd`` of the
+   plain forward); kernel, plain and library times from CUDA events;
+7. step   — one training step's loss and EVERY parameter's gradient at a
+   reduced width (2 layers, d_model 512, 8 experts of d_ff 1024, f32), on
+   the card (kernels) against the CPU (plain versions);
+8. train  — Mixtral-8x7B at its published widths (depth cut to 2 of 32
+   layers), random weights from ``--seed``, trains 8 steps through
+   ``Trainer`` with a 4-device control plane injected (COPILOT on, a
+   reconfiguration every 2 steps), one ``train`` call per step, each
+   clocked whole: the step (the trainer's own clock) and what follows it
+   (the control loop and the in-place permute).  Every loss must be
+   finite, at least one reconfiguration must apply, and every training
+   kernel must launch.  Then every applied reconfiguration is replayed on
+   the trained weights: a fixed probe batch's loss and expert gradients
+   just before and just after the same in-place move must be
+   bit-identical once the permutation is undone;
+9. the kernels line (JSON), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA card or outside a
@@ -45,8 +65,20 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # torch.testing bf16 defaults
 F32_TOL = dict(rtol=1.3e-6, atol=1e-5)  # torch.testing f32 defaults
+# f32 sums over thousands of terms in another order than the plain version.
+REDUCE_TOL = dict(rtol=1e-4, atol=1e-4)
+# bf16 attention gradients: the kernel takes delta from the bf16-rounded
+# output, the plain version from the f32 one; 2e-2 of the largest magnitude.
+BF16_GRAD_REL = 2e-2
+# bf16 grouped GEMMs and their gradients: f32 sums over up to 14336 products
+# in another order, rounded once to bf16, where results near 0 come from
+# cancellation; 1e-2 of the largest magnitude (a bf16 ulp there is 0.4%).
+BF16_GEMM_REL = 1e-2
 LAYERS = 4  # of grok-1's 64: 42.6 GB of weights on an 80 GB card
 REQUESTS = 8
+TRAIN_LAYERS = 2  # of Mixtral-8x7B's 32: 3.17 B parameters, 38 GB with grads and f32 moments
+TRAIN_STEPS = 8
+SERVE_KERNELS = ("topk_gating", "flash_attention", "paged_flash_decode")
 
 KERNEL_ROWS = {
     "topk_gating": ("src/repro_torch/csrc/topk_gating.cu", "src/repro/kernels/topk_gating.py:44"),
@@ -54,6 +86,21 @@ KERNEL_ROWS = {
                         "src/repro/kernels/flash_attention.py:105"),
     "paged_flash_decode": ("src/repro_torch/csrc/paged_flash_decode.cu",
                            "src/repro/kernels/flash_attention.py:226"),
+    "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch.py:49"),
+    "moe_combine": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch.py:89"),
+    "grouped_matmul_blocks": ("src/repro_torch/csrc/grouped_matmul.cu",
+                              "src/repro/kernels/grouped_matmul.py:116"),
+    # Backward kernels: the JAX package has no VJP on its Pallas kernels (it
+    # differentiates the jnp references); "replaces" names the forward.
+    "moe_combine_bwd": ("src/repro_torch/csrc/moe_dispatch.cu",
+                        "src/repro/kernels/moe_dispatch.py:89"),
+    "grouped_matmul_blocks_dx": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                 "src/repro/kernels/grouped_matmul.py:116"),
+    "grouped_matmul_blocks_dw": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                 "src/repro/kernels/grouped_matmul.py:116"),
+    "topk_gating_bwd": ("src/repro_torch/csrc/topk_gating.cu", "src/repro/kernels/topk_gating.py:44"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:105"),
 }
 
 
@@ -90,6 +137,37 @@ def check(torch, got, want, tol, what: str) -> float:
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **tol, msg=lambda m: f"{what}: {m}")
     return err
+
+
+def check_rel(got, want, rel: float, what: str) -> float:
+    """max |got - want| <= rel * max |want|; returns max |got - want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= rel * scale + 1e-6, f"{what}: max |diff| {err} > {rel} x max |want| {scale}"
+    return err
+
+
+def library_time(torch, fn, want, rel: float, iters: int, what: str):
+    """CUDA-event time of one PyTorch library call that computes the same
+    function as a kernel, after checking it does (``check_rel`` at ``rel``).
+    A call this build refuses on these inputs is reported, with its error,
+    as no time: the library is a yardstick here, not part of the path."""
+    try:
+        check_rel(fn(), want, rel, f"library {what}")
+    except (RuntimeError, NotImplementedError, TypeError, AttributeError, AssertionError) as exc:
+        print(f"library {what}: refused: {type(exc).__name__}: {str(exc)[:300]}", flush=True)
+        return None
+    return time_ms(torch, fn, iters)
+
+
+def kernel_row(torch, name, err, ms, plain, lib, bytes_moved, flops, dtype, shape):
+    bms, by = bound(bytes_moved, flops, dtype)
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+             shape=shape)
+    print(f"kernel {name} ({shape}): max_abs_err={err:.3e} kernel_ms={ms:.5f} "
+          f"plain_ms={plain:.5f} library_ms={'null' if lib is None else f'{lib:.5f}'} "
+          f"bound_ms={bms:.6f} ({by})", flush=True)
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -355,11 +433,554 @@ def profile_serve(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: i
         print(f"profile kernel {ms:9.3f} ms x{n:<5} {name}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training-path kernels
+# ---------------------------------------------------------------------------
+
+
+def _grads(torch, fn, inputs, cot):
+    """torch.autograd of ``fn`` (the plain forward) w.r.t. ``inputs``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    return torch.autograd.grad(out, leaves, cot)
+
+
+def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
+    """Every training-path kernel at the Mixtral step's shapes: T = batch x
+    seq tokens routed top-k over E experts (dropless, P = 1), expert width
+    d_ff, attention q [B, Hq, S, D] over k/v [B, Hkv, S, D], all bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import grouped_matmul as kgm
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.kernels import topk_gating as ktg
+    from repro_torch.models import routing
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    bf16 = torch.bfloat16
+    d, f = cfg.d_model, cfg.moe.d_ff
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    t = batch * seq
+    n = t * k
+    rows = {}
+    randn = lambda *shape, dt=torch.float32: torch.randn(shape, generator=g, device=dev).to(dt)
+
+    # The step's routing and dispatch plans at P = 1, as _moe_mixnet_local builds them.
+    with torch.no_grad():
+        info = routing.compute_routing(randn(t, e), top_k=k, num_virtual=e, replication=1)
+        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+        rank1, _ = routing.bucket_ranks(zeros, 1)
+        plan1 = routing.capacity_plan(zeros, rank1, None, 1, n)
+        src_tok = torch.where(plan1.src >= 0, plan1.src // k, torch.full_like(plan1.src, -1))
+        local_e = info.vdest.reshape(n)
+        valid = local_e >= 0
+        rank2, counts2 = routing.bucket_ranks(local_e, e, valid=valid)
+        plan2 = routing.dropless_plan(local_e, rank2, counts2, valid, e, 8)
+    be = plan2.block_experts
+    nb = be.shape[0]
+    assert bool((src_tok >= 0).all()), "a dropless send buffer at P = 1 has no empty row"
+
+    # -- moe_dispatch: the send gather x [T, D] -> [T * k, D] (exact).
+    x = randn(t, d, dt=bf16)
+    got = kmd.moe_dispatch_cuda(x, src_tok)
+    assert torch.equal(got, ref.moe_dispatch(x, src_tok)), "moe_dispatch differs from plain"
+    packed = kmd.moe_dispatch_cuda(got, plan2.src)  # the pack, with -1 padding rows
+    assert torch.equal(packed, ref.moe_dispatch(got, plan2.src)), "moe_dispatch pack differs"
+    assert not packed[plan2.src < 0].any(), "padding rows must be zero"
+    idx = src_tok.long()
+    distinct = int(torch.unique(src_tok[src_tok >= 0]).numel())  # each read once
+    rows["moe_dispatch"] = kernel_row(
+        torch, "moe_dispatch", 0.0,
+        time_ms(torch, lambda: kmd.moe_dispatch_cuda(x, src_tok), 200),
+        time_ms(torch, lambda: ref.moe_dispatch(x, src_tok), 200),
+        time_ms(torch, lambda: torch.index_select(x, 0, idx), 200),
+        (distinct + n) * d * 2 + n * 4, 0.0, "bfloat16", f"x [{t}, {d}] bf16 -> [{n}, {d}]",
+    )
+
+    # -- grouped_matmul_blocks (w_in): packed [nb, 8, D] @ w [E, D, F].
+    xb = packed.reshape(nb, 8, d)
+    w = (randn(e, d, f) * d**-0.5).to(bf16)
+    h = kgm.grouped_matmul_blocks_cuda(xb, w, be)
+    err = check_rel(h, ref.grouped_matmul_blocks(xb, w, be), BF16_GEMM_REL, "grouped_matmul_blocks")
+    used = int((counts2 > 0).sum())
+    # Library yardstick: one grouped GEMM over the same rows, with expert e's
+    # tiles as the row group ending at offs[e] (trailing zero tiles in the
+    # last expert's group, as the kernel clips them).
+    offs = torch.cumsum(torch.bincount(be, minlength=e) * 8, 0).to(torch.int32)
+    x2, w_t = xb.reshape(-1, d), w.transpose(1, 2)
+    rows["grouped_matmul_blocks"] = kernel_row(
+        torch, "grouped_matmul_blocks", err,
+        time_ms(torch, lambda: kgm.grouped_matmul_blocks_cuda(xb, w, be), 20),
+        time_ms(torch, lambda: ref.grouped_matmul_blocks(xb, w, be), 5),
+        library_time(torch, lambda: torch._grouped_mm(x2, w, offs=offs), h.reshape(-1, f),
+                     BF16_GEMM_REL, 20, "grouped_matmul_blocks (torch._grouped_mm)"),
+        (n * d + used * d * f + n * f) * 2 + nb * 4, 2.0 * n * d * f, "bfloat16",
+        f"x [{nb}, 8, {d}] bf16 @ w [{e}, {d}, {f}], {n} rows in {nb} tiles",
+    )
+    # -- its backward: dX (the transposed-weight flag) and dW, against autograd.
+    dy = randn(nb, 8, f, dt=bf16)
+    dy[(plan2.src < 0).reshape(nb, 8)] = 0  # padding rows get no gradient in the layer
+    want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul_blocks(a, b, be), [xb, w], dy)
+    dx = kgm.grouped_matmul_blocks_dx_cuda(dy, w, be)
+    dw = kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, e)
+    err_dx = check_rel(dx, want_dx, BF16_GEMM_REL, "grouped_matmul_blocks dX")
+    err_dw = check_rel(dw, want_dw, BF16_GEMM_REL, "grouped_matmul_blocks dW")
+    dy2 = dy.reshape(-1, f)
+    rows["grouped_matmul_blocks_dx"] = kernel_row(
+        torch, "grouped_matmul_blocks_dx", err_dx,
+        time_ms(torch, lambda: kgm.grouped_matmul_blocks_dx_cuda(dy, w, be), 20),
+        time_ms(torch, lambda: ref.grouped_matmul_blocks(dy, w_t, be), 5),
+        library_time(torch, lambda: torch._grouped_mm(dy2, w_t, offs=offs), dx.reshape(-1, d),
+                     BF16_GEMM_REL, 20, "grouped_matmul_blocks_dx (torch._grouped_mm)"),
+        (n * f + used * d * f + n * d) * 2 + nb * 4, 2.0 * n * d * f, "bfloat16",
+        f"dy [{nb}, 8, {f}] bf16 @ w[e]^T, w [{e}, {d}, {f}]",
+    )
+    rows["grouped_matmul_blocks_dw"] = kernel_row(
+        torch, "grouped_matmul_blocks_dw", err_dw,
+        time_ms(torch, lambda: kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, e), 20),
+        time_ms(torch, lambda: ref.grouped_matmul_blocks_dw(xb, dy, be, e), 5),
+        library_time(torch, lambda: torch._grouped_mm(x2.t(), dy2, offs=offs), dw,
+                     BF16_GEMM_REL, 20, "grouped_matmul_blocks_dw (torch._grouped_mm)"),
+        (n * d + n * f + e * d * f) * 2 + nb * 4, 2.0 * n * d * f, "bfloat16",
+        f"x [{nb}, 8, {d}], dy [{nb}, 8, {f}] bf16 -> dW [{e}, {d}, {f}]",
+    )
+
+    # -- moe_combine: y [T * k, D] bf16 by slot / wfull [T, k] -> [T, D] f32.
+    y = randn(n, d, dt=bf16)
+    slot = plan1.slot.reshape(t, k)
+    wts = info.wfull.float().contiguous()
+    got = kmd.moe_combine_cuda(y, slot, wts)
+    err = check(torch, got, ref.moe_combine(y, slot, wts), F32_TOL, "moe_combine")
+    # Library yardstick: embedding_bag's weighted sum of rows (main-path
+    # slots have no -1); it takes weights in y's dtype and returns bf16.
+    slot_l, wts_b = slot.long(), wts.to(bf16)
+    rows["moe_combine"] = kernel_row(
+        torch, "moe_combine", err,
+        time_ms(torch, lambda: kmd.moe_combine_cuda(y, slot, wts), 200),
+        time_ms(torch, lambda: ref.moe_combine(y, slot, wts), 50),
+        library_time(torch, lambda: F.embedding_bag(slot_l, y, per_sample_weights=wts_b,
+                                                    mode="sum"),
+                     got, BF16_GEMM_REL, 200, "moe_combine (F.embedding_bag)"),
+        n * d * 2 + t * k * 8 + t * d * 4, 2.0 * n * d, "float32",
+        f"y [{n}, {d}] bf16, slot/w [{t}, {k}] -> [{t}, {d}] f32",
+    )
+    # -- its backward: dy through the inverse map (plan1.src), dw as row dot products.
+    dout = randn(t, d)
+    want_dy, want_dw = _grads(torch, lambda a, b: ref.moe_combine(a, slot, b), [y, wts], dout)
+    gy, gw = kmd.moe_combine_bwd_cuda(dout, y, slot, wts, plan1.src)
+    err = max(check(torch, gy, want_dy, BF16_TOL, "moe_combine_bwd dy"),
+              check(torch, gw, want_dw, REDUCE_TOL, "moe_combine_bwd dw"))
+    rows["moe_combine_bwd"] = kernel_row(
+        torch, "moe_combine_bwd", err,
+        time_ms(torch, lambda: kmd.moe_combine_bwd_cuda(dout, y, slot, wts, plan1.src), 200),
+        time_ms(torch, lambda: ref.moe_combine_bwd(dout, y, slot, wts, plan1.src), 50), None,
+        t * d * 4 + n * d * 2 + n * d * 2 + t * k * 12 + n * 4, 3.0 * n * d, "float32",
+        f"dout [{t}, {d}] f32, y [{n}, {d}] bf16 -> dy, dw [{t}, {k}]",
+    )
+
+    # -- topk_gating forward and backward at the step's [T, E] logits.
+    logits = randn(t, e)
+    wk, ids = ktg.topk_gating_cuda(logits, k)
+    rw, ri = ref.topk_gating(logits, k)
+    assert torch.equal(ids, ri), "topk_gating ids differ from the plain version"
+    rows["topk_gating"] = kernel_row(
+        torch, "topk_gating", check(torch, wk, rw, F32_TOL, "topk_gating"),
+        time_ms(torch, lambda: ktg.topk_gating_cuda(logits, k), 200),
+        time_ms(torch, lambda: ref.topk_gating(logits, k), 200),
+        time_ms(torch, lambda: torch.topk(torch.softmax(logits, -1), k, dim=-1), 200),
+        t * e * 4 + t * k * 8, t * e * (5 + k), "float32", f"logits [{t}, {e}] f32, k={k}",
+    )
+    dwt = randn(t, k)
+    (want,) = _grads(torch, lambda a: ref.topk_gating(a, k), [logits], dwt)
+    got = ktg.topk_gating_bwd_cuda(logits, dwt, ids)
+    err = check(torch, got, want, F32_TOL, "topk_gating_bwd")
+    rows["topk_gating_bwd"] = kernel_row(
+        torch, "topk_gating_bwd", err,
+        time_ms(torch, lambda: ktg.topk_gating_bwd_cuda(logits, dwt, ids), 200),
+        time_ms(torch, lambda: ref.topk_gating_bwd(logits, dwt, ids), 200), None,
+        t * e * 8 + t * k * 8, t * e * 10.0, "float32", f"logits [{t}, {e}] f32, k={k}",
+    )
+
+    # -- flash_attention backward at the step's attention: q [B, Hq, S, D].
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, kk, vv = randn(batch, hq, seq, dh, dt=bf16), randn(batch, hkv, seq, dh, dt=bf16), \
+        randn(batch, hkv, seq, dh, dt=bf16)
+    do = randn(batch, hq, seq, dh, dt=bf16)
+    out, lse = kfa.flash_attention_cuda(q, kk, vv, causal=True, return_lse=True)
+    pairs = seq * (seq + 1) / 2
+    kx, vx = (a.repeat_interleave(hq // hkv, dim=1) for a in (kk, vv))
+    rows["flash_attention"] = kernel_row(
+        torch, "flash_attention",
+        check(torch, out, ref.flash_attention(q, kk, vv, causal=True), BF16_TOL, "flash_attention"),
+        time_ms(torch, lambda: kfa.flash_attention_cuda(q, kk, vv, causal=True, return_lse=True), 50),
+        time_ms(torch, lambda: ref.flash_attention(q, kk, vv, causal=True), 20),
+        time_ms(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 50),
+        2 * (2 * batch * hq + 2 * batch * hkv) * seq * dh + batch * hq * seq * 4,
+        4.0 * dh * pairs * hq * batch, "bfloat16",
+        f"q [{batch}, {hq}, {seq}, {dh}] bf16 causal, with log-sum-exp",
+    )
+    want = _grads(torch, lambda a, b, c: ref.flash_attention(a, b, c, causal=True), [q, kk, vv], do)
+    got = kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do, causal=True)
+    err = max(check_rel(a, b, BF16_GRAD_REL, f"flash_attention_bwd d{nm}")
+              for a, b, nm in zip(got, want, "qkv"))
+    ql, kl, vl = (a.detach().clone().requires_grad_() for a in (q, kk, vv))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    rows["flash_attention_bwd"] = kernel_row(
+        torch, "flash_attention_bwd", err,
+        time_ms(torch, lambda: kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do), 20),
+        time_ms(torch, lambda: ref.flash_attention_bwd(q, kk, vv, do, causal=True), 5),
+        time_ms(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), 20),
+        (3 * batch * hq * seq * dh + 4 * batch * hkv * seq * dh + batch * hq * seq * dh) * 2
+        + batch * hq * seq * 4, 10.0 * dh * pairs * hq * batch, "bfloat16",
+        f"q [{batch}, {hq}, {seq}, {dh}], k/v [{batch}, {hkv}, {seq}, {dh}] bf16 causal",
+    )
+    train_edge_cases(torch, g)
+    return rows
+
+
+def train_edge_cases(torch, g):
+    """-1 sources, fully dropped rows, S in {1, 2}, padding tiles, empty
+    experts, ragged S with window and softcap, in f32 and bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import grouped_matmul as kgm
+    from repro_torch.kernels import moe_dispatch as kmd
+
+    dev = torch.device("cuda")
+    cpu = torch.Generator().manual_seed(5)
+    errs = []
+    for dt, tol in ((torch.float32, REDUCE_TOL), (torch.bfloat16, BF16_TOL)):
+        x = torch.randn((37, 40), generator=g, device=dev).to(dt)
+        src = torch.randint(-1, 37, (50,), generator=cpu, dtype=torch.int32).to(dev)
+        assert torch.equal(kmd.moe_dispatch_cuda(x, src), ref.moe_dispatch(x, src))
+        for s in (1, 2):
+            t, p = 30, 70
+            slot = torch.randperm(p, generator=cpu)[: t * s].reshape(t, s).to(torch.int32)
+            slot[torch.rand((t, s), generator=cpu) < 0.25] = -1
+            slot[0] = -1  # a fully dropped row
+            inv = torch.full((p,), -1, dtype=torch.int32)
+            flat = slot.reshape(-1)
+            inv[flat[flat >= 0].long()] = torch.nonzero(flat >= 0)[:, 0].to(torch.int32)
+            slot, inv = slot.to(dev), inv.to(dev)
+            y = torch.randn((p, 40), generator=g, device=dev).to(dt)
+            w = torch.rand((t, s), generator=g, device=dev)
+            got = kmd.moe_combine_cuda(y, slot, w)
+            assert not got[0].any(), "a fully dropped row must be exactly 0"
+            errs.append(check(torch, got, ref.moe_combine(y, slot, w), F32_TOL, "combine edge"))
+            dout = torch.randn((t, 40), generator=g, device=dev)
+            want = _grads(torch, lambda a, b: ref.moe_combine(a, slot, b), [y, w], dout)
+            for a, b in zip(kmd.moe_combine_bwd_cuda(dout, y, slot, w, inv), want):
+                errs.append(check(torch, a, b, tol, f"combine_bwd edge {dt} S={s}"))
+        # Tiles: an expert with 100 rows (two runs), an empty one, ragged
+        # tails, and trailing zero tiles clipped to the last expert.
+        counts, kdim, ndim = [100, 0, 9, 64, 1], 64, 200
+        be = sum(([ei] * -(-c // 8) for ei, c in enumerate(counts)), []) + [4] * 3
+        xb = torch.zeros((len(be) * 8, kdim), device=dev)
+        row = 0
+        for c in counts:
+            xb[row:row + c] = torch.randn((c, kdim), generator=g, device=dev)
+            row += -(-c // 8) * 8
+        xb = xb.reshape(-1, 8, kdim).to(dt)
+        be = torch.tensor(be, dtype=torch.int32, device=dev)
+        w = (torch.randn((5, kdim, ndim), generator=g, device=dev) / 8).to(dt)
+        rel = BF16_GEMM_REL if dt == torch.bfloat16 else 1e-5
+        errs.append(check_rel(kgm.grouped_matmul_blocks_cuda(xb, w, be),
+                              ref.grouped_matmul_blocks(xb, w, be), rel, f"gmm edge {dt}"))
+        dy = torch.randn((len(be), 8, ndim), generator=g, device=dev).to(dt)
+        want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul_blocks(a, b, be), [xb, w], dy)
+        errs.append(check_rel(kgm.grouped_matmul_blocks_dx_cuda(dy, w, be), want_dx, rel, "dX edge"))
+        dwk = kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, 5)
+        assert not dwk[1].any(), "an expert without tiles has a zero gradient"
+        errs.append(check_rel(dwk, want_dw, rel, "dW edge"))
+        q = torch.randn((2, 6, 77, 128), generator=g, device=dev).to(dt)
+        k = torch.randn((2, 2, 77, 128), generator=g, device=dev).to(dt)
+        v = torch.randn((2, 2, 77, 128), generator=g, device=dev).to(dt)
+        do = torch.randn((2, 6, 77, 128), generator=g, device=dev).to(dt)
+        for kw in (dict(causal=True, window=33, softcap=30.0), dict(causal=False)):
+            out, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            got = kfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+            want = _grads(torch, lambda a, b, c: ref.flash_attention(a, b, c, **kw), [q, k, v], do)
+            rel = BF16_GRAD_REL if dt == torch.bfloat16 else 1e-4
+            errs += [check_rel(a, b, rel, f"flash bwd edge {dt} {kw}") for a, b in zip(got, want)]
+    torch.cuda.synchronize()
+    print(f"train kernels edge cases: {len(errs)} comparisons within tolerance, "
+          f"max_abs_err={max(errs):.3e}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one training step, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def step_card_vs_cpu(torch, seed: int) -> float:
+    """Loss and every parameter's gradient of one step at a reduced width,
+    f32, on the card (kernels) and on the CPU (plain versions).  Tolerance:
+    the loss within 1e-4 relative; each gradient within 1e-3 of its largest
+    magnitude (f32 sums in another order through two layers), and no
+    gradient may be zero on one side only (a cut gradient)."""
+    from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.train_step import init_all, loss_fn
+
+    cfg = dataclasses.replace(
+        MIXTRAL_8X7B_CONFIG, num_layers=2, d_model=512, num_heads=4, num_kv_heads=2,
+        d_ff=1024, dtype="float32",
+        moe=dataclasses.replace(MIXTRAL_8X7B_CONFIG.moe, d_ff=1024),
+    )
+    plan = make_plan(None)
+    params, _, _ = init_all(seed, cfg, plan, AdamWConfig(), device="cpu")
+    b = next(iter(SyntheticLM(cfg.vocab_size, 64, 2, seed=seed)))
+
+    def run(dev):
+        tree = _map_tree(params, lambda t: t.detach().to(dev).requires_grad_())
+        batch = {"tokens": torch.as_tensor(b.tokens, device=dev),
+                 "labels": torch.as_tensor(b.labels, device=dev)}
+        leaves = dict(_flat_tree(tree))
+        loss, _ = loss_fn(tree, batch, cfg, plan)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach().cpu(), {k: g.detach().cpu() for k, g in zip(leaves, grads)}
+
+    loss_cpu, g_cpu = run("cpu")
+    loss_gpu, g_gpu = run("cuda")
+    assert abs(loss_gpu.item() - loss_cpu.item()) <= 1e-4 * abs(loss_cpu.item()), \
+        f"step loss card {loss_gpu.item()} vs cpu {loss_cpu.item()}"
+    worst = 0.0
+    for name, want in g_cpu.items():
+        got = g_gpu[name]
+        scale = want.abs().max().item()
+        assert (scale == 0.0) == (got.abs().max().item() == 0.0), f"{name}: gradient cut"
+        err = (got - want).abs().max().item()
+        assert err <= 1e-3 * scale + 1e-7, f"{name}: max |diff| {err} vs max |grad| {scale}"
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"step: card vs cpu at d_model {cfg.d_model}, {cfg.num_layers} layers, "
+          f"{len(g_cpu)} gradients: loss {loss_gpu.item():.6f} vs {loss_cpu.item():.6f}, "
+          f"worst max|diff|/max|grad| = {worst:.3e}", flush=True)
+    return worst
+
+
+def _flat_tree(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_tree(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
+def _map_tree(tree, fn):
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train Mixtral-8x7B (2 of 32 layers) through Trainer
+# ---------------------------------------------------------------------------
+
+
+def train(torch, seed: int, profile: bool):
+    import numpy as np
+
+    from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
+    from repro_torch.core.controlplane import ControlPlane
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(MIXTRAL_8X7B_CONFIG, num_layers=TRAIN_LAYERS)
+    plan = make_plan(None)
+    seq, batch = 256, 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(
+        cfg, AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS),
+        TrainerConfig(total_steps=TRAIN_STEPS, reconfig_every=2, reconfig_min_gain=0.0,
+                      ckpt_every=0),
+        plan, seed=seed, device="cuda",
+    )
+    # Placement needs freedom: a 4-device region (2 experts per device), as
+    # the reference's own trainer test injects (tests/test_train.py:222).
+    tr.controlplane = ControlPlane(num_layers=TRAIN_LAYERS, num_experts=cfg.moe.num_experts,
+                                   num_devices=4, use_copilot=True, min_gain_fraction=0.0)
+    nparams = sum(t.numel() for _, t in _flat_tree(tr.params))
+    torch.cuda.synchronize()
+    print(f"model: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"experts={cfg.moe.num_experts} top{cfg.moe.top_k} d_ff={cfg.moe.d_ff} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers}/32 backend={cfg.moe.backend} "
+          f"dispatch={cfg.moe.dispatch}: {nparams / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB with moments, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The main path, one Trainer.train call per step (the loop resumes where
+    # it stopped), so that each call's wall clock covers the step AND what
+    # follows it: the control loop (observe, COPILOT's refit, plans) and the
+    # in-place permute, which the step's own clock leaves out.  Nothing but
+    # training runs between the count reset and the read.
+    data = iter(SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed))
+    perms = [np.asarray(tr.expert_perm).copy()]
+    call_ms, peaks = [], []
+    ops.reset_launch_counts()
+    for s in range(1, TRAIN_STEPS + 1):
+        tr.tcfg.total_steps = s
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.train(data)
+        torch.cuda.synchronize()
+        call_ms.append(1e3 * (time.perf_counter() - t0))
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        perms.append(np.asarray(tr.expert_perm).copy())
+    counts = ops.launch_counts()
+    log = tr.metrics_log
+    losses = [float(m["loss"]) for m in log]
+    step_ms = [1e3 * m["step_time_s"] for m in log]
+    outside = [c - st for c, st in zip(call_ms, step_ms)]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    window_tps = batch * seq * (TRAIN_STEPS - 1) / (sum(call_ms[1:]) / 1e3)
+    peak = max(peaks)
+    moves = [i for i in range(TRAIN_STEPS) if not np.array_equal(perms[i], perms[i + 1])]
+    assert all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}"
+    assert tr.reconfig_count > 0 and moves, "the control plane never reconfigured"
+    missing = [nm for nm in TRAIN_KERNELS if counts[nm] == 0]
+    assert not missing, f"kernels never launched while training: {missing}"
+    print(f"train: losses {['%.4f' % v for v in losses]}", flush=True)
+    print(f"train: {TRAIN_STEPS} steps of {batch}x{seq} tokens: median step {med:.1f} ms "
+          f"(trainer's clock, steps 2-{TRAIN_STEPS}), {batch * seq / med * 1e3:.1f} tokens/s at "
+          f"that median; whole window (steps 2-{TRAIN_STEPS}, control loop and permutes "
+          f"included) {sum(call_ms[1:]):.1f} ms, {window_tps:.1f} tokens/s; peak memory "
+          f"{peak:.2f} GB (training only); {tr.reconfig_count} layer re-placements in "
+          f"{len(moves)} applied reconfigurations (after steps {[i + 1 for i in moves]})",
+          flush=True)
+    print("train: per step ms (step / after the step: control loop, COPILOT, plans, permute): "
+          + ", ".join(f"{i + 1}: {st:.1f} / {o:.1f}{' *' if i in moves else ''}"
+                      for i, (st, o) in enumerate(zip(step_ms, outside)))
+          + "  (* = weights moved)", flush=True)
+    print(f"train: launches {counts} (per step: "
+          f"{ {k: v / TRAIN_STEPS for k, v in counts.items() if v} })", flush=True)
+    checks = replacement_check(torch, tr, cfg, plan, perms, moves, seq, batch, seed)
+    if profile:
+        profile_train(torch, tr, data, seq * batch)
+    del tr
+    torch.cuda.empty_cache()
+    return counts, dict(losses=losses, median_ms=med, window_tps=window_tps, peak_gb=peak,
+                        checks=checks)
+
+
+def replacement_check(torch, tr, cfg, plan, perms, moves, seq: int, batch: int, seed: int):
+    """Replays every applied reconfiguration of the run on the trained
+    weights: from the slot layout before it, a fixed probe batch's loss and
+    expert gradients; then the same in-place move the trainer made
+    (``permute_expert_weights``), and the probe again.  Loss and gradients
+    must be bit-identical once the permutation is undone.  The weights end
+    in the trainer's final layout."""
+    import numpy as np
+
+    from repro_torch.core.controlplane import permute_expert_weights
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.train_step import loss_fn
+
+    pb = next(iter(SyntheticLM(cfg.vocab_size, seq, batch, seed=seed + 1)))
+    probe_batch = {"tokens": torch.as_tensor(pb.tokens, device="cuda"),
+                   "labels": torch.as_tensor(pb.labels, device="cuda")}
+    moe = tr.params["blocks"]["0_global"]["moe"]
+    names = ("w_in", "w_gate", "w_out")
+    ev = cfg.moe.num_experts
+
+    def probe(perm):
+        loss, _ = loss_fn(tr.params, probe_batch, cfg, plan,
+                          expert_perm=torch.as_tensor(perm, dtype=torch.int32, device="cuda"))
+        grads = torch.autograd.grad(loss, [moe[nm] for nm in names])
+        return loss.detach(), dict(zip(names, grads))
+
+    def move(src, dst):
+        # Slot s of the dst layout takes the expert that sits at src[e] for
+        # the expert e that dst puts in s.
+        permute_expert_weights(tr.params, np.take_along_axis(src, np.argsort(dst, 1), 1), ev)
+
+    layout = perms[-1]
+    checks = []
+    for i in moves:
+        before, after = perms[i], perms[i + 1]
+        move(layout, before)
+        loss0, g0 = probe(before)
+        move(before, after)
+        layout = after
+        loss1, g1 = probe(after)
+        assert torch.equal(loss0, loss1), f"probe loss moved: {loss0.item()} -> {loss1.item()}"
+        for nm in names:
+            for li in range(len(before)):
+                a = g0[nm][li][torch.as_tensor(before[li], device="cuda").long()]
+                b = g1[nm][li][torch.as_tensor(after[li], device="cuda").long()]
+                assert torch.equal(a, b), f"{nm} layer {li}: gradient moved with its expert"
+        moved = int((before != after).sum())
+        checks.append((i + 1, loss0.item(), moved))
+        print(f"train: reconfiguration after step {i + 1} moved {moved} expert slots; replayed "
+              f"on the trained weights, probe loss {loss0.item():.6f} and expert gradients "
+              f"bit-identical", flush=True)
+        del g0, g1
+    move(layout, perms[-1])
+    return checks
+
+
+TRAIN_KERNELS = (
+    "topk_gating", "topk_gating_bwd", "flash_attention", "flash_attention_bwd", "moe_dispatch",
+    "moe_combine", "moe_combine_bwd", "grouped_matmul_blocks", "grouped_matmul_blocks_dx",
+    "grouped_matmul_blocks_dw",
+)
+
+
+def profile_train(torch, tr, data, tokens: int):
+    """Device time by kernel class over two training steps (``--profile``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.tcfg.total_steps = tr.step + 2
+    tr.controlplane = None  # no reconfiguration (and no probes) in the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(data)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    classes: dict[str, float] = {}
+    kernels = []
+    ours = ("topk_gating", "flash_fwd", "flash_bwd", "gather_rows", "combine", "gmm_")
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        low = ev.key.lower()
+        if any(w in low for w in ours):
+            cls = "ported kernels"
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+            cls = "matmul (cuBLAS)"
+        elif "memcpy" in low or "memset" in low:
+            cls = "copies"
+        else:
+            cls = "other PyTorch kernels"
+        classes[cls] = classes.get(cls, 0.0) + ms
+        kernels.append((ms, ev.count, ev.key[:90]))
+    busy = sum(classes.values())
+    print(f"profile train: 2 steps of {tokens} tokens, wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%",
+          flush=True)
+    for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"profile train class {cls}: {ms:.2f} ms ({100 * ms / busy:.1f}% of device time)")
+    for ms, n, name in sorted(kernels, reverse=True)[:16]:
+        print(f"profile train kernel {ms:9.3f} ms x{n:<5} {name}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and workload seed")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one serve with torch.profiler and print device time by kernel")
+                    help="also trace one serve and two training steps with torch.profiler and "
+                         "print device time by kernel")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -428,23 +1049,40 @@ def main(argv=None) -> int:
     assert toks_on == toks_off, "reconfiguration changed the generated tokens"
     assert all(0 <= t < cfg.vocab_size for out in toks_on.values() for t in out)
     for counts in (counts_off, counts_on):
-        missing = [n for n, c in counts.items() if c == 0]
+        missing = [n for n in SERVE_KERNELS if counts[n] == 0]
         assert not missing, f"kernels never launched while serving: {missing}"
     print(f"serve: tokens bit-identical with reconfiguration off and on "
           f"({rep_on.reconfig_count} reconfigurations)", flush=True)
     if args.profile:
         profile_serve(torch, params, cfg, plan, reqs, gen, slots=slots, max_len=max_len, page=page)
 
+    # Training: free the serving model first.
+    del params
+    torch.cuda.empty_cache()
+    from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
+
+    rows.update(train_kernel_phase(torch, MIXTRAL_8X7B_CONFIG, 2, 256, args.seed))
+    step_card_vs_cpu(torch, args.seed)
+    counts_train, _ = train(torch, args.seed, args.profile)
+
+    # launches: each kernel's count from the path it belongs to — the
+    # training run for every kernel it launches, the serve (reconfiguration
+    # on) for the decode kernel, which only serving runs.  The times of the
+    # training kernels are at the training step's shapes.
     line = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         r = rows[name]
+        launches = counts_train[name] if name in TRAIN_KERNELS else counts_on[name]
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts_on[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
+            launches_by_path={"serve": counts_on[name], "train": counts_train[name]},
         ))
-    assert all(math.isfinite(v) for r in line for k, v in r.items() if k.endswith("ms"))
+    assert all(math.isfinite(v) for r in line for k, v in r.items()
+               if k.endswith("ms") and v is not None)
+    assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

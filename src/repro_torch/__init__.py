@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of :mod:`repro` (the serving slice).
+"""PyTorch + CUDA port of :mod:`repro` (the serving and training slices).
 
 Mirrors the JAX package's subpackage and module names; every Pallas kernel
 on the ported path is a hand-written CUDA kernel under ``csrc/`` with its

@@ -12,8 +12,9 @@ threaded to the router::
     engine.apply(plan)            # actuate: compose into the perm stack
 
 Failure handling (§5.4) emits failover plans through the same path.
-COPILOT prediction (``use_copilot=True``) and the OCS mode (a bound
-``fabric``) raise ``NotImplementedError`` until their slice.
+``end_step`` refits COPILOT (:mod:`repro_torch.core.copilot`) across all
+layers in one batched call, as the reference does; the OCS mode (a bound
+``fabric``) raises ``NotImplementedError`` until its slice.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.copilot import CopilotPredictor
 from repro_torch.core.placement import (
     inverse_permutation,
     placement_cost,
@@ -277,9 +279,8 @@ class ControlPlane:
     """The reconfiguration engine (one per reconfigurable region), in
     placement mode: plans carry expert permutations over the current slot
     occupancy and ``apply`` composes them into the per-layer ``perm_stack``
-    the model's router consumes.  ``fabric`` (OCS mode) and
-    ``use_copilot=True`` raise ``NotImplementedError`` until their slice;
-    ``use_copilot`` therefore defaults to False here."""
+    the model's router consumes.  ``fabric`` (OCS mode) raises
+    ``NotImplementedError`` until its slice."""
 
     def __init__(
         self,
@@ -292,13 +293,12 @@ class ControlPlane:
         window: int = 8,
         min_gain_fraction: float = 0.05,
         reconfig_cost_bytes: float = 0.0,
-        use_copilot: bool = False,
+        use_copilot: bool = True,
+        fit_steps: int = 150,
         num_regions: int = 0,
     ):
         if fabric is not None:
             raise NotImplementedError("the OCS (fabric) mode comes with the evaluation slice")
-        if use_copilot and num_layers > 1:
-            raise NotImplementedError("COPILOT prediction comes with its slice")
         self.num_layers = num_layers
         self.num_experts = num_experts
         self.num_devices = max(num_devices, 1)
@@ -308,6 +308,11 @@ class ControlPlane:
         self.min_gain_fraction = min_gain_fraction
         self.reconfig_cost_bytes = reconfig_cost_bytes
         self.monitor = TrafficMonitor(num_layers, num_experts, window=window)
+        self.copilot = (
+            CopilotPredictor(num_layers, num_experts, fit_steps=fit_steps)
+            if use_copilot and num_layers > 1
+            else None
+        )
         self.failures = (
             FailureHandler(self.num_virtual, self.num_devices)
             if self.num_devices > 1 and self.num_virtual % self.num_devices == 0
@@ -343,9 +348,24 @@ class ControlPlane:
             self.region_stats.observe(region_weights, load)
 
     def end_step(self) -> None:
-        """Close the step: advance the monitor window."""
+        """Close the step: advance the monitor window, refit COPILOT (one
+        batched call across all layers)."""
         self._m_steps.inc()
         self.monitor.advance()
+        if self.copilot is not None:
+            self.copilot.update(self.monitor)
+
+    # -- lifecycle: predict ---------------------------------------------------
+    def predict_load(self, layer: int) -> np.ndarray | None:
+        """COPILOT forecast of ``layer``'s load from layer-1's latest
+        observation (§B.1).  None when unavailable."""
+        if self.copilot is None or layer < 1:
+            return None
+        prev = self.monitor.loads(layer - 1)
+        if not len(prev):
+            return None
+        src = min(layer - 1, self.copilot.num_layers - 2)
+        return self.copilot.predict(src, prev[-1])
 
     # -- lifecycle: plan ------------------------------------------------------
     def plan(

@@ -22,6 +22,23 @@
 // ragged tail of any S are masked in the kernel (the Pallas kernel relied
 // on block sizes that divide S).  The products run on the CUDA cores in
 // f32, not the tensor cores: mma/wgmma and TMA staging are later work.
+// When asked (a non-null pointer; null when serving), the forward also
+// writes each row's f32 log-sum-exp [B, Hq, S] for the backward.
+//
+// Backward (no TPU kernel: the JAX package differentiates its jnp
+// reference), FlashAttention-2 style, in two launches on the stream:
+//   1. dQ: one block per (b, hq, 64-row q tile), laid out as the forward.
+//      Each row first forms delta = rowsum(dO * O) (kept for launch 2),
+//      then walks the key tiles the forward walked: p = exp(s - lse),
+//      dp = dO . v, ds = p (dp - delta) (times 1 - tanh^2 under softcap),
+//      dq += ds k.
+//   2. dK/dV: one block per (b, kv head, 64-key tile), four threads per key
+//      row holding k, v and the dk / dv accumulators in registers.  It
+//      loops over the q tiles of ALL the group's q heads that can see the
+//      key tile (causal: q >= k; window: q - k < window), staging q (scaled)
+//      and dO in shared memory: dv += p dO, dk += ds q.
+// Each output element has one writer and a fixed summation order: no
+// atomics, so the gradients are deterministic.
 #include "common.cuh"
 
 namespace {
@@ -40,8 +57,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int Hq, int Hkv, int S, float scale, int causal,
-                     int window, float softcap) {
+                     T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int S,
+                     float scale, int causal, int window, float softcap) {
   constexpr int DPL = D / kLanes;
   extern __shared__ float sm[];
   float* Ks = sm;              // [kBN][D]
@@ -125,50 +142,293 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
       orow[part + kLanes * i] = repro::from_f32<T>(l > 0.f ? acc[i] / l : 0.f);
+    if (lse != nullptr && part == 0)
+      lse[static_cast<size_t>(bh) * S + qi] = l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  return (2 * kBM * D + 2 * kBM) * sizeof(float);
+}
+
+__device__ __forceinline__ float quad_sum(float s) {
+  s += __shfl_xor_sync(repro::kFullMask, s, 1);
+  s += __shfl_xor_sync(repro::kFullMask, s, 2);
+  return s;
+}
+
+__device__ __forceinline__ bool visible(int qi, int kj, int S, int causal, int window) {
+  return qi < S && kj < S && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+}
+
+// Launch 1: delta and dQ.
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int S,
-           float scale, int causal, int window, float softcap, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, T* __restrict__ dq, int Hq, int Hkv, int S,
+                        float scale, int causal, int window, float softcap) {
+  constexpr int DPL = D / kLanes;
+  extern __shared__ float sm[];
+  float* Ks = sm;            // [kBN][D]
+  float* Vs = Ks + kBN * D;  // [kBN][D]
+
+  const int tid = threadIdx.x;
+  const int r = tid / kLanes;
+  const int part = tid % kLanes;
+  const int bh = blockIdx.y;
+  const int b = bh / Hq;
+  const int hq = bh % Hq;
+  const int kvh = hq / (Hq / Hkv);
+  const int q0 = blockIdx.x * kBM;
+  const int qi = q0 + r;
+  const bool row_ok = qi < S;
+  const size_t roff = (static_cast<size_t>(bh) * S + (row_ok ? qi : 0)) * D;
+  const size_t kv_off = static_cast<size_t>(b * Hkv + kvh) * S * D;
+
+  float qr[DPL], dor[DPL], acc[DPL];
+  float dl = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    const int c = part + kLanes * i;
+    qr[i] = row_ok ? repro::to_f32(q[roff + c]) * scale : 0.f;
+    dor[i] = row_ok ? repro::to_f32(dout[roff + c]) : 0.f;
+    dl = fmaf(dor[i], row_ok ? repro::to_f32(o[roff + c]) : 0.f, dl);
+    acc[i] = 0.f;
+  }
+  dl = quad_sum(dl);
+  if (row_ok && part == 0) delta[static_cast<size_t>(bh) * S + qi] = dl;
+  const float l_i = row_ok ? lse[static_cast<size_t>(bh) * S + qi] : 0.f;
+
+  const int kv_end = causal ? min(S, q0 + kBM) : S;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  for (int k0 = (kv_begin / kBN) * kBN; k0 < kv_end; k0 += kBN) {
+    __syncthreads();
+    for (int idx = tid; idx < kBN * D; idx += kThreads) {
+      const int kj = k0 + idx / D;
+      const size_t g = kv_off + static_cast<size_t>(kj) * D + idx % D;
+      Ks[idx] = kj < S ? repro::to_f32(k[g]) : 0.f;
+      Vs[idx] = kj < S ? repro::to_f32(v[g]) : 0.f;
+    }
+    __syncthreads();
+    for (int j = 0; j < kBN; ++j) {
+      const float* kr = Ks + j * D + part;
+      const float* vr = Vs + j * D + part;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        s = fmaf(qr[i], kr[kLanes * i], s);
+        dp = fmaf(dor[i], vr[kLanes * i], dp);
+      }
+      s = quad_sum(s);
+      dp = quad_sum(dp);
+      float th = 0.f;
+      if (softcap > 0.f) {
+        th = tanhf(s / softcap);
+        s = softcap * th;
+      }
+      const bool valid = row_ok && visible(qi, k0 + j, S, causal, window);
+      const float p = valid ? expf(s - l_i) : 0.f;
+      float ds = p * (dp - dl);
+      if (softcap > 0.f) ds *= 1.f - th * th;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(ds, kr[kLanes * i], acc[i]);
+    }
+  }
+  if (row_ok) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) dq[roff + part + kLanes * i] = repro::from_f32<T>(acc[i] * scale);
+  }
+}
+
+// Launch 2: dK and dV, summed over every q head of the kv head's group.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int S,
+                          float scale, int causal, int window, float softcap) {
+  constexpr int DPL = D / kLanes;
+  extern __shared__ float sm[];
+  float* Qs = sm;              // [kBM][D], scaled
+  float* Ds = Qs + kBM * D;    // [kBM][D], dO
+  float* Ls = Ds + kBM * D;    // [kBM] lse
+  float* Es = Ls + kBM;        // [kBM] delta
+
+  const int tid = threadIdx.x;
+  const int r = tid / kLanes;
+  const int part = tid % kLanes;
+  const int bkv = blockIdx.y;
+  const int b = bkv / Hkv;
+  const int kvh = bkv % Hkv;
+  const int group = Hq / Hkv;
+  const int k0 = blockIdx.x * kBN;
+  const int kj = k0 + r;
+  const bool key_ok = kj < S;
+  const size_t koff = (static_cast<size_t>(bkv) * S + (key_ok ? kj : 0)) * D;
+
+  float kr[DPL], vr[DPL], dka[DPL], dva[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    const int c = part + kLanes * i;
+    kr[i] = key_ok ? repro::to_f32(k[koff + c]) : 0.f;
+    vr[i] = key_ok ? repro::to_f32(v[koff + c]) : 0.f;
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + kBN - 1 + window) : S;
+  for (int g = 0; g < group; ++g) {
+    const int bh = b * Hq + kvh * group + g;
+    const size_t hoff = static_cast<size_t>(bh) * S;
+    for (int q0 = (q_begin / kBM) * kBM; q0 < q_end; q0 += kBM) {
+      __syncthreads();
+      for (int idx = tid; idx < kBM * D; idx += kThreads) {
+        const int qi = q0 + idx / D;
+        const size_t gi = (hoff + qi) * D + idx % D;
+        Qs[idx] = qi < S ? repro::to_f32(q[gi]) * scale : 0.f;
+        Ds[idx] = qi < S ? repro::to_f32(dout[gi]) : 0.f;
+      }
+      for (int idx = tid; idx < kBM; idx += kThreads) {
+        const int qi = q0 + idx;
+        Ls[idx] = qi < S ? lse[hoff + qi] : 0.f;
+        Es[idx] = qi < S ? delta[hoff + qi] : 0.f;
+      }
+      __syncthreads();
+      for (int i = 0; i < kBM; ++i) {
+        const float* qrow = Qs + i * D + part;
+        const float* drow = Ds + i * D + part;
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) {
+          s = fmaf(qrow[kLanes * c], kr[c], s);
+          dp = fmaf(drow[kLanes * c], vr[c], dp);
+        }
+        s = quad_sum(s);
+        dp = quad_sum(dp);
+        float th = 0.f;
+        if (softcap > 0.f) {
+          th = tanhf(s / softcap);
+          s = softcap * th;
+        }
+        const bool valid = key_ok && visible(q0 + i, kj, S, causal, window);
+        const float p = valid ? expf(s - Ls[i]) : 0.f;
+        float ds = p * (dp - Es[i]);
+        if (softcap > 0.f) ds *= 1.f - th * th;
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) {
+          dva[c] = fmaf(p, drow[kLanes * c], dva[c]);
+          dka[c] = fmaf(ds, qrow[kLanes * c], dka[c]);
+        }
+      }
+    }
+  }
+  if (key_ok) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      dk[koff + part + kLanes * i] = repro::from_f32<T>(dka[i]);
+      dv[koff + part + kLanes * i] = repro::from_f32<T>(dva[i]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  void *out, *lse, *delta, *dq, *dk, *dv;
+  int B, Hq, Hkv, S;
+  float scale;
+  int causal, window;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_fwd(const Args& a) {
   auto kernel = flash_fwd_kernel<T, D>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBM - 1) / kBM, B * Hq);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv,
-                                           S, scale, causal, window, softcap);
+  const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.Hq, a.Hkv, a.S, a.scale, a.causal,
+      a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-             int S, float scale, int causal, int window, float softcap, cudaStream_t stream) {
+template <typename T, int D>
+int launch_bwd(const Args& a) {
+  auto dq_kernel = flash_bwd_dq_kernel<T, D>;
+  auto dkdv_kernel = flash_bwd_dkdv_kernel<T, D>;
+  const size_t dq_smem = smem_bytes<D>();
+  const size_t kv_smem = bwd_smem_bytes<D>();
+  cudaError_t err = repro::allow_smem(dq_kernel, dq_smem);
+  if (err == cudaSuccess) err = repro::allow_smem(dkdv_kernel, kv_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 dq_grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
+  dq_kernel<<<dq_grid, kThreads, dq_smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<float*>(a.delta), static_cast<T*>(a.dq),
+      a.Hq, a.Hkv, a.S, a.scale, a.causal, a.window, a.softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid((a.S + kBN - 1) / kBN, a.B * a.Hkv);
+  dkdv_kernel<<<kv_grid, kThreads, kv_smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Hq,
+      a.Hkv, a.S, a.scale, a.causal, a.window, a.softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kBwd>
+int dispatch_d(int D, const Args& a) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, scale, causal, window, softcap, stream);
+      return kBwd ? launch_bwd<T, 64>(a) : launch_fwd<T, 64>(a);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, scale, causal, window, softcap, stream);
+      return kBwd ? launch_bwd<T, 128>(a) : launch_fwd<T, 128>(a);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, S, scale, causal, window, softcap, stream);
+      return kBwd ? launch_bwd<T, 256>(a) : launch_fwd<T, 256>(a);
     default:
       return -1;
   }
 }
 
+template <bool kBwd>
+int dispatch(int dtype, int D, const Args& a) {
+  if (dtype == repro::kBF16) return dispatch_d<__nv_bfloat16, kBwd>(D, a);
+  if (dtype == repro::kF32) return dispatch_d<float, kBwd>(D, a);
+  return -2;
+}
+
 }  // namespace
 
-// window <= 0: no window; softcap <= 0: no softcap.
+// window <= 0: no window; softcap <= 0: no softcap; lse null: not written.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Hq, int Hkv, int S, int D, float scale,
-                                   int causal, int window, float softcap, void* stream) {
+                                   void* lse, int dtype, int B, int Hq, int Hkv, int S, int D,
+                                   float scale, int causal, int window, float softcap,
+                                   void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, S, scale, causal, window, softcap,
-                                   st);
-  if (dtype == repro::kF32)
-    return launch_d<float>(D, q, k, v, o, B, Hq, Hkv, S, scale, causal, window, softcap, st);
-  return -2;
+  Args a{q, k, v, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr, nullptr,
+         B, Hq, Hkv, S, scale, causal, window, softcap, static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(dtype, D, a);
+}
+
+// o, lse: the forward's output and log-sum-exp; delta: f32 [B, Hq, S]
+// scratch; dq [B, Hq, S, D], dk/dv [B, Hkv, S, D] in the inputs' dtype.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, void* delta, void* dq,
+                                   void* dk, void* dv, int dtype, int B, int Hq, int Hkv, int S,
+                                   int D, float scale, int causal, int window, float softcap,
+                                   void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+  Args a{q, k, v, o, dout, nullptr, const_cast<void*>(lse), delta, dq, dk, dv,
+         B, Hq, Hkv, S, scale, causal, window, softcap, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(dtype, D, a);
 }

@@ -5,7 +5,10 @@ The port imports neither JAX nor the JAX package; a caller that has both
 converts first (``jax.tree.map(np.asarray, params)``) and hands the numpy
 tree over.  ``bfloat16`` leaves arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses: their bits are reinterpreted as ``uint16``,
-built into an ``int16`` tensor and viewed as ``torch.bfloat16``.
+built into an ``int16`` tensor and viewed as ``torch.bfloat16``.  The same
+converter carries an AdamW state across (``{"mu", "nu", "step"}``: nested
+moment trees and an int32 scalar), so two trainers can start from one
+state.
 """
 
 from __future__ import annotations
@@ -26,11 +29,12 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_numpy(tree, cfg=None, device="cpu"):
-    """The port's parameters from a numpy parameter tree (nested dicts of
-    arrays), same names, same shapes, same dtypes.  With ``cfg`` given, the
-    floating leaves are checked against ``cfg.dtype`` (the router stays
-    f32, as in both packages)."""
+def params_from_numpy(tree, cfg=None, device="cpu", *, trainable: bool = False):
+    """The port's parameters (or optimizer state) from a numpy tree (nested
+    dicts of arrays), same names, same shapes, same dtypes.  With ``cfg``
+    given, the floating leaves are checked against ``cfg.dtype`` (the
+    router stays f32, as in both packages); with ``trainable`` every
+    floating leaf requires grad, as the trainer's parameters do."""
 
     def conv(node, path):
         if isinstance(node, dict):
@@ -40,6 +44,8 @@ def params_from_numpy(tree, cfg=None, device="cpu"):
             want = getattr(torch, cfg.dtype)
             if t.dtype != want:
                 raise TypeError(f"{path}: {t.dtype} but the config says {want}")
+        if trainable and t.is_floating_point():
+            t.requires_grad_(True)
         return t
 
     return conv(tree, "")

@@ -23,7 +23,9 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "nvcc"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("topk_gating", "flash_attention", "paged_flash_decode")
+SOURCES = (
+    "topk_gating", "flash_attention", "paged_flash_decode", "moe_dispatch", "grouped_matmul",
+)
 # No --use_fast_math: the top-k ids and the softmax rely on IEEE expf/tanhf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,9 +1,11 @@
 """Public kernel entry points of the port.
 
 Each op dispatches on the tensor's device: a CPU tensor goes to the plain
-PyTorch version (:mod:`repro_torch.kernels.ref`), a CUDA tensor goes to the
-hand-written kernel — whose wrapper raises on anything the kernel does not
-take.  No path falls back from the kernel to the plain version.
+PyTorch version (:mod:`repro_torch.kernels.ref`) under ordinary autograd, a
+CUDA tensor goes to the hand-written kernel — whose wrapper raises on
+anything the kernel does not take.  When a gradient is needed on the card,
+the op runs inside a ``torch.autograd.Function`` whose backward is a kernel
+as well.  No path falls back from a kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -12,21 +14,45 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
+    FlashAttentionFn,
+    flash_attention_bwd_cuda,
     flash_attention_cuda,
     paged_flash_decode_cuda,
 )
-from repro_torch.kernels.topk_gating import topk_gating_cuda
+from repro_torch.kernels.grouped_matmul import (
+    GroupedMatmulBlocksFn,
+    grouped_matmul_blocks_cuda,
+    grouped_matmul_blocks_dw_cuda,
+    grouped_matmul_blocks_dx_cuda,
+    grouped_matmul_cuda,
+)
+from repro_torch.kernels.moe_dispatch import (
+    MoECombineFn,
+    MoEDispatchFn,
+    moe_combine_bwd_cuda,
+    moe_combine_cuda,
+    moe_dispatch_cuda,
+)
+from repro_torch.kernels.topk_gating import TopkGatingFn, topk_gating_bwd_cuda, topk_gating_cuda
 
 __all__ = [
-    "topk_gating", "flash_attention", "paged_flash_decode", "KERNELS",
-    "launch_counts", "reset_launch_counts",
+    "topk_gating", "flash_attention", "paged_flash_decode", "moe_dispatch", "moe_combine",
+    "grouped_matmul", "KERNELS", "launch_counts", "reset_launch_counts",
 ]
 
-# Every ported kernel's CUDA wrapper, by kernel name.
+# Every kernel's CUDA wrapper, by kernel name (backward kernels included).
 KERNELS = {
     "topk_gating": topk_gating_cuda,
+    "topk_gating_bwd": topk_gating_bwd_cuda,
     "flash_attention": flash_attention_cuda,
+    "flash_attention_bwd": flash_attention_bwd_cuda,
     "paged_flash_decode": paged_flash_decode_cuda,
+    "moe_dispatch": moe_dispatch_cuda,
+    "moe_combine": moe_combine_cuda,
+    "moe_combine_bwd": moe_combine_bwd_cuda,
+    "grouped_matmul_blocks": grouped_matmul_blocks_cuda,
+    "grouped_matmul_blocks_dx": grouped_matmul_blocks_dx_cuda,
+    "grouped_matmul_blocks_dw": grouped_matmul_blocks_dw_cuda,
 }
 
 
@@ -44,17 +70,26 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def topk_gating(logits: torch.Tensor, k: int):
     """``[T, E]`` logits -> (``[T, k]`` f32 weights, ``[T, k]`` i32 ids)."""
     if _on_cpu(logits):
         return ref.topk_gating(logits, k)
-    return topk_gating_cuda(logits.float().contiguous(), k)
+    logits = logits.float().contiguous()
+    if _wants_grad(logits):
+        return TopkGatingFn.apply(logits, k)
+    return topk_gating_cuda(logits, k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None, softcap=None):
     """``q [B, Hq, S, D]``, ``k/v [B, Hkv, S, D]`` -> ``[B, Hq, S, D]``."""
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    if _wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
@@ -67,3 +102,49 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, lengths, *, window=None, s
     return paged_flash_decode_cuda(
         q, k_pool, v_pool, page_table, lengths, window=window, softcap=softcap
     )
+
+
+def moe_dispatch(x, src, *, inverse=None):
+    """Gather token rows ``x [T, D]`` into a packed layout by ``src [P]``
+    (i32 source row per slot, -1 = empty -> zeros).  ``inverse`` is the
+    map the backward gathers through on the card: ``[T]`` for a one-to-one
+    gather, ``[T, S]`` for a many-to-one one (see
+    :mod:`repro_torch.kernels.moe_dispatch`)."""
+    if _on_cpu(x):
+        return ref.moe_dispatch(x, src)
+    if _wants_grad(x):
+        if inverse is None:
+            raise ValueError("moe_dispatch on the card needs its inverse map for the backward")
+        return MoEDispatchFn.apply(x, src, inverse)
+    return moe_dispatch_cuda(x, src)
+
+
+def moe_combine(y, slot, weights, *, inverse=None):
+    """Weighted combine of packed rows ``y [P, D]`` back to token order via
+    ``slot``/``weights [T, S]`` (f32 result; ``slot < 0`` terms skipped).
+    ``inverse [P]``: the flat ``t * S + s`` term reading each row, which the
+    backward gathers through on the card."""
+    if _on_cpu(y):
+        return ref.moe_combine(y, slot, weights)
+    weights = weights.float().contiguous()
+    if _wants_grad(y, weights):
+        if inverse is None:
+            raise ValueError("moe_combine on the card needs its inverse map for the backward")
+        return MoECombineFn.apply(y, slot, weights, inverse)
+    return moe_combine_cuda(y, slot, weights)
+
+
+def grouped_matmul(x, w, *, block_experts=None):
+    """Per-expert GEMM.  ``block_experts=None``: capacity layout ``[E, C,
+    D]`` against ``w [E, D, F]`` (no kernel yet: raises on the card); with a
+    non-decreasing ``[n]`` block->expert map: dropless block layout ``[n,
+    B, D]`` (rows of tile ``i`` use ``w[block_experts[i]]``)."""
+    if block_experts is None:
+        if _on_cpu(x):
+            return ref.grouped_matmul(x, w)
+        return grouped_matmul_cuda(x, w)
+    if _on_cpu(x):
+        return ref.grouped_matmul_blocks(x, w, block_experts)
+    if _wants_grad(x, w):
+        return GroupedMatmulBlocksFn.apply(x, w, block_experts)
+    return grouped_matmul_blocks_cuda(x, w, block_experts)

@@ -1,11 +1,12 @@
-"""Shared MoE routing engine — the part the einsum and dense-decode
-backends use.
+"""Shared MoE routing engine for the einsum, dense-decode and mixnet
+backends.
 
 Port of :mod:`repro.models.routing`: router logits -> top-k
 (``ops.topk_gating``) -> renormalize -> virtual-slot destinations (the
 runtime ``expert_perm`` re-addressing the control plane plans) -> ranks
-within each destination bucket from ONE stable sort.  The block/capacity
-plans of the mixnet backend come with its slice.
+within each destination bucket from ONE stable sort -> the static-shape
+dispatch plans (``capacity_plan``, ``dropless_plan``) the mixnet backend
+packs with.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ __all__ = [
     "capacity",
     "bucket_ranks",
     "dense_dispatch_masks",
+    "DispatchPlan",
+    "capacity_plan",
+    "dropless_plan",
 ]
 
 
@@ -49,6 +53,26 @@ class RoutingInfo:
     idx: torch.Tensor  # [T, K] i32 real-expert ids (for load/loss telemetry)
     vdest: torch.Tensor  # [T, S] i32 physical virtual-slot destinations
     wfull: torch.Tensor  # [T, S] f32 combine weight per virtual destination
+
+
+@dataclasses.dataclass
+class DispatchPlan:
+    """Static-shape token layout for one dispatch stage.
+
+    ``slot[i]`` is the packed-buffer row of flat choice ``i`` (-1 dropped);
+    ``src[p]`` is the flat choice occupying packed row ``p`` (-1 empty) —
+    the two are inverse views of the same permutation (the backward passes
+    on the card gather through them).  ``num_rows`` is the static packed
+    height; ``block_experts`` (dropless layouts only) maps each
+    ``block``-row tile to its owning expert, non-decreasing, for the
+    grouped GEMM.  ``kept`` counts the placed choices (telemetry).
+    """
+
+    slot: torch.Tensor  # [N] i32
+    src: torch.Tensor  # [num_rows] i32
+    num_rows: int
+    block_experts: torch.Tensor | None
+    kept: torch.Tensor  # scalar
 
 
 def effective_top_k(top_k: int, draft_mode: str = "off") -> int:
@@ -187,3 +211,64 @@ def dense_dispatch_masks(
     dispatch = torch.einsum("...se,...sc,...s->...ec", de, dc, keepf)
     combine = torch.einsum("...se,...sc,...s->...ec", de, dc, keepf * wfull)
     return dispatch, combine
+
+
+def _invert_slots(slot: torch.Tensor, keep: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """src[p] = flat choice occupying packed row p, -1 where empty."""
+    n = slot.shape[0]
+    scatter_to = torch.where(keep, slot.long(), torch.full_like(slot, num_rows, dtype=torch.long))
+    src = torch.full((num_rows + 1,), -1, dtype=torch.int32, device=slot.device)
+    src[scatter_to] = torch.arange(n, dtype=torch.int32, device=slot.device)
+    return src[:num_rows]
+
+
+def capacity_plan(
+    dest: torch.Tensor,
+    rank: torch.Tensor,
+    valid: torch.Tensor | None,
+    num_buckets: int,
+    cap: int,
+) -> DispatchPlan:
+    """GShard layout: bucket-major ``[num_buckets * cap]`` rows, overflow
+    (rank >= cap) dropped.  With ``cap`` >= the worst-case bucket count this
+    layout is dropless (how the all-to-all send stage expresses dropless
+    without dynamic buffer sizes)."""
+    keep = rank < cap
+    if valid is not None:
+        keep = keep & valid
+    slot = torch.where(keep, dest * cap + rank, torch.full_like(dest, -1)).to(torch.int32)
+    num_rows = num_buckets * cap
+    src = _invert_slots(slot, keep, num_rows)
+    return DispatchPlan(slot=slot, src=src, num_rows=num_rows, block_experts=None,
+                        kept=keep.sum())
+
+
+def dropless_plan(
+    dest: torch.Tensor,
+    rank: torch.Tensor,
+    counts: torch.Tensor,
+    valid: torch.Tensor | None,
+    num_buckets: int,
+    block: int,
+) -> DispatchPlan:
+    """MegaBlocks layout: every valid choice placed, buckets padded up to a
+    multiple of ``block`` rows so each ``block``-row tile is owned by exactly
+    one expert.  Static height: padding never exceeds ``E * (block - 1)``
+    rows; the trailing tiles past the last bucket are clipped to the last
+    expert and hold zero rows."""
+    n = dest.shape[0]
+    dev = dest.device
+    nblk = (n + num_buckets * (block - 1)) // block
+    num_rows = nblk * block
+    pcounts = ((counts.long() + block - 1) // block) * block
+    ends = torch.cumsum(pcounts, 0)
+    starts = ends - pcounts
+    ok = valid if valid is not None else torch.ones((n,), dtype=torch.bool, device=dev)
+    safe_dest = dest.long().clamp(0, num_buckets - 1)
+    slot = torch.where(ok, starts[safe_dest] + rank, torch.full_like(ends[:1], -1))
+    slot = slot.to(torch.int32)
+    src = _invert_slots(slot, ok, num_rows)
+    tile_rows = torch.arange(nblk, device=dev, dtype=torch.long) * block
+    block_experts = torch.searchsorted(ends, tile_rows, right=True).clamp(0, num_buckets - 1)
+    return DispatchPlan(slot=slot, src=src, num_rows=num_rows,
+                        block_experts=block_experts.to(torch.int32), kept=ok.sum())

@@ -6,7 +6,9 @@ tree as nested dicts of tensors, block weights stacked ``[reps, ...]`` per
 pattern position; the scan over repeats is a Python loop over that
 leading dim.  Modes: ``train``/``prefill`` (full sequence; prefill also
 returns stacked ``[reps, B, S, Hkv, dh]`` caches) and ``decode`` (a ``[B,
-C]`` chunk against dense or paged caches, written in place).
+C]`` chunk against dense or paged caches, written in place).  Training
+differentiates through ``model_apply`` with ``torch.autograd`` and takes
+its loss from :func:`chunked_cross_entropy`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -23,6 +26,7 @@ from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
 __all__ = [
     "init_model", "model_apply", "logits_from_features", "init_caches",
     "init_paged_caches", "paged_supported", "pad_caches", "ForwardAux",
+    "chunked_cross_entropy",
 ]
 
 
@@ -141,6 +145,15 @@ def _layer(tree: dict, li: int) -> dict:
     return {k: _layer(v, li) if isinstance(v, dict) else v[li] for k, v in tree.items()}
 
 
+def _layers(tree: dict, reps: int) -> list[dict]:
+    """Every repeat's slice of a stacked tree, from ONE ``unbind`` per leaf:
+    its backward stacks the per-layer gradients into one ``[reps, ...]``
+    tensor, where per-layer indexing would allocate a full-size zero
+    gradient for every layer."""
+    flat = {k: _layers(v, reps) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: v[li] for k, v in flat.items()} for li in range(reps)]
+
+
 def _apply_block(
     kind, p, x, cfg, plan, mode, cache, t, expert_perm, positions,
     wire_perm=None, gate_weights=None, page_table=None, writes=None,
@@ -214,6 +227,9 @@ def model_apply(
             page=first.shape[2] if page_table is not None else None, device=dev,
         )
 
+    # cfg.remat ("full" / "dots") is read but not applied yet: it trades
+    # memory for recompute and leaves every value unchanged.
+    block_params = {n: _layers(params["blocks"][n], reps) for n in names}
     prefill_caches: dict = {n: [] for n in names}
     loads, bal, zl = [], [], []
     for li in range(reps):
@@ -221,7 +237,7 @@ def model_apply(
         for i, kind in enumerate(cfg.block_pattern):
             cache_i = _layer(caches[names[i]], li) if caches is not None else None
             x, nc, st = _apply_block(
-                kind, _layer(params["blocks"][names[i]], li), x, cfg, plan, mode,
+                kind, block_params[names[i]][li], x, cfg, plan, mode,
                 cache_i, t, expert_perm[li], positions,
                 wire_perm=None if wire_perm is None else wire_perm[li],
                 gate_weights=gate_weights, page_table=page_table, writes=writes,
@@ -255,3 +271,29 @@ def logits_from_features(params, x, cfg):
     if cfg.final_softcap is not None:
         out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
     return out
+
+
+def chunked_cross_entropy(params, features, labels, cfg, *, num_chunks: int = 8) -> torch.Tensor:
+    """Mean CE computed in sequence chunks so ``[B, S, V]`` logits never
+    fully materialize: each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``)."""
+    b, s, d = features.shape
+    while s % num_chunks:
+        num_chunks -= 1
+    step = s // num_chunks
+
+    def chunk(f, lab):
+        lg = logits_from_features(params, f, cfg).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, lab.long()[..., None])[..., 0]
+        return torch.sum(lse - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=features.device)
+    for c in range(num_chunks):
+        f = features[:, c * step:(c + 1) * step]
+        lab = labels[:, c * step:(c + 1) * step]
+        if torch.is_grad_enabled():
+            total = total + torch.utils.checkpoint.checkpoint(chunk, f, lab, use_reentrant=False)
+        else:
+            total = total + chunk(f, lab)
+    return total / (b * s)

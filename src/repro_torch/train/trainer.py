@@ -1,0 +1,242 @@
+"""Training loop wiring the port together:
+
+  data -> train_step -> MoE telemetry -> MixNet control plane
+  (observe -> end_step (COPILOT refit) -> plan -> apply)
+  -> straggler watchdog.
+
+Port of :mod:`repro.train.trainer`.  Every ``reconfig_every`` steps the
+trainer asks the shared :class:`ControlPlane` for per-layer placement plans
+and, for layers whose gain clears the cost, moves that layer's stacked
+expert weights into their new slots IN PLACE (``torch.no_grad``) and hands
+the router the new per-layer slot map.
+
+The reference permutes the parameters only (``trainer.py:256``): the AdamW
+moments stay in their slots, so after a reconfiguration a slot's moments
+belong to the expert that sat there before.  The port does the same on
+purpose, so that it can be held against the reference step for step.
+
+Not ported yet, each raising ``NotImplementedError``: pipeline stages
+(``pp_stages > 1``) and the runtime DP reduction with its compression
+(the multi-device slice), the cached autotuner (the evaluation slice) and
+checkpoints (``ckpt_every > 0``, their own slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.controlplane import (
+    ControlPlane,
+    LayerPlan,
+    PlacementApplier,
+    permute_expert_weights,
+)
+from repro_torch.obs import metrics, trace
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
+from repro_torch.train.train_step import init_all, make_train_step
+
+__all__ = ["TrainerConfig", "Trainer", "permute_expert_weights"]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 0  # 0 = disabled
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_keep: int = 3
+    ckpt_async: bool = True
+    # MixNet runtime reconfiguration
+    reconfig_every: int = 0  # 0 = disabled (paper-faithful needs >0)
+    reconfig_min_gain: float = 0.05
+    dp_comm: str = "auto"
+    dp_compress: bool = False
+    pp_stages: int = 1
+    num_microbatches: int = 1
+    autotune_cache: str = ""
+    autotune_key: str = ""
+    # Straggler watchdog: warn when a step exceeds ema * factor.
+    straggler_factor: float = 3.0
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg,
+        opt_cfg: AdamWConfig,
+        tcfg: TrainerConfig,
+        plan: ShardingPlan,
+        *,
+        mesh=None,
+        seed: int = 0,
+        device=None,
+    ):
+        if tcfg.pp_stages > 1:
+            raise NotImplementedError("pipeline stages (pp_stages > 1) come with the multi-device slice")
+        if tcfg.dp_comm != "auto" or tcfg.dp_compress:
+            raise NotImplementedError(
+                "dp_comm='runtime' and dp_compress come with the multi-device slice"
+            )
+        if tcfg.autotune_cache:
+            raise NotImplementedError("the cached autotuner comes with the evaluation slice")
+        if tcfg.ckpt_every:
+            raise NotImplementedError("trainer checkpoints (ckpt_every > 0) come with their slice")
+        self.cfg = cfg
+        self.opt_cfg = opt_cfg
+        self.tcfg = tcfg
+        self.plan = plan
+        self.mesh = mesh
+        self.device = resolve_device(device)
+        self.params, self.specs, self.opt_state = init_all(
+            seed, cfg, plan, opt_cfg, device=self.device
+        )
+        self.step_fn = make_train_step(
+            cfg, plan, opt_cfg, mesh=mesh, microbatches=tcfg.num_microbatches,
+            dp_comm=tcfg.dp_comm, dp_compress=tcfg.dp_compress,
+        )
+        self.step = 0
+        self.metrics_log: list[dict] = []
+        self._ema_step_time: float | None = None
+        self.straggler_events = 0
+        self._tr = trace.default()
+        self._tid: int | None = None
+        _m = metrics.default()
+        self._m_steps = _m.counter("train.steps")
+        self._m_tokens = _m.counter("train.tokens")
+        self._m_stragglers = _m.counter("train.stragglers")
+        self._m_step_time = _m.histogram("train.step_time_s")
+
+        # MixNet control plane (only meaningful for MoE archs).
+        self.controlplane: ControlPlane | None = None
+        self._applier: PlacementApplier | None = None
+        self.expert_perm = None
+        if cfg.is_moe and tcfg.reconfig_every:
+            _, r = virtual_experts(cfg.moe.num_experts, plan.model_size)
+            self.controlplane = ControlPlane(
+                num_layers=cfg.pattern_repeats,
+                num_experts=cfg.moe.num_experts,
+                num_devices=max(plan.model_size, 1),
+                replication=r,
+                min_gain_fraction=tcfg.reconfig_min_gain,
+            )
+            self._applier = PlacementApplier(self.controlplane, model_size=max(plan.model_size, 1))
+            self.expert_perm = self.controlplane.perm_stack()
+        self.reconfig_count = 0
+
+    @property
+    def wire_perm(self) -> np.ndarray | None:
+        return self._applier.wire_perm if self._applier is not None else None
+
+    @property
+    def wire_reconfig_count(self) -> int:
+        return self._applier.wire_reconfig_count if self._applier is not None else 0
+
+    # -- observability ---------------------------------------------------------
+    def _track_id(self) -> int:
+        if self._tid is None:
+            self._tid = self._tr.track("trainer")
+        return self._tid
+
+    # -- MixNet reconfiguration ------------------------------------------------
+    def _apply_layer_plans(self, plans: list[LayerPlan]) -> bool:
+        """Actuate per-layer placement plans through the shared
+        :class:`PlacementApplier`; expert weights move in place."""
+        # Rebind when the engine was swapped after construction (tests and
+        # the smoke run inject a multi-device ControlPlane directly).
+        if self._applier is None or self._applier.cp is not self.controlplane:
+            self._applier = PlacementApplier(
+                self.controlplane, model_size=max(self.plan.model_size, 1)
+            )
+        ap = self._applier  # wire re-addressing (P > 1) comes with the multi-device slice
+        tid = self._track_id() if self._tr.enabled else None
+        with self._tr.span("train.reconfig", tid=tid, cat="reconfig", step=self.step) as sp:
+            with torch.no_grad():
+                self.params, changed = ap.apply(self.params, plans)
+            sp.set(applied=bool(changed), plans=sum(1 for p in plans if p.reconfigure))
+        if changed:
+            self.expert_perm = self.controlplane.perm_stack()
+            self.reconfig_count = self.controlplane.reconfig_count
+        return changed
+
+    def _reconfigure_step(self, expert_load: np.ndarray):
+        """One step of the Fig 20 loop.  ``expert_load``: ``[repeats, E]``
+        realized loads from the last step."""
+        cp = self.controlplane
+        for layer in range(expert_load.shape[0]):
+            cp.observe(layer, expert_load[layer])
+        cp.end_step()
+        if self.step % self.tcfg.reconfig_every:
+            return
+        self._apply_layer_plans([cp.plan(layer) for layer in range(cp.num_layers)])
+
+    def fail_device(self, device: int) -> None:
+        """§5.4 failover: re-home the failed device's experts onto backup
+        slots through the same decide/apply path as a reconfiguration."""
+        if self.controlplane is None:
+            raise RuntimeError(
+                "no control plane configured (MoE arch + reconfig_every > 0 required)"
+            )
+        self._apply_layer_plans(self.controlplane.fail_device(device))
+
+    def restore_device(self, device: int) -> None:
+        if self.controlplane is None:
+            raise RuntimeError(
+                "no control plane configured (MoE arch + reconfig_every > 0 required)"
+            )
+        self.controlplane.restore_device(device)
+
+    # -- main loop ---------------------------------------------------------------
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def train(self, data_iter) -> list[dict]:
+        t = self.tcfg
+        while self.step < t.total_steps:
+            batch_np = next(data_iter)
+            batch = {
+                "tokens": self._tensor(batch_np.tokens, torch.int32),
+                "labels": self._tensor(batch_np.labels, torch.int32),
+            }
+            perm = self._tensor(self.expert_perm, torch.int32) if self.expert_perm is not None else None
+            wire = self._tensor(self.wire_perm, torch.int32) if self.wire_perm is not None else None
+            tid = self._track_id() if self._tr.enabled else None
+            t0 = time.perf_counter()
+            with self._tr.span("train.step", tid=tid, cat="train", step=self.step + 1) as sp:
+                self.params, self.opt_state, step_metrics = self.step_fn(
+                    self.params, self.opt_state, batch, perm, wire
+                )
+                # The host read of the metrics ends the step on the device.
+                step_metrics = {k: v.detach().cpu().numpy() for k, v in step_metrics.items()}
+                sp.set(loss=float(step_metrics.get("loss", 0.0)))
+            dt = time.perf_counter() - t0
+            self._m_steps.inc()
+            self._m_tokens.inc(float(batch_np.tokens.size))
+            self._m_step_time.observe(dt)
+            if self._tr.enabled:
+                self._tr.counter("train.step_time_s", dt, tid=tid)
+            # Straggler watchdog (mitigation = flag + report).
+            if self._ema_step_time is not None and dt > t.straggler_factor * self._ema_step_time:
+                self.straggler_events += 1
+                self._m_stragglers.inc()
+                if self._tr.enabled:
+                    self._tr.instant(
+                        "train.straggler", tid=tid, cat="train",
+                        step=self.step + 1, dt_s=dt, ema_s=self._ema_step_time,
+                    )
+            self._ema_step_time = (
+                dt if self._ema_step_time is None else 0.9 * self._ema_step_time + 0.1 * dt
+            )
+            self.step += 1
+            step_metrics["step"] = self.step
+            step_metrics["step_time_s"] = dt
+            self.metrics_log.append(step_metrics)
+
+            if self.controlplane is not None and "expert_load" in step_metrics:
+                self._reconfigure_step(np.asarray(step_metrics["expert_load"]))
+        return self.metrics_log

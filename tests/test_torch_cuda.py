@@ -94,3 +94,189 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 2, 8, 64), device=dev)
     with pytest.raises(ValueError):
         flash_attention_cuda(q.transpose(1, 2), q, q)  # not contiguous
+
+
+# ---------------------------------------------------------------------------
+# training-path kernels: MoE dispatch / combine, the grouped GEMM and the
+# backward kernels.  Data movement is exact; the combine and the GEMMs
+# accumulate in f32 in another order than the plain versions (f32: rtol/atol
+# 1e-5 against products summed over at most a few hundred terms; bf16
+# outputs: one rounding of the f32 result, rtol 1.6e-2).  Backward kernels
+# are held against torch.autograd of the plain forward.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import FlashAttentionFn  # noqa: E402
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    GroupedMatmulBlocksFn, grouped_matmul_blocks_cuda, grouped_matmul_cuda,
+)
+from repro_torch.kernels.moe_dispatch import (  # noqa: E402
+    MoECombineFn, MoEDispatchFn, moe_combine_cuda, moe_dispatch_cuda,
+)
+from repro_torch.kernels.topk_gating import TopkGatingFn  # noqa: E402
+
+GRAD_TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+def _src(rng, t, p, drop):
+    src = rng.integers(0, t, size=p)
+    src[rng.random(p) < drop] = -1
+    return torch.from_numpy(src.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 4096), (torch.float32, 33),
+                                     (torch.bfloat16, 5)])
+def test_moe_dispatch_kernel_exact(dev, dtype, d):
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((37, d)).astype(np.float32)).to(dev, dtype)
+    src = _src(rng, 37, 50, 0.3).to(dev)
+    assert torch.equal(moe_dispatch_cuda(x, src), ref.moe_dispatch(x, src))
+
+
+def _combine_case(rng, dev, dtype, s, t=37, p=80, d=96):
+    """Each packed row read by at most one (token, choice) term, as in the
+    MoE layer (the backward gathers through the inverse of slot)."""
+    y = torch.from_numpy(rng.standard_normal((p, d)).astype(np.float32)).to(dev, dtype)
+    slot = rng.permutation(p)[: t * s].reshape(t, s)
+    slot = np.where(rng.random((t, s)) < 0.25, -1, slot)
+    slot[0] = -1  # a fully dropped row must come out exactly 0
+    w = torch.from_numpy(rng.random((t, s)).astype(np.float32)).to(dev)
+    return y, torch.from_numpy(slot.astype(np.int32)).to(dev), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2])
+def test_moe_combine_kernel_and_backward(dev, dtype, s):
+    rng = np.random.default_rng(s)
+    y, slot, w = _combine_case(rng, dev, dtype, s)
+    got = moe_combine_cuda(y, slot, w)
+    assert got.dtype == torch.float32 and torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got, ref.moe_combine(y, slot, w), rtol=1e-6, atol=1e-6)
+    # backward: the inverse map of slot (flat t * S + s per packed row)
+    inv = torch.full((y.shape[0],), -1, dtype=torch.int32, device=dev)
+    flat = slot.reshape(-1).long()
+    keep = flat >= 0
+    inv[flat[keep]] = torch.arange(flat.numel(), device=dev, dtype=torch.int32)[keep]
+    g = torch.randn(got.shape, device=dev)
+    y1, w1 = y.clone().requires_grad_(), w.clone().requires_grad_()
+    MoECombineFn.apply(y1, slot, w1, inv).backward(g)
+    y2, w2 = y.clone().requires_grad_(), w.clone().requires_grad_()
+    ref.moe_combine(y2, slot, w2).backward(g)
+    torch.testing.assert_close(y1.grad.float(), y2.grad.float(), **GRAD_TOLS[dtype])
+    torch.testing.assert_close(w1.grad, w2.grad, **GRAD_TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("many_to_one", [False, True])
+def test_moe_dispatch_backward(dev, many_to_one):
+    rng = np.random.default_rng(7)
+    t, d, sc = 20, 64, 2
+    x = torch.randn((t, d), device=dev, dtype=torch.bfloat16)
+    if many_to_one:  # the send buffer: row p holds token src[p] // sc
+        slot = rng.permutation(t * sc).reshape(t, sc).astype(np.int32)
+        slot[3, 1] = -1
+        src = np.full(t * sc, -1, np.int32)
+        src[slot[slot >= 0]] = np.nonzero(slot.reshape(-1) >= 0)[0] // sc
+        inverse = torch.from_numpy(slot).to(dev)
+    else:  # a one-to-one pack with empty rows
+        dest = rng.permutation(t + 6)[:t].astype(np.int32)
+        src = np.full(t + 6, -1, np.int32)
+        src[dest] = np.arange(t)
+        inverse = torch.from_numpy(dest).to(dev)
+    src = torch.from_numpy(src).to(dev)
+    g = torch.randn((src.shape[0], d), device=dev, dtype=torch.bfloat16)
+    x1 = x.clone().requires_grad_()
+    MoEDispatchFn.apply(x1, src, inverse).backward(g)
+    x2 = x.clone().requires_grad_()
+    ref.moe_dispatch(x2, src).backward(g)
+    torch.testing.assert_close(x1.grad.float(), x2.grad.float(), **GRAD_TOLS[torch.bfloat16])
+
+
+def _blocks_case(rng, dev, dtype, e, k, n, counts):
+    """A dropless block layout: expert e owns ceil(counts[e] / 8) tiles with
+    zero padding rows, plus 3 trailing zero tiles clipped to the last expert."""
+    be, rows = [], []
+    for ei, c in enumerate(counts):
+        tiles = -(-c // 8)
+        be += [ei] * tiles
+        blk = np.zeros((tiles * 8, k), np.float32)
+        blk[:c] = rng.standard_normal((c, k))
+        rows.append(blk)
+    be += [e - 1] * 3
+    rows.append(np.zeros((24, k), np.float32))
+    x = torch.from_numpy(np.concatenate(rows).reshape(-1, 8, k)).to(dev, dtype)
+    w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(np.float32) / k**0.5).to(dev, dtype)
+    return x, w, torch.tensor(be, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(64, 192), (136, 40)])
+def test_grouped_matmul_blocks_kernel_and_backward(dev, dtype, k, n):
+    rng = np.random.default_rng(k + n)
+    counts = [100, 0, 9, 64, 1]  # two runs, an empty expert, ragged tails
+    x, w, be = _blocks_case(rng, dev, dtype, len(counts), k, n, counts)
+    got = grouped_matmul_blocks_cuda(x, w, be)
+    want = ref.grouped_matmul_blocks(x, w, be)
+    torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+    g = torch.randn(got.shape, device=dev).to(dtype)
+    x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    GroupedMatmulBlocksFn.apply(x1, w1, be).backward(g)
+    x2, w2 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref.grouped_matmul_blocks(x2, w2, be).backward(g)
+    torch.testing.assert_close(x1.grad.float(), x2.grad.float(), **GRAD_TOLS[dtype])
+    torch.testing.assert_close(w1.grad.float(), w2.grad.float(), **GRAD_TOLS[dtype])
+    assert torch.equal(w1.grad[1], torch.zeros_like(w1.grad[1]))  # no tiles, zero gradient
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_capacity_layout_raises(dev):
+    with pytest.raises(NotImplementedError):
+        grouped_matmul_cuda(torch.zeros((2, 4, 8), device=dev), torch.zeros((2, 8, 8), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k", [(37, 8, 2), (45, 160, 6)])
+def test_topk_gating_backward(dev, t, e, k):
+    g = torch.Generator(device=dev).manual_seed(t)
+    logits = torch.randn((t, e), generator=g, device=dev)
+    dw = torch.randn((t, k), generator=g, device=dev)
+    l1 = logits.clone().requires_grad_()
+    TopkGatingFn.apply(l1, k)[0].backward(dw)
+    l2 = logits.clone().requires_grad_()
+    ref.topk_gating(l2, k)[0].backward(dw)
+    torch.testing.assert_close(l1.grad, l2.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=33, softcap=30.0),
+                                dict(causal=False)])
+def test_flash_attention_backward(dev, dtype, d, kw):
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn((2, 8, 77, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, 2, 77, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((2, 2, 77, d), generator=g, device=dev).to(dtype)
+    do = torch.randn((2, 8, 77, d), generator=g, device=dev).to(dtype)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    FlashAttentionFn.apply(*a, kw.get("causal", True), kw.get("window"), kw.get("softcap")) \
+        .backward(do)
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention(*b, **kw).backward(do)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad.float(), y.grad.float(), **GRAD_TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_paged_decode_refuses_grad(dev):
+    q = torch.zeros((1, 1, 2, 64), device=dev, requires_grad=True)
+    pool = torch.zeros((2, 8, 2, 64), device=dev)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    t = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_flash_decode_cuda(q, pool, pool, table, t)
+    with torch.no_grad():
+        paged_flash_decode_cuda(q, pool, pool, table, t)

@@ -142,7 +142,9 @@ def test_ops_cpu_tensors_take_the_plain_path():
     qd, kp, vp, table, lengths = _paged_case(1, seed=3)
     got = ops.paged_flash_decode(_t(qd), _t(kp), _t(vp), _t(table), _t(lengths))
     assert torch.equal(got, tref.paged_flash_decode(_t(qd), _t(kp), _t(vp), _t(table), _t(lengths)))
-    assert ops.launch_counts() == {"topk_gating": 0, "flash_attention": 0, "paged_flash_decode": 0}
+    counts = ops.launch_counts()
+    assert {"topk_gating", "flash_attention", "paged_flash_decode"} <= set(counts)
+    assert not any(counts.values()), counts
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -157,7 +159,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             torch.zeros((1, 1, 2, 64)), torch.zeros((2, 4, 2, 64)), torch.zeros((2, 4, 2, 64)),
             torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1,), dtype=torch.int32),
         )
-    assert ops.launch_counts() == {"topk_gating": 0, "flash_attention": 0, "paged_flash_decode": 0}
+    counts = ops.launch_counts()
+    assert {"topk_gating", "flash_attention", "paged_flash_decode"} <= set(counts)
+    assert not any(counts.values()), counts
 
 
 # ---------------------------------------------------------------------------

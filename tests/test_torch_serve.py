@@ -125,6 +125,14 @@ def test_slices_not_ported_yet_raise(port_model):
     eng = ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG), device="cpu")
     with pytest.raises(NotImplementedError):
         eng.save_checkpoint("unused")
+    # The mixnet backend came with the training slice: prefill runs it,
+    # decode the dense path, as in the reference.  Only its multi-device
+    # pieces still raise.
     mix = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, backend="mixnet"))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ServeEngine(params, mix, PLAN, ServeConfig(**SCFG), device="cpu").run(*_requests(1)[::-1])
+    rep = ServeEngine(params, mix, PLAN, ServeConfig(**SCFG), device="cpu").run(*_requests(1)[::-1])
+    assert rep.completed == 1
+    chunked = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, backend="mixnet", overlap_chunks=2))
+    with pytest.raises(NotImplementedError, match="multi-device slice"):
+        ServeEngine(params, chunked, PLAN, ServeConfig(**SCFG), device="cpu").run(
+            *_requests(1)[::-1])

@@ -1,0 +1,519 @@
+"""The port's training slice against the JAX package on the CPU: the dispatch
+plans, the plain MoE data movers and grouped GEMM (against the JAX oracles
+and the Pallas kernels in interpret mode), the plain backward formulas
+(against torch.autograd), the mixnet MoE layer's value and gradients
+(against jax.value_and_grad), AdamW, the cosine schedule, the chunked cross
+entropy, COPILOT, the trainer step for step, and re-placement invariance
+port against port.
+
+Inputs come from seeded numpy and go to both sides.  TF32 is off (it only
+matters on a card).  Tolerances: integer and data-movement results exactly;
+f32 results within ``atol=rtol=1e-5`` (the same math summed in another
+order by XLA and by PyTorch's CPU kernels), except the trainer's losses
+(``rtol=1e-4``: six optimizer steps compound those differences) and the
+moments after them (``rtol=1e-3``).
+"""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import copilot as jcopilot
+from repro.core.controlplane import ControlPlane as JControlPlane
+from repro.data.pipeline import SyntheticLM as JSyntheticLM
+from repro.kernels import ref as jref
+from repro.kernels.grouped_matmul import grouped_matmul_blocks_pallas, grouped_matmul_pallas
+from repro.kernels.moe_dispatch import moe_combine_pallas, moe_dispatch_pallas
+from repro.models import moe as jmoe
+from repro.models import routing as jrouting
+from repro.models import transformer as jtfm
+from repro.models.config import ModelConfig as JModelConfig
+from repro.models.config import MoEConfig as JMoEConfig
+from repro.optim import adamw as jadamw
+from repro.parallel.sharding import make_plan as jmake_plan
+from repro.train import train_step as jtrain_step
+from repro.train import trainer as jtrainer_mod
+from repro.train.trainer import Trainer as JTrainer
+from repro.train.trainer import TrainerConfig as JTrainerConfig
+from repro_torch.core import copilot
+from repro_torch.core.controlplane import ControlPlane
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.interop import params_from_numpy
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import grouped_matmul as kgm
+from repro_torch.kernels import moe_dispatch as kmd
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import topk_gating as ktg
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import routing
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import make_plan
+from repro_torch.train.train_step import init_all, loss_fn, make_train_step
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+JPLAN = jmake_plan(None)
+PLAN = make_plan(None)
+
+
+def _t(a, **kw):
+    return torch.from_numpy(np.array(a)).to(**kw) if kw else torch.from_numpy(np.array(a))
+
+
+def _close(got, want, **tol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), **(tol or TOL))
+
+
+def _tiny(cfg_cls, moe_cls, dispatch="dropless", layers=2):
+    """The tiny mixnet config of the JAX trainer tests (test_train.py)."""
+    return cfg_cls(
+        "tiny-moe8", "moe", layers, 32, 4, 2, 0, 64, dtype="float32", remat="none",
+        moe=moe_cls(num_experts=8, top_k=2, d_ff=32, capacity_factor=2.0, backend="mixnet",
+                    dispatch=dispatch),
+    )
+
+
+# ---------------------------------------------------------------------------
+# dispatch plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_capacity_and_dropless_plans_exact(with_valid):
+    rng = np.random.default_rng(int(with_valid))
+    n, e = 50, 5
+    dest = rng.integers(0, e, size=n).astype(np.int32)
+    valid = rng.random(n) > 0.2 if with_valid else None
+    jv = None if valid is None else jnp.asarray(valid)
+    tv = None if valid is None else _t(valid)
+    jrank, jcounts = jrouting.bucket_ranks(jnp.asarray(dest), e, valid=jv)
+    rank, counts = routing.bucket_ranks(_t(dest), e, valid=tv)
+    np.testing.assert_array_equal(rank.numpy(), np.asarray(jrank))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    jp = jrouting.capacity_plan(jnp.asarray(dest), jrank, jv, e, 7)
+    tp = routing.capacity_plan(_t(dest), rank, tv, e, 7)
+    jd = jrouting.dropless_plan(jnp.asarray(dest), jrank, jcounts, jv, e, 8)
+    td = routing.dropless_plan(_t(dest), rank, counts, tv, e, 8)
+    for got, want in ((tp, jp), (td, jd)):
+        np.testing.assert_array_equal(got.slot.numpy(), np.asarray(want.slot))
+        np.testing.assert_array_equal(got.src.numpy(), np.asarray(want.src))
+        assert got.num_rows == want.num_rows and int(got.kept) == int(want.kept)
+    assert tp.block_experts is None
+    np.testing.assert_array_equal(td.block_experts.numpy(), np.asarray(jd.block_experts))
+    assert (np.diff(td.block_experts.numpy()) >= 0).all()  # the kernels' precondition
+
+
+# ---------------------------------------------------------------------------
+# plain MoE ops against the JAX oracles and Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+def _moe_inputs():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((12, 16)).astype(np.float32)
+    src = rng.integers(0, 12, size=20).astype(np.int32)
+    src[rng.random(20) < 0.3] = -1
+    y = rng.standard_normal((20, 16)).astype(np.float32)
+    slot = np.concatenate([rng.permutation(20), [-1] * 4]).reshape(12, 2).astype(np.int32)
+    slot[0] = -1
+    w = rng.random((12, 2)).astype(np.float32)
+    xb = rng.standard_normal((6, 8, 16)).astype(np.float32)
+    wb = rng.standard_normal((3, 16, 24)).astype(np.float32)
+    be = np.array([0, 0, 1, 1, 1, 2], np.int32)
+    return x, src, y, slot, w, xb, wb, be
+
+
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+def test_plain_moe_ops_match_jax(backend):
+    x, src, y, slot, w, xb, wb, be = _moe_inputs()
+    pallas = backend == "pallas"
+    jd = (moe_dispatch_pallas(jnp.asarray(x), jnp.asarray(src), interpret=True) if pallas
+          else jref.moe_dispatch(jnp.asarray(x), jnp.asarray(src)))
+    np.testing.assert_array_equal(tref.moe_dispatch(_t(x), _t(src)).numpy(), np.asarray(jd))
+    jc = (moe_combine_pallas(jnp.asarray(y), jnp.asarray(slot), jnp.asarray(w), interpret=True)
+          if pallas else jref.moe_combine(jnp.asarray(y), jnp.asarray(slot), jnp.asarray(w)))
+    got = tref.moe_combine(_t(y), _t(slot), _t(w))
+    _close(got, jc)
+    assert not got[0].any()  # a fully dropped row is exactly 0
+    jg = (grouped_matmul_blocks_pallas(jnp.asarray(xb), jnp.asarray(wb), jnp.asarray(be),
+                                       interpret=True) if pallas
+          else jref.grouped_matmul_blocks(jnp.asarray(xb), jnp.asarray(wb), jnp.asarray(be)))
+    _close(tref.grouped_matmul_blocks(_t(xb), _t(wb), _t(be)), jg)
+    xc = xb[:3]
+    jgc = (grouped_matmul_pallas(jnp.asarray(xc), jnp.asarray(wb), interpret=True) if pallas
+           else jref.grouped_matmul(jnp.asarray(xc), jnp.asarray(wb)))
+    _close(tref.grouped_matmul(_t(xc), _t(wb)), jgc)
+
+
+# ---------------------------------------------------------------------------
+# plain backward formulas against torch.autograd of the plain forwards
+# ---------------------------------------------------------------------------
+
+
+def _grad(fn, inputs, cot):
+    inputs = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*inputs)
+    out = out[0] if isinstance(out, tuple) else out
+    return torch.autograd.grad(out, inputs, cot)
+
+
+def _bwd_case(name):
+    rng = np.random.default_rng(11)
+    x, src, y, slot, w, xb, wb, be = _moe_inputs()
+    if name == "topk_gating":
+        logits = _t(rng.standard_normal((9, 8)).astype(np.float32))
+        _, idx = tref.topk_gating(logits, 2)
+        dw = _t(rng.standard_normal((9, 2)).astype(np.float32))
+        want = _grad(lambda l: tref.topk_gating(l, 2), [logits], dw)
+        return [tref.topk_gating_bwd(logits, dw, idx)], want
+    if name.startswith("flash_attention"):
+        kw = dict(causal=True, window=5, softcap=20.0) if name.endswith("knobs") else {}
+        q = _t(rng.standard_normal((1, 4, 13, 64)).astype(np.float32))
+        k = _t(rng.standard_normal((1, 2, 13, 64)).astype(np.float32))
+        v = _t(rng.standard_normal((1, 2, 13, 64)).astype(np.float32))
+        do = _t(rng.standard_normal((1, 4, 13, 64)).astype(np.float32))
+        want = _grad(lambda a, b, c: tref.flash_attention(a, b, c, **kw), [q, k, v], do)
+        return list(tref.flash_attention_bwd(q, k, v, do, **kw)), want
+    if name == "moe_dispatch_one_to_one":
+        dest = rng.permutation(16)[:12].astype(np.int32)
+        s = np.full(16, -1, np.int32)
+        s[dest] = np.arange(12)
+        g = _t(rng.standard_normal((16, 16)).astype(np.float32))
+        want = _grad(lambda a: tref.moe_dispatch(a, _t(s)), [_t(x)], g)
+        return [tref.moe_dispatch_bwd(g, _t(dest), torch.float32)], want
+    if name == "moe_dispatch_many_to_one":
+        sl = rng.permutation(24).reshape(12, 2).astype(np.int32)
+        sl[4, 1] = -1
+        s = np.full(24, -1, np.int32)
+        s[sl[sl >= 0]] = np.nonzero(sl.reshape(-1) >= 0)[0] // 2
+        g = _t(rng.standard_normal((24, 16)).astype(np.float32))
+        want = _grad(lambda a: tref.moe_dispatch(a, _t(s)), [_t(x)], g)
+        return [tref.moe_dispatch_bwd(g, _t(sl), torch.float32)], want
+    if name == "moe_combine":
+        inv = np.full(20, -1, np.int32)
+        flat = slot.reshape(-1)
+        inv[flat[flat >= 0]] = np.nonzero(flat >= 0)[0]
+        g = _t(rng.standard_normal((12, 16)).astype(np.float32))
+        want = _grad(lambda a, b: tref.moe_combine(a, _t(slot), b), [_t(y), _t(w)], g)
+        return list(tref.moe_combine_bwd(g, _t(y), _t(slot), _t(w), _t(inv))), want
+    assert name == "grouped_matmul_blocks"
+    g = _t(rng.standard_normal((6, 8, 24)).astype(np.float32))
+    want = _grad(lambda a, b: tref.grouped_matmul_blocks(a, b, _t(be)), [_t(xb), _t(wb)], g)
+    return list(tref.grouped_matmul_blocks_bwd(_t(xb), _t(wb), _t(be), g)), want
+
+
+@pytest.mark.parametrize("name", [
+    "topk_gating", "flash_attention", "flash_attention_knobs", "moe_dispatch_one_to_one",
+    "moe_dispatch_many_to_one", "moe_combine", "grouped_matmul_blocks",
+])
+def test_plain_backward_formula_matches_autograd(name):
+    got, want = _bwd_case(name)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g, w.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the mixnet MoE layer: value and gradients against jax.value_and_grad
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dispatch", ["dropless", "capacity"])
+def test_moe_mixnet_local_value_and_grad_match_jax(dispatch):
+    jcfg = _tiny(JModelConfig, JMoEConfig, dispatch)
+    cfg = _tiny(ModelConfig, MoEConfig, dispatch)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 8, 32)).astype(np.float32)
+    ws = [
+        rng.standard_normal((32, 8)).astype(np.float32) * 0.5,
+        rng.standard_normal((8, 32, 32)).astype(np.float32) / 32**0.5,
+        rng.standard_normal((8, 32, 32)).astype(np.float32) / 32**0.5,
+        rng.standard_normal((8, 32, 32)).astype(np.float32) / 32**0.5,
+    ]
+    cot = rng.standard_normal((2, 8, 32)).astype(np.float32)
+    perm = rng.permutation(8).astype(np.int32)
+
+    def jloss(xl, *params):
+        out, load, bal, z, drop = jmoe._moe_mixnet_local(
+            tuple(params), xl, jcfg, JPLAN, jnp.asarray(perm), ()
+        )
+        return jnp.sum(out * cot) + 0.01 * bal + 0.001 * z, (load, drop)
+
+    (jl, (jload, jdrop)), jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2, 3, 4),
+                                                          has_aux=True))(x, *ws)
+    tx = [_t(a).requires_grad_() for a in (x, *ws)]
+    out, load, bal, z, drop = moe_mod._moe_mixnet_local(tuple(tx[1:]), tx[0], cfg, PLAN, _t(perm))
+    loss = torch.sum(out * _t(cot)) + 0.01 * bal + 0.001 * z
+    grads = torch.autograd.grad(loss, tx)
+    _close(loss, jl)
+    np.testing.assert_array_equal(load.numpy(), np.asarray(jload))
+    _close(drop, jdrop)
+    for g, w in zip(grads, jg):
+        _close(g, w)
+
+
+# ---------------------------------------------------------------------------
+# AdamW, the schedule, the chunked cross entropy
+# ---------------------------------------------------------------------------
+
+
+def test_adamw_and_cosine_lr_match_jax():
+    cfg = jadamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=5)
+    tcfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=5)
+    for s in range(8):
+        _close(adamw.cosine_lr(tcfg, torch.tensor(s, dtype=torch.int32)),
+               jadamw.cosine_lr(cfg, jnp.asarray(s, jnp.int32)))
+    rng = np.random.default_rng(2)
+    shapes = {"a": (2, 3, 4), "blocks": {"w": (2, 5), "b": (7,)}}
+    mk = lambda sh: (rng.standard_normal(sh).astype(np.float32) if isinstance(sh, tuple)
+                     else {k: mk(v) for k, v in sh.items()})
+    p0 = mk(shapes)
+    jp, js = jax.tree.map(jnp.asarray, p0), jadamw.init_adamw(jax.tree.map(jnp.asarray, p0), cfg)
+    tp = params_from_numpy(p0)
+    ts = adamw.init_adamw(tp, tcfg)
+    for _ in range(3):
+        g = mk(shapes)
+        jp, js, jm = jadamw.adamw_update(jp, jax.tree.map(jnp.asarray, g), js, cfg)
+        tp, ts, tm = adamw.adamw_update(tp, params_from_numpy(g), ts, tcfg)
+        _close(tm["grad_norm"], jm["grad_norm"])
+        _close(tm["lr"], jm["lr"])
+    for tree_t, tree_j in ((tp, jp), (ts["mu"], js["mu"]), (ts["nu"], js["nu"])):
+        for (_, a), (_, b) in zip(adamw._leaves(tree_t), adamw._leaves(
+                jax.tree.map(np.asarray, tree_j))):
+            _close(a, b)
+    assert int(ts["step"]) == int(js["step"]) == 3
+
+
+def test_chunked_cross_entropy_matches_jax():
+    jcfg = _tiny(JModelConfig, JMoEConfig)
+    cfg = _tiny(ModelConfig, MoEConfig)
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    head = rng.standard_normal((32, 64)).astype(np.float32) * 0.2
+    labels = rng.integers(0, 64, size=(2, 16)).astype(np.int32)
+    jl, (jgf, jgh) = jax.value_and_grad(
+        lambda f, h: jtfm.chunked_cross_entropy({"lm_head": h}, f, jnp.asarray(labels), jcfg),
+        argnums=(0, 1),
+    )(feats, head)
+    f, h = _t(feats).requires_grad_(), _t(head).requires_grad_()
+    loss = tfm.chunked_cross_entropy({"lm_head": h}, f, _t(labels), cfg)
+    gf, gh = torch.autograd.grad(loss, (f, h))
+    _close(loss, jl)
+    _close(gf, jgf)
+    _close(gh, jgh)
+
+
+# ---------------------------------------------------------------------------
+# COPILOT and the control plane
+# ---------------------------------------------------------------------------
+
+
+def test_copilot_fit_matches_jax():
+    rng = np.random.default_rng(8)
+    l, k, e = 3, 5, 8
+    raw_x = rng.random((l, k, e)) + 0.05
+    raw_y = rng.random((l, k, e)) + 0.05
+    xs = raw_x / raw_x.sum(-1, keepdims=True)
+    ys = raw_y / raw_y.sum(-1, keepdims=True)
+    ws = np.tile(0.7 ** np.arange(k - 1, -1, -1), (l, 1))
+    ws[1, :2] = 0.0  # a ragged window padded with zero-weight rows
+    p0 = np.tile(np.full((e, e), 1.0 / e), (l, 1, 1))
+    want = jcopilot.fit_transition_matrices(
+        jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(ws), jnp.asarray(p0), steps=150
+    )
+    got = copilot.fit_transition_matrices(xs, ys, ws, p0, steps=150)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_controlplane_copilot_and_plans_match_jax():
+    rng = np.random.default_rng(9)
+    kw = dict(num_layers=3, num_experts=8, num_devices=4, min_gain_fraction=0.0)
+    jcp, tcp = JControlPlane(**kw), ControlPlane(**kw)
+    assert tcp.copilot is not None and jcp.copilot is not None
+    for _ in range(4):
+        loads = rng.integers(1, 40, size=(3, 8)).astype(np.float32)
+        for cp in (jcp, tcp):
+            for layer in range(3):
+                cp.observe(layer, loads[layer])
+            cp.end_step()
+    np.testing.assert_allclose(tcp.copilot.state.transitions, jcp.copilot.state.transitions,
+                               atol=1e-5, rtol=0)
+    _close(tcp.predict_load(2), jcp.predict_load(2))
+    for layer in range(3):
+        jp, tp = jcp.plan(layer), tcp.plan(layer)
+        assert jp.reconfigure == tp.reconfigure
+        if jp.reconfigure:
+            np.testing.assert_array_equal(tp.perm, jp.perm)
+
+
+def test_controlplane_default_matches_reference():
+    """Repair: the port's ControlPlane ran without COPILOT by default."""
+    jdef = inspect.signature(JControlPlane).parameters["use_copilot"].default
+    tdef = inspect.signature(ControlPlane).parameters["use_copilot"].default
+    assert tdef is jdef is True
+    assert ControlPlane(num_layers=2, num_experts=8).copilot is not None
+    assert ControlPlane(num_layers=1, num_experts=8).copilot is None
+
+
+# ---------------------------------------------------------------------------
+# the trainer, step for step, and re-placement invariance
+# ---------------------------------------------------------------------------
+
+
+def _jit_init_all(key, cfg, plan, opt_cfg):
+    """The JAX trainer's initializer under one jit: eagerly, every primitive
+    of the initializer compiles on its own, which costs far more on the CPU.
+    Same values; the specs are only read by the pipeline-parallel step."""
+    params = jax.jit(lambda k: jtfm.init_model(k, cfg, plan)[0])(key)
+    return params, None, jax.jit(lambda p: jadamw.init_adamw(p, opt_cfg))(params)
+
+
+def test_trainer_matches_jax_step_for_step(monkeypatch):
+    """Both trainers from one state, the same injected 4-device control plane
+    (COPILOT on), 6 steps with a reconfiguration every 2."""
+    monkeypatch.setattr(jtrainer_mod, "init_all", _jit_init_all)
+    jcfg, cfg = _tiny(JModelConfig, JMoEConfig), _tiny(ModelConfig, MoEConfig)
+    kw = dict(total_steps=0, reconfig_every=2, reconfig_min_gain=0.0)
+    jtr = JTrainer(jcfg, jadamw.AdamWConfig(lr=1e-3), JTrainerConfig(**kw), JPLAN, seed=0)
+    tr = Trainer(cfg, adamw.AdamWConfig(lr=1e-3), TrainerConfig(**kw), PLAN, device="cpu")
+    tr.params = params_from_numpy(jax.tree.map(np.asarray, jtr.params), cfg, trainable=True)
+    tr.opt_state = params_from_numpy(jax.tree.map(np.asarray, jtr.opt_state))
+    cp_kw = dict(num_layers=2, num_experts=8, num_devices=4, min_gain_fraction=0.0)
+    jtr.controlplane, tr.controlplane = JControlPlane(**cp_kw), ControlPlane(**cp_kw)
+    jdata, data = iter(JSyntheticLM(64, 16, 4, seed=0)), iter(SyntheticLM(64, 16, 4, seed=0))
+    for step in range(1, 7):
+        jtr.tcfg.total_steps = tr.tcfg.total_steps = step
+        jm, tm = jtr.train(jdata)[-1], tr.train(data)[-1]
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_array_equal(tm["expert_load"], np.asarray(jm["expert_load"]))
+        assert tr.reconfig_count == jtr.reconfig_count
+        np.testing.assert_array_equal(np.asarray(tr.expert_perm), np.asarray(jtr.expert_perm))
+    assert tr.reconfig_count > 0
+    # The moments stay in their slots in both (trainer.py:256 of the
+    # reference permutes the parameters only).
+    jmu = jax.tree.map(np.asarray, jtr.opt_state["mu"])
+    for name in ("w_in", "w_gate", "w_out"):
+        np.testing.assert_allclose(
+            tr.opt_state["mu"]["blocks"]["0_global"]["moe"][name].numpy(),
+            jmu["blocks"]["0_global"]["moe"][name], rtol=1e-3, atol=1e-7,
+        )
+        _close(tr.params["blocks"]["0_global"]["moe"][name],
+               np.asarray(jtr.params["blocks"]["0_global"]["moe"][name]), rtol=1e-3, atol=1e-5)
+
+
+def test_train_step_microbatches_match_jax():
+    """Two microbatches of one step: the accumulated loss and loads and the
+    updated parameters against the JAX step's scan over the slices."""
+    jcfg, cfg = _tiny(JModelConfig, JMoEConfig), _tiny(ModelConfig, MoEConfig)
+    jopt, opt = jadamw.AdamWConfig(lr=1e-3), adamw.AdamWConfig(lr=1e-3)
+    params, _, state = init_all(1, cfg, PLAN, opt, device="cpu")
+    to_jax = lambda tree: {k: to_jax(v) if isinstance(v, dict) else jnp.array(v.detach().numpy())
+                           for k, v in tree.items()}
+    jparams = to_jax(params)
+    b = next(iter(SyntheticLM(64, 16, 4, seed=2)))
+    jstep = jax.jit(jtrain_step.make_train_step(jcfg, JPLAN, jopt, microbatches=2))
+    jp, _, jm = jstep(jparams, jadamw.init_adamw(jparams, jopt),
+                      {"tokens": jnp.asarray(b.tokens), "labels": jnp.asarray(b.labels)})
+    step = make_train_step(cfg, PLAN, opt, microbatches=2)
+    tp, _, tm = step(params, state, {"tokens": _t(b.tokens), "labels": _t(b.labels)})
+    for key in ("loss", "ce", "balance_loss", "z_loss", "grad_norm"):
+        _close(tm[key], jm[key])
+    np.testing.assert_allclose(tm["expert_load"].numpy(), np.asarray(jm["expert_load"]), rtol=1e-6)
+    want = dict(_flat(jax.tree.map(np.asarray, jp)))
+    for key, a in _flat(tp):
+        _close(a, want[key])
+
+
+def test_replacement_invariance_bit_exact_on_cpu():
+    """Loss and gradients before and after moving the experts: bit-identical
+    once the permutation is undone."""
+    cfg = _tiny(ModelConfig, MoEConfig)
+    params, _, _ = init_all(0, cfg, PLAN, adamw.AdamWConfig(), device="cpu")
+    batch = next(iter(SyntheticLM(64, 16, 4, seed=1)))
+    batch = {"tokens": _t(batch.tokens), "labels": _t(batch.labels)}
+    rng = np.random.default_rng(0)
+    perm = np.stack([rng.permutation(8) for _ in range(2)]).astype(np.int32)
+    inv = np.argsort(perm, axis=1)
+
+    def grads(p, expert_perm):
+        leaves = dict(_flat(p))
+        loss, _ = loss_fn(p, batch, cfg, PLAN, expert_perm=expert_perm)
+        return loss, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    loss1, g1 = grads(params, None)
+    moved = {k: v for k, v in params.items()}
+    moved["blocks"] = {"0_global": dict(params["blocks"]["0_global"])}
+    moe = dict(params["blocks"]["0_global"]["moe"])
+    for name in ("w_in", "w_gate", "w_out"):
+        w = moe[name].detach()
+        moe[name] = torch.stack([w[li][_t(inv[li]).long()] for li in range(2)]).requires_grad_()
+    moved["blocks"]["0_global"]["moe"] = moe
+    loss2, g2 = grads(moved, _t(perm))
+    assert torch.equal(loss1, loss2)
+    for key, a in g1.items():
+        b = g2[key]
+        if key.split("/")[-1] in ("w_in", "w_gate", "w_out"):
+            b = torch.stack([b[li][_t(perm[li]).long()] for li in range(2)])
+        assert torch.equal(a, b), key
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
+# ---------------------------------------------------------------------------
+# the wrappers on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_paged_decode_refuses_a_gradient():
+    """Repair: the paged decode wrapper returned a detached result under grad."""
+    q = torch.zeros((1, 1, 2, 64), requires_grad=True)
+    pool = torch.zeros((2, 4, 2, 64))
+    with pytest.raises(RuntimeError, match="no backward"):
+        kfa.paged_flash_decode_cuda(q, pool, pool, torch.zeros((1, 2), dtype=torch.int32),
+                                    torch.zeros((1,), dtype=torch.int32))
+
+
+def test_training_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((4, 8))
+    i = torch.zeros((4,), dtype=torch.int32)
+    checks = [
+        lambda: kmd.moe_dispatch_cuda(x, i),
+        lambda: kmd.moe_combine_cuda(x, i.reshape(2, 2), torch.zeros((2, 2))),
+        lambda: kgm.grouped_matmul_blocks_cuda(torch.zeros((1, 8, 8)), torch.zeros((1, 8, 8)),
+                                               torch.zeros((1,), dtype=torch.int32)),
+        lambda: ktg.topk_gating_bwd_cuda(x, torch.zeros((4, 2)),
+                                         torch.zeros((4, 2), dtype=torch.int32)),
+    ]
+    for fn in checks:
+        with pytest.raises(ValueError):
+            fn()
+    assert not any(ops.launch_counts().values())
+
+
+def test_ops_training_path_on_cpu_is_plain():
+    x, src, y, slot, w, xb, wb, be = _moe_inputs()
+    ops.reset_launch_counts()
+    assert torch.equal(ops.moe_dispatch(_t(x), _t(src)), tref.moe_dispatch(_t(x), _t(src)))
+    assert torch.equal(ops.moe_combine(_t(y), _t(slot), _t(w)),
+                       tref.moe_combine(_t(y), _t(slot), _t(w)))
+    assert torch.equal(ops.grouped_matmul(_t(xb), _t(wb), block_experts=_t(be)),
+                       tref.grouped_matmul_blocks(_t(xb), _t(wb), _t(be)))
+    assert not any(ops.launch_counts().values())
