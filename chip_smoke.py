@@ -26,21 +26,42 @@ Phases, one printed line (or more) each:
    the Mixtral-8x7B training step's shapes and at small edge cases,
    against its plain version (a backward against ``torch.autograd`` of the
    plain forward); kernel, plain and library times from CUDA events;
-7. step   — one training step's loss and EVERY parameter's gradient at a
-   reduced width (2 layers, d_model 512, 8 experts of d_ff 1024, f32), on
-   the card (kernels) against the CPU (plain versions);
-8. train  — Mixtral-8x7B at its published widths (depth cut to 2 of 32
-   layers), random weights from ``--seed``, trains 8 steps through
-   ``Trainer`` with a 4-device control plane injected (COPILOT on, a
-   reconfiguration every 2 steps), one ``train`` call per step, each
-   clocked whole: the step (the trainer's own clock) and what follows it
-   (the control loop and the in-place permute).  Every loss must be
-   finite, at least one reconfiguration must apply, and every training
-   kernel must launch.  Then every applied reconfiguration is replayed on
-   the trained weights: a fixed probe batch's loss and expert gradients
-   just before and just after the same in-place move must be
+7. capacity kernels — kernel 6 (the capacity-layout grouped GEMM) and its
+   dX and dW at the capacity step's w_in shapes, built from a real
+   two-stage capacity plan (empty send rows, empty expert slots), and edge
+   cases (C in {4, 12, 20, 200, 260}, E = 1, an all-zero expert, f32 and
+   bf16, K and N off the tiles), against the plain versions and
+   ``torch.autograd``; ``torch.bmm`` as the library yardstick;
+8. step   — one training step's loss and EVERY parameter's gradient at a
+   reduced width (2 layers, d_model 512, 8 experts of d_ff 1024, f32,
+   remat "full"), on the card (kernels) against the CPU (plain versions),
+   dropless and with capacity dispatch at a capacity factor that drops;
+9. remat  — Mixtral-8x7B at its published widths (2 of 32 layers): one
+   forward and backward with remat "none", "full" and "dots" on the same
+   weights and batch; loss and every gradient bit-identical, forward
+   kernels launched twice under remat; peak memory of each;
+10. train — Mixtral-8x7B at its published widths (depth cut to 2 of 32
+   layers), random weights from ``--seed``, ``remat="full"`` as configured,
+   trains 8 steps through ``Trainer`` with a 4-device control plane
+   injected (COPILOT on, a reconfiguration every 2 steps), one ``train``
+   call per step, each clocked whole: the step (the trainer's own clock)
+   and what follows it (the control loop and the in-place permute).  Every
+   loss must be finite, at least one reconfiguration must apply, and every
+   training kernel must launch.  Then every applied reconfiguration is
+   replayed on the trained weights: a fixed probe batch's loss and expert
+   gradients just before and just after the same in-place move must be
    bit-identical once the permutation is undone;
-9. the kernels line (JSON), the card line, and the result line
+11. train capacity — the same run with ``dispatch="capacity"`` (capacity
+   factor 1.25), the dropped fraction printed per step, the trainer
+   writing a 31.6 GB checkpoint at step 4 under build/ (it needs that much
+   free on the disk and one leaf, up to 3.8 GB, in host memory);
+12. resume — a fresh trainer restores that checkpoint: the state must
+   equal the saved one and step 5 on the same batch must equal the
+   uninterrupted run's, bit for bit; write and read GB/s; the checkpoint
+   is removed;
+13. serve checkpoint — reduced grok-1 saved mid-reconfiguration and
+   restored into a fresh engine gives bit-identical next tokens;
+14. the kernels line (JSON), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA card or outside a
@@ -101,6 +122,12 @@ KERNEL_ROWS = {
     "topk_gating_bwd": ("src/repro_torch/csrc/topk_gating.cu", "src/repro/kernels/topk_gating.py:44"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:105"),
+    "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul.py:62"),
+    "grouped_matmul_dx": ("src/repro_torch/csrc/grouped_matmul.cu",
+                          "src/repro/kernels/grouped_matmul.py:62"),
+    "grouped_matmul_dw": ("src/repro_torch/csrc/grouped_matmul.cu",
+                          "src/repro/kernels/grouped_matmul.py:62"),
 }
 
 
@@ -711,15 +738,141 @@ def train_edge_cases(torch, g):
           f"max_abs_err={max(errs):.3e}", flush=True)
 
 
+def capacity_config(cfg):
+    """``cfg`` with GShard/Switch token-dropping dispatch at capacity factor
+    1.25."""
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, dispatch="capacity", capacity_factor=1.25))
+
+
+def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
+    """Kernel 6 (the capacity-layout grouped GEMM) and its dX and dW at the
+    capacity step's w_in shapes: T = batch x seq tokens routed top-k, stage 1
+    packs them into capacity(T, k, 1, cf) send rows (at P = 1 the rows past
+    T * k stay empty), stage 2 into E buffers of C = capacity(rows, 1, E, cf)
+    rows, empty slots and dropped choices as zero rows.  All bf16, against
+    the plain versions and torch.autograd of the plain forward
+    (``BF16_GEMM_REL``); ``torch.bmm`` is the library yardstick."""
+    from repro_torch.kernels import grouped_matmul as kgm
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.kernels import ref
+    from repro_torch.models import routing
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    bf16 = torch.bfloat16
+    d, f = cfg.d_model, cfg.moe.d_ff
+    e, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    t = batch * seq
+    n = t * k
+    randn = lambda *shape, dt=torch.float32: torch.randn(shape, generator=g, device=dev).to(dt)
+    with torch.no_grad():
+        info = routing.compute_routing(randn(t, e), top_k=k, num_virtual=e, replication=1)
+        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+        rank1, _ = routing.bucket_ranks(zeros, 1)
+        cp = routing.capacity(t, k, 1, cf)
+        plan1 = routing.capacity_plan(zeros, rank1, rank1 < cp, 1, cp)
+        src_tok = torch.where(plan1.src >= 0, plan1.src // k, torch.full_like(plan1.src, -1))
+        local_e = info.vdest.reshape(n)
+        recv_e = torch.where(plan1.src >= 0, local_e[plan1.src.clamp(0, n - 1).long()],
+                             torch.full_like(plan1.src, -1)).to(torch.int32)
+        valid = recv_e >= 0
+        rank2, _ = routing.bucket_ranks(recv_e, e, valid=valid)
+        c = routing.capacity(cp, 1, e, cf)
+        plan2 = routing.capacity_plan(recv_e, rank2, valid, e, c)
+        rx = kmd.moe_dispatch_cuda(randn(t, d, dt=bf16), src_tok)
+        x = kmd.moe_dispatch_cuda(rx, plan2.src).reshape(e, c, d)
+    empty_send = int((plan1.src < 0).sum())
+    empty = int((plan2.src < 0).sum())
+    print(f"capacity layout: {n} choices -> {cp} send rows ({empty_send} empty) -> "
+          f"[{e}, {c}] expert slots ({empty} empty, {int(plan2.kept)} kept)", flush=True)
+    assert empty_send > 0 and not x.reshape(-1, d)[plan2.src < 0].any(), "empty slots not zero"
+    w = (randn(e, d, f) * d**-0.5).to(bf16)
+    dy = randn(e, c, f, dt=bf16)
+    dy.reshape(-1, f)[plan2.src < 0] = 0  # empty slots get no gradient in the layer
+    rows = {}
+    y = kgm.grouped_matmul_cuda(x, w)
+    want = ref.grouped_matmul(x, w)
+    err = check_rel(y, want, BF16_GEMM_REL, "grouped_matmul")
+    gemm = 2.0 * e * c * d * f
+    rows["grouped_matmul"] = kernel_row(
+        torch, "grouped_matmul", err,
+        time_ms(torch, lambda: kgm.grouped_matmul_cuda(x, w), 20),
+        time_ms(torch, lambda: ref.grouped_matmul(x, w), 5),
+        library_time(torch, lambda: torch.bmm(x, w), want, BF16_GEMM_REL, 20,
+                     "grouped_matmul (torch.bmm)"),
+        (e * c * d + e * d * f + e * c * f) * 2, gemm, "bfloat16",
+        f"x [{e}, {c}, {d}] bf16 @ w [{e}, {d}, {f}], {empty} empty slots",
+    )
+    want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul(a, b), [x, w], dy)
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    dx = kgm.grouped_matmul_dx_cuda(dy, w)
+    rows["grouped_matmul_dx"] = kernel_row(
+        torch, "grouped_matmul_dx", check_rel(dx, want_dx, BF16_GEMM_REL, "grouped_matmul dX"),
+        time_ms(torch, lambda: kgm.grouped_matmul_dx_cuda(dy, w), 20),
+        time_ms(torch, lambda: ref.grouped_matmul(dy, wt), 5),
+        library_time(torch, lambda: torch.bmm(dy, wt), want_dx, BF16_GEMM_REL, 20,
+                     "grouped_matmul_dx (torch.bmm)"),
+        (e * c * f + e * d * f + e * c * d) * 2, gemm, "bfloat16",
+        f"dy [{e}, {c}, {f}] bf16 @ w[e]^T, w [{e}, {d}, {f}]",
+    )
+    dw = kgm.grouped_matmul_dw_cuda(x, dy)
+    rows["grouped_matmul_dw"] = kernel_row(
+        torch, "grouped_matmul_dw", check_rel(dw, want_dw, BF16_GEMM_REL, "grouped_matmul dW"),
+        time_ms(torch, lambda: kgm.grouped_matmul_dw_cuda(x, dy), 20),
+        time_ms(torch, lambda: ref.grouped_matmul_dw(x, dy), 5),
+        library_time(torch, lambda: torch.bmm(xt, dy), want_dw, BF16_GEMM_REL, 20,
+                     "grouped_matmul_dw (torch.bmm)"),
+        (e * c * d + e * c * f + e * d * f) * 2, gemm, "bfloat16",
+        f"x [{e}, {c}, {d}], dy [{e}, {c}, {f}] bf16 -> dW [{e}, {d}, {f}]",
+    )
+    del x, w, dy, y, want, want_dx, want_dw, dx, dw, wt, xt
+    capacity_edge_cases(torch, g)
+    return rows
+
+
+def capacity_edge_cases(torch, g):
+    """C in {4, 12, 20, 200}, E = 1, an expert whose rows are all zero, f32
+    and bf16, K and N multiples of 8 that are not multiples of the tiles."""
+    from repro_torch.kernels import grouped_matmul as kgm
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        rel = BF16_GEMM_REL if dt == torch.bfloat16 else 1e-5
+        for e, c, kd, nd in ((3, 4, 64, 192), (3, 12, 72, 136), (1, 20, 40, 200),
+                             (3, 200, 136, 72), (2, 260, 4096, 200)):
+            x = torch.randn((e, c, kd), generator=g, device=dev)
+            x[:, c - c // 4:] = 0  # unfilled slots
+            if e > 1:
+                x[1] = 0  # an expert that got no choice
+            x = x.to(dt)
+            w = (torch.randn((e, kd, nd), generator=g, device=dev) / kd**0.5).to(dt)
+            dy = torch.randn((e, c, nd), generator=g, device=dev).to(dt)
+            y = kgm.grouped_matmul_cuda(x, w)
+            errs.append(check_rel(y, ref.grouped_matmul(x, w), rel, f"cap edge {dt} {e}x{c}"))
+            want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul(a, b), [x, w], dy)
+            errs.append(check_rel(kgm.grouped_matmul_dx_cuda(dy, w), want_dx, rel, "cap dX edge"))
+            dwk = kgm.grouped_matmul_dw_cuda(x, dy)
+            errs.append(check_rel(dwk, want_dw, rel, "cap dW edge"))
+            if e > 1:
+                assert not y[1].any() and not dwk[1].any(), "an empty expert must give zeros"
+    torch.cuda.synchronize()
+    print(f"capacity kernels edge cases: {len(errs)} comparisons within tolerance, "
+          f"max_abs_err={max(errs):.3e}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 7: one training step, card against CPU
 # ---------------------------------------------------------------------------
 
 
-def step_card_vs_cpu(torch, seed: int) -> float:
+def step_card_vs_cpu(torch, seed: int, **moe_kw) -> float:
     """Loss and every parameter's gradient of one step at a reduced width,
-    f32, on the card (kernels) and on the CPU (plain versions).  Tolerance:
-    the loss within 1e-4 relative; each gradient within 1e-3 of its largest
+    f32, on the card (kernels) and on the CPU (plain versions); ``moe_kw``
+    overrides the MoE config (the capacity layout).  Tolerance: the loss
+    within 1e-4 relative; each gradient within 1e-3 of its largest
     magnitude (f32 sums in another order through two layers), and no
     gradient may be zero on one side only (a cut gradient)."""
     from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
@@ -731,7 +884,7 @@ def step_card_vs_cpu(torch, seed: int) -> float:
     cfg = dataclasses.replace(
         MIXTRAL_8X7B_CONFIG, num_layers=2, d_model=512, num_heads=4, num_kv_heads=2,
         d_ff=1024, dtype="float32",
-        moe=dataclasses.replace(MIXTRAL_8X7B_CONFIG.moe, d_ff=1024),
+        moe=dataclasses.replace(MIXTRAL_8X7B_CONFIG.moe, d_ff=1024, **moe_kw),
     )
     plan = make_plan(None)
     params, _, _ = init_all(seed, cfg, plan, AdamWConfig(), device="cpu")
@@ -758,7 +911,9 @@ def step_card_vs_cpu(torch, seed: int) -> float:
         err = (got - want).abs().max().item()
         assert err <= 1e-3 * scale + 1e-7, f"{name}: max |diff| {err} vs max |grad| {scale}"
         worst = max(worst, err / max(scale, 1e-30))
-    print(f"step: card vs cpu at d_model {cfg.d_model}, {cfg.num_layers} layers, "
+    print(f"step: card vs cpu, dispatch={cfg.moe.dispatch} (capacity factor "
+          f"{cfg.moe.capacity_factor}), remat={cfg.remat}, at d_model {cfg.d_model}, "
+          f"{cfg.num_layers} layers, "
           f"{len(g_cpu)} gradients: loss {loss_gpu.item():.6f} vs {loss_cpu.item():.6f}, "
           f"worst max|diff|/max|grad| = {worst:.3e}", flush=True)
     return worst
@@ -781,38 +936,51 @@ def _map_tree(tree, fn):
 # ---------------------------------------------------------------------------
 
 
-def train(torch, seed: int, profile: bool):
-    import numpy as np
-
-    from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
+def make_trainer(torch, cfg, seed: int, **tcfg_kw):
+    """A Mixtral ``Trainer`` on the card with a 4-device control plane
+    injected (COPILOT on): placement needs freedom, 2 experts per device, as
+    the reference's own trainer test injects (tests/test_train.py:222)."""
     from repro_torch.core.controlplane import ControlPlane
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import ops
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import make_plan
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = dataclasses.replace(MIXTRAL_8X7B_CONFIG, num_layers=TRAIN_LAYERS)
+    tr = Trainer(
+        cfg, AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS),
+        TrainerConfig(total_steps=TRAIN_STEPS, reconfig_every=2, reconfig_min_gain=0.0,
+                      **tcfg_kw),
+        make_plan(None), seed=seed, device="cuda",
+    )
+    tr.controlplane = ControlPlane(num_layers=cfg.num_layers, num_experts=cfg.moe.num_experts,
+                                   num_devices=4, use_copilot=True, min_gain_fraction=0.0)
+    return tr
+
+
+def train(torch, cfg, seed: int, profile: bool, kernels, *, setup=None, after_call=None):
+    """Train ``cfg`` 8 steps through ``Trainer``, one ``train`` call per
+    step.  ``setup(tr)`` runs before the first call; ``after_call(step, tr)``
+    after each call, outside its clock.  Every kernel in ``kernels`` must
+    launch."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import make_plan
+
     plan = make_plan(None)
     seq, batch = 256, 2
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = Trainer(
-        cfg, AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS),
-        TrainerConfig(total_steps=TRAIN_STEPS, reconfig_every=2, reconfig_min_gain=0.0,
-                      ckpt_every=0),
-        plan, seed=seed, device="cuda",
-    )
-    # Placement needs freedom: a 4-device region (2 experts per device), as
-    # the reference's own trainer test injects (tests/test_train.py:222).
-    tr.controlplane = ControlPlane(num_layers=TRAIN_LAYERS, num_experts=cfg.moe.num_experts,
-                                   num_devices=4, use_copilot=True, min_gain_fraction=0.0)
+    tr = make_trainer(torch, cfg, seed)
+    if setup is not None:
+        setup(tr)
     nparams = sum(t.numel() for _, t in _flat_tree(tr.params))
     torch.cuda.synchronize()
     print(f"model: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
           f"experts={cfg.moe.num_experts} top{cfg.moe.top_k} d_ff={cfg.moe.d_ff} "
           f"vocab={cfg.vocab_size} layers={cfg.num_layers}/32 backend={cfg.moe.backend} "
-          f"dispatch={cfg.moe.dispatch}: {nparams / 1e9:.3f} B parameters, "
+          f"dispatch={cfg.moe.dispatch} capacity_factor={cfg.moe.capacity_factor} "
+          f"remat={cfg.remat}: {nparams / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB with moments, "
           f"init {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -835,6 +1003,8 @@ def train(torch, seed: int, profile: bool):
         call_ms.append(1e3 * (time.perf_counter() - t0))
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
         perms.append(np.asarray(tr.expert_perm).copy())
+        if after_call is not None:
+            after_call(s, tr)
     counts = ops.launch_counts()
     log = tr.metrics_log
     losses = [float(m["loss"]) for m in log]
@@ -846,9 +1016,13 @@ def train(torch, seed: int, profile: bool):
     moves = [i for i in range(TRAIN_STEPS) if not np.array_equal(perms[i], perms[i + 1])]
     assert all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}"
     assert tr.reconfig_count > 0 and moves, "the control plane never reconfigured"
-    missing = [nm for nm in TRAIN_KERNELS if counts[nm] == 0]
+    missing = [nm for nm in kernels if counts[nm] == 0]
     assert not missing, f"kernels never launched while training: {missing}"
     print(f"train: losses {['%.4f' % v for v in losses]}", flush=True)
+    drops = [np.asarray(m["dropped_fraction"]).tolist() for m in log]
+    print("train: dropped fraction of routed choices per step (per layer): "
+          + ", ".join(f"{i + 1}: {['%.4f' % v for v in dr]}" for i, dr in enumerate(drops)),
+          flush=True)
     print(f"train: {TRAIN_STEPS} steps of {batch}x{seq} tokens: median step {med:.1f} ms "
           f"(trainer's clock, steps 2-{TRAIN_STEPS}), {batch * seq / med * 1e3:.1f} tokens/s at "
           f"that median; whole window (steps 2-{TRAIN_STEPS}, control loop and permutes "
@@ -868,7 +1042,8 @@ def train(torch, seed: int, profile: bool):
     del tr
     torch.cuda.empty_cache()
     return counts, dict(losses=losses, median_ms=med, window_tps=window_tps, peak_gb=peak,
-                        checks=checks)
+                        checks=checks, call_ms=call_ms, perms=perms, drops=drops)
+
 
 
 def replacement_check(torch, tr, cfg, plan, perms, moves, seq: int, batch: int, seed: int):
@@ -932,6 +1107,236 @@ TRAIN_KERNELS = (
     "moe_combine", "moe_combine_bwd", "grouped_matmul_blocks", "grouped_matmul_blocks_dx",
     "grouped_matmul_blocks_dw",
 )
+CAPACITY_KERNELS = TRAIN_KERNELS[:7] + ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
+# Kernels that only the forward launches (the backward launches moe_dispatch
+# and moe_combine too): under remat each launches twice a step.
+FORWARD_KERNELS = ("topk_gating", "flash_attention", "grouped_matmul_blocks")
+
+
+def remat_phase(torch, seed: int):
+    """One forward and backward of Mixtral-8x7B (full width, 2 of 32 layers,
+    dropless) with remat "none", "full" and "dots" on the same weights and
+    batch: loss and every gradient bit-identical; the forward's launches
+    equal, and under remat the backward launches the forward again (each
+    kernel's total = "none"'s total + its forward launches).  Peak memory
+    and the host clock of each (after one untimed warm-up)."""
+    from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.train_step import loss_fn
+
+    cfg0 = dataclasses.replace(MIXTRAL_8X7B_CONFIG, num_layers=TRAIN_LAYERS)
+    plan = make_plan(None)
+    params = tfm.init_model(seed, cfg0, plan, device="cuda")
+    leaves = [(k, t.requires_grad_(True)) for k, t in _flat_tree(params) if t.is_floating_point()]
+    b = next(iter(SyntheticLM(cfg0.vocab_size, 256, 2, seed=seed)))
+    batch = {"tokens": torch.as_tensor(b.tokens, device="cuda"),
+             "labels": torch.as_tensor(b.labels, device="cuda")}
+
+    def run(remat):
+        cfg = dataclasses.replace(cfg0, remat=remat)
+        ops.reset_launch_counts()
+        loss, _ = loss_fn(params, batch, cfg, plan)
+        fwd = ops.launch_counts()
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        torch.cuda.synchronize()
+        return loss.detach(), grads, fwd, ops.launch_counts()
+
+    run("none")  # warm-up: cuBLAS handles, allocator pools
+    base = None
+    for remat in ("none", "full", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads, fwd, total = run(remat)
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"remat {remat}: loss {loss.item():.6f}, forward + backward {ms:.1f} ms (host "
+              f"clock), peak {peak / 1e9:.3f} GB ({(peak - held) / 1e9:.3f} GB above the "
+              f"{held / 1e9:.3f} GB held before), launches forward {fwd} total {total}",
+              flush=True)
+        if base is None:
+            base = (loss, grads, fwd, total)
+            continue
+        assert torch.equal(loss, base[0]), f"remat {remat}: loss {loss.item()} != {base[0].item()}"
+        for (name, _), a, g in zip(leaves, grads, base[1]):
+            assert torch.equal(a, g), f"remat {remat}: gradient of {name} differs"
+        for nm, v in fwd.items():
+            assert v == base[2][nm], f"remat {remat}: {nm} forward launches {v} != {base[2][nm]}"
+            assert total[nm] == base[3][nm] + v, \
+                f"remat {remat}: {nm} launched {total[nm]}, want {base[3][nm]} + {v} recomputed"
+        for nm in FORWARD_KERNELS:
+            assert total[nm] == 2 * base[3][nm] > 0, f"remat {remat}: {nm} did not double"
+        del grads
+    print(f"remat: loss and all {len(leaves)} gradients bit-identical under none / full / dots; "
+          f"forward kernels launch twice under full and dots", flush=True)
+    del params, leaves, base
+    torch.cuda.empty_cache()
+
+
+def state_checksum(torch, tree) -> dict:
+    """Per leaf, two exact integer sums of its bits (plain and
+    position-weighted, int64 with wrap-around), computed on the card."""
+    ch = 1 << 26
+    weight = torch.arange(ch, device="cuda", dtype=torch.int64) * 40503 % 65521 + 1
+    bits_of = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for name, t in _flat_tree(tree):
+        flat = t.detach().reshape(-1).view(bits_of[t.element_size()])
+        s1 = s2 = 0
+        for i in range(0, flat.numel(), ch):
+            c = flat[i:i + ch].long()
+            s1 += int(c.sum())
+            s2 += int((c * weight[: c.numel()]).sum())
+        out[name] = (s1, s2)
+    return out
+
+
+def train_capacity_and_resume(torch, seed: int, profile: bool):
+    """Mixtral-8x7B (full width, 2 of 32 layers) with dispatch="capacity",
+    capacity factor 1.25 and remat "full", trained exactly like the dropless
+    run.  The trainer writes a checkpoint at step 4 (synchronous, keep 1)
+    under build/; the state after step 4 and step 5's loss and state are
+    recorded.  Then a fresh trainer (another init seed) restores it: the
+    restored parameters, moments, step and perm stack must equal the saved
+    ones bit for bit, and step 5 on the same batch must give the same loss
+    and state bit for bit."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+
+    cfg = capacity_config(dataclasses.replace(MIXTRAL_8X7B_CONFIG, num_layers=TRAIN_LAYERS))
+    ckpt_dir = REPO / "build" / "smoke_checkpoint"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec: dict = {}
+
+    def setup(tr):
+        tr.tcfg.ckpt_dir, tr.tcfg.ckpt_every = str(ckpt_dir), 4
+        tr.tcfg.ckpt_async, tr.tcfg.ckpt_keep = False, 1
+        write = tr._checkpoint
+
+        def timed_write():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            write()
+            rec["write_s"] = time.perf_counter() - t0
+
+        tr._checkpoint = timed_write
+
+    def after_call(step, tr):
+        state = {"params": tr.params, "opt": tr.opt_state}
+        if step == 4:
+            tr.tcfg.ckpt_every = 0  # one checkpoint: the run resumes from step 4
+            rec["sum4"] = state_checksum(torch, state)
+            rec["perm4"] = np.asarray(tr.expert_perm).copy()
+            rec["bytes"] = sum(t.numel() * t.element_size() for _, t in _flat_tree(state))
+        elif step == 5:
+            rec["loss5"] = np.float32(tr.metrics_log[-1]["loss"])
+            rec["sum5"] = state_checksum(torch, state)
+
+    try:
+        counts, info = train(torch, cfg, seed, profile, CAPACITY_KERNELS, setup=setup,
+                             after_call=after_call)
+        gb = rec["bytes"] / 1e9
+        window_ms = sum(info["call_ms"][1:]) - 1e3 * rec["write_s"]
+        print(f"train capacity: whole window without the checkpoint write {window_ms:.1f} ms, "
+              f"{2 * 256 * (TRAIN_STEPS - 1) / (window_ms / 1e3):.1f} tokens/s; checkpoint at "
+              f"step 4: {gb:.3f} GB written in {rec['write_s']:.2f} s, "
+              f"{gb / rec['write_s']:.3f} GB/s", flush=True)
+
+        tr = make_trainer(torch, cfg, seed + 1, ckpt_dir=str(ckpt_dir))
+        tr.tcfg.total_steps = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assert tr.maybe_restore(), "no checkpoint found"
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        state = {"params": tr.params, "opt": tr.opt_state}
+        assert tr.step == 4 and int(tr.opt_state["step"]) == 4, (tr.step, tr.opt_state["step"])
+        assert state_checksum(torch, state) == rec["sum4"], "restored state differs from saved"
+        assert np.array_equal(np.asarray(tr.expert_perm), rec["perm4"]), "perm stack differs"
+        data = iter(SyntheticLM(cfg.vocab_size, seq_len=256, global_batch=2, seed=seed))
+        for _ in range(4):
+            next(data)
+        tr.train(data)
+        loss5 = np.float32(tr.metrics_log[-1]["loss"])
+        assert loss5.tobytes() == rec["loss5"].tobytes(), f"step 5 loss {loss5} != {rec['loss5']}"
+        assert state_checksum(torch, state) == rec["sum5"], "state after the resumed step differs"
+        print(f"resume: {gb:.3f} GB read back in {read_s:.2f} s, {gb / read_s:.3f} GB/s; "
+              f"parameters, moments, step 4 and perm stack bit-identical; resumed step 5 loss "
+              f"{float(loss5):.6f} and state bit-identical to the uninterrupted run", flush=True)
+        del tr, state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return counts, info
+
+
+def serve_checkpoint_phase(torch, seed: int):
+    """Reduced grok-1, head dim 64 (the port of tests/test_serve.py:253-288 on
+    the card):
+    serve with reconfiguration until the placement moved, save, restore into
+    a fresh engine; the same probe requests then give bit-identical tokens
+    on both.  An engine without a control plane refuses the placement."""
+    import shutil
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.workload import WorkloadGenerator
+
+    cfg = get_reduced("grok-1-314b", head_dim=64)  # the kernels take head dims 64, 128, 256
+    plan = make_plan(None)
+    params = init_model(seed, cfg, plan, device="cuda")
+
+    def requests(gen, n):
+        return [dataclasses.replace(r, prompt_len=min(r.prompt_len, 20),
+                                    max_new_tokens=min(r.max_new_tokens, 6))
+                for r in gen.generate(n)]
+
+    def engine(reconfig_every):
+        scfg = ServeConfig(slots=2, max_len=40, reconfig_every=reconfig_every,
+                           reconfig_min_gain=0.0, num_devices=4)
+        return ServeEngine(_map_tree(params, lambda t: t.clone()), cfg, plan, scfg,
+                           device="cuda")
+
+    ckpt_dir = REPO / "build" / "smoke_serve_checkpoint"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        gen = WorkloadGenerator("chat", seed=9, vocab_size=cfg.vocab_size)
+        eng = engine(2)
+        eng.run(requests(gen, 3), gen)
+        stack = eng.controlplane.perm_stack()
+        assert eng.controlplane.reconfig_count > 0, "the control plane never reconfigured"
+        step = eng.save_checkpoint(str(ckpt_dir))
+        fresh = engine(10**9)
+        fresh.restore_checkpoint(str(ckpt_dir), step)
+        assert (fresh.batcher.expert_perm == stack).all(), "restored perm stack differs"
+        probe = requests(WorkloadGenerator("chat", seed=11, vocab_size=cfg.vocab_size), 2)
+        eng.scfg.reconfig_every = 10**9
+        eng.run(probe, WorkloadGenerator("chat", seed=11, vocab_size=cfg.vocab_size))
+        fresh.run(probe, WorkloadGenerator("chat", seed=11, vocab_size=cfg.vocab_size))
+        ids = {p.rid for p in probe}
+        a = {r.rid: r.out for r in eng.batcher.finished if r.rid in ids}
+        b = {r.rid: r.out for r in fresh.batcher.finished}
+        assert a == b and len(a) == len(probe), f"tokens differ after restore: {a} vs {b}"
+        try:
+            engine(0).restore_checkpoint(str(ckpt_dir), step)
+            raise AssertionError("an engine without a control plane took the placement")
+        except RuntimeError:
+            pass
+        print(f"serve checkpoint: {cfg.name} reduced, saved at tick {step} after "
+              f"{eng.controlplane.reconfig_count} reconfigurations, restored into a fresh "
+              f"engine: {sum(len(v) for v in a.values())} probe tokens bit-identical", flush=True)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def profile_train(torch, tr, data, tokens: int):
@@ -1062,23 +1467,36 @@ def main(argv=None) -> int:
     from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
 
     rows.update(train_kernel_phase(torch, MIXTRAL_8X7B_CONFIG, 2, 256, args.seed))
+    rows.update(capacity_kernel_phase(torch, capacity_config(MIXTRAL_8X7B_CONFIG), 2, 256,
+                                      args.seed))
     step_card_vs_cpu(torch, args.seed)
-    counts_train, _ = train(torch, args.seed, args.profile)
+    # A capacity factor of 1.0 drops choices at stage 2 (-1 rows under autograd).
+    step_card_vs_cpu(torch, args.seed, dispatch="capacity", capacity_factor=1.0)
+    remat_phase(torch, args.seed)
+    counts_train, _ = train(
+        torch, dataclasses.replace(MIXTRAL_8X7B_CONFIG, num_layers=TRAIN_LAYERS), args.seed,
+        args.profile, TRAIN_KERNELS,
+    )
+    counts_cap, _ = train_capacity_and_resume(torch, args.seed, args.profile)
+    serve_checkpoint_phase(torch, args.seed)
 
     # launches: each kernel's count from the path it belongs to — the
-    # training run for every kernel it launches, the serve (reconfiguration
-    # on) for the decode kernel, which only serving runs.  The times of the
-    # training kernels are at the training step's shapes.
+    # capacity training run for kernel 6 and its backward, the dropless run
+    # for every other kernel it launches, the serve (reconfiguration on) for
+    # the decode kernel, which only serving runs.  The times of the training
+    # kernels are at the training steps' shapes.
     line = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         r = rows[name]
-        launches = counts_train[name] if name in TRAIN_KERNELS else counts_on[name]
+        launches = (counts_train[name] if name in TRAIN_KERNELS
+                    else counts_cap[name] if name in CAPACITY_KERNELS else counts_on[name])
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-            launches_by_path={"serve": counts_on[name], "train": counts_train[name]},
+            launches_by_path={"serve": counts_on[name], "train": counts_train[name],
+                              "train_capacity": counts_cap[name]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)

@@ -21,10 +21,13 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.grouped_matmul import (
     GroupedMatmulBlocksFn,
+    GroupedMatmulFn,
     grouped_matmul_blocks_cuda,
     grouped_matmul_blocks_dw_cuda,
     grouped_matmul_blocks_dx_cuda,
     grouped_matmul_cuda,
+    grouped_matmul_dw_cuda,
+    grouped_matmul_dx_cuda,
 )
 from repro_torch.kernels.moe_dispatch import (
     MoECombineFn,
@@ -53,6 +56,9 @@ KERNELS = {
     "grouped_matmul_blocks": grouped_matmul_blocks_cuda,
     "grouped_matmul_blocks_dx": grouped_matmul_blocks_dx_cuda,
     "grouped_matmul_blocks_dw": grouped_matmul_blocks_dw_cuda,
+    "grouped_matmul": grouped_matmul_cuda,
+    "grouped_matmul_dx": grouped_matmul_dx_cuda,
+    "grouped_matmul_dw": grouped_matmul_dw_cuda,
 }
 
 
@@ -136,12 +142,14 @@ def moe_combine(y, slot, weights, *, inverse=None):
 
 def grouped_matmul(x, w, *, block_experts=None):
     """Per-expert GEMM.  ``block_experts=None``: capacity layout ``[E, C,
-    D]`` against ``w [E, D, F]`` (no kernel yet: raises on the card); with a
-    non-decreasing ``[n]`` block->expert map: dropless block layout ``[n,
-    B, D]`` (rows of tile ``i`` use ``w[block_experts[i]]``)."""
+    D]`` against ``w [E, D, F]``; with a non-decreasing ``[n]``
+    block->expert map: dropless block layout ``[n, B, D]`` (rows of tile
+    ``i`` use ``w[block_experts[i]]``)."""
     if block_experts is None:
         if _on_cpu(x):
             return ref.grouped_matmul(x, w)
+        if _wants_grad(x, w):
+            return GroupedMatmulFn.apply(x, w)
         return grouped_matmul_cuda(x, w)
     if _on_cpu(x):
         return ref.grouped_matmul_blocks(x, w, block_experts)

@@ -267,6 +267,20 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.float(), w.float()).to(x.dtype)
 
 
+def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Capacity-layout weight gradient ``dw[e] = x[e]^T dy[e]`` ``[E, D, F]``,
+    f32 accumulation stored in x's dtype."""
+    return torch.bmm(x.float().transpose(1, 2), dy.float()).to(x.dtype)
+
+
+def grouped_matmul_bwd(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of :func:`grouped_matmul`: ``dx = dy @ w[e]^T`` (the forward
+    through the transposed weights) and :func:`grouped_matmul_dw`."""
+    return grouped_matmul(dy, w.transpose(1, 2)), grouped_matmul_dw(x, dy).to(w.dtype)
+
+
 def _expert_runs(block_experts: torch.Tensor) -> list[tuple[int, int, int]]:
     """``(expert, first tile, end tile)`` of each run of equal consecutive
     entries of ``block_experts`` (one run per expert when it is sorted).

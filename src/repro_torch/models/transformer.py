@@ -9,11 +9,20 @@ returns stacked ``[reps, B, S, Hkv, dh]`` caches) and ``decode`` (a ``[B,
 C]`` chunk against dense or paged caches, written in place).  Training
 differentiates through ``model_apply`` with ``torch.autograd`` and takes
 its loss from :func:`chunked_cross_entropy`.
+
+``cfg.remat`` applies in ``train`` mode as the reference's ``jax.checkpoint``
+around each layer group (one repeat of ``block_pattern``): ``"full"`` keeps
+only the group's input and recomputes the rest in the backward; ``"dots"``
+keeps the products without batch dims (:func:`_dots_policy`) and recomputes
+the rest, the hand-written kernels included.  The recompute runs the same
+deterministic kernels on the same inputs, so values and gradients do not
+change; only memory and time do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.utils.checkpoint
@@ -138,6 +147,7 @@ class ForwardAux:
     moe_stats: torch.Tensor | None  # [reps, E] expert loads, or None
     balance_loss: torch.Tensor
     z_loss: torch.Tensor
+    dropped_fraction: torch.Tensor  # [reps] routed choices dropped, first block of each
 
 
 def _layer(tree: dict, li: int) -> dict:
@@ -152,6 +162,34 @@ def _layers(tree: dict, reps: int) -> list[dict]:
     gradient for every layer."""
     flat = {k: _layers(v, reps) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
     return [{k: v[li] for k, v in flat.items()} for li in range(reps)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims`` for PyTorch's ops: keep a plain
+    matrix product (``mm``/``addmm``, and the batch-1 ``bmm`` an einsum
+    without batch dims lowers to); recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+        op is aten.bmm.default and args[0].shape[0] == 1
+    ):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the reference's remat mode (``"none"``: as it is)."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat mode {remat!r}")
+    kw = {}
+    if remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _apply_block(
@@ -227,13 +265,14 @@ def model_apply(
             page=first.shape[2] if page_table is not None else None, device=dev,
         )
 
-    # cfg.remat ("full" / "dots") is read but not applied yet: it trades
-    # memory for recompute and leaves every value unchanged.
     block_params = {n: _layers(params["blocks"][n], reps) for n in names}
     prefill_caches: dict = {n: [] for n in names}
-    loads, bal, zl = [], [], []
-    for li in range(reps):
-        stats_list = []
+
+    def group(x, li):
+        """One repeat of the block pattern.  Returns its output and stats
+        (and its prefill caches): under remat the backward runs it again, so
+        it touches nothing outside."""
+        stats_list, ncs = [], []
         for i, kind in enumerate(cfg.block_pattern):
             cache_i = _layer(caches[names[i]], li) if caches is not None else None
             x, nc, st = _apply_block(
@@ -242,12 +281,25 @@ def model_apply(
                 wire_perm=None if wire_perm is None else wire_perm[li],
                 gate_weights=gate_weights, page_table=page_table, writes=writes,
             )
-            if mode == "prefill":
-                prefill_caches[names[i]].append(nc)
+            ncs.append(nc)
             stats_list.append(st)
-        bal.append(sum(st.balance_loss for st in stats_list) / len(stats_list))
-        zl.append(sum(st.z_loss for st in stats_list) / len(stats_list))
-        loads.append(stats_list[0].expert_load)
+        bal = sum(st.balance_loss for st in stats_list) / len(stats_list)
+        zl = sum(st.z_loss for st in stats_list) / len(stats_list)
+        return x, bal, zl, stats_list[0].expert_load, stats_list[0].dropped_fraction, ncs
+
+    run = group
+    if mode == "train" and torch.is_grad_enabled():
+        run = _remat(lambda x, li: group(x, li)[:5], cfg.remat)
+    loads, bal, zl, drops = [], [], [], []
+    for li in range(reps):
+        x, b_, z_, load, drop, *rest = run(x, li)
+        if mode == "prefill":
+            for n, nc in zip(names, rest[0]):
+                prefill_caches[n].append(nc)
+        bal.append(b_)
+        zl.append(z_)
+        loads.append(load)
+        drops.append(drop)
     new_caches = caches
     if mode == "prefill":
         new_caches = {
@@ -259,6 +311,7 @@ def model_apply(
         moe_stats=torch.stack(loads),
         balance_loss=torch.stack(bal).mean(),
         z_loss=torch.stack(zl).mean(),
+        dropped_fraction=torch.stack(drops),
     )
     return x, aux, new_caches
 

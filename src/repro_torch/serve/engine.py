@@ -2,8 +2,9 @@
 (DESIGN.md §9), ported from :mod:`repro.serve.engine`.
 
 The engine runs on the card unless it is given ``device="cpu"``.
-Checkpoints (``save_checkpoint``/``restore_checkpoint``) wait for the
-checkpoint slice and raise until then.
+Checkpoints (``save_checkpoint``/``restore_checkpoint``) carry the weights,
+the paged KV pools and the placement and allocator state, and restore them
+into the engine's own tensors in place.
 
 Owns the request lifecycle end to end:
 
@@ -48,6 +49,7 @@ from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
 from repro_torch.serve import events as sev
 from repro_torch.serve.batching import ContinuousBatcher, Request, TickStats
 from repro_torch.serve.workload import SyntheticRequest, WorkloadGenerator
+from repro_torch.train import checkpoint as ckpt
 
 __all__ = ["ServeConfig", "ServeReport", "ServeEngine"]
 
@@ -602,7 +604,50 @@ class ServeEngine:
 
     # -- checkpoint round-trip (DESIGN.md §9, §12) ----------------------------
     def save_checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
-        raise NotImplementedError("checkpoints come with the checkpoint slice")
+        """Persist params WITH the placement state: the perm stack composes
+        against the physically permuted weights, so restoring one without
+        the other would misroute every token.
+
+        Paged engines additionally export the KV pools and the allocator's
+        page table / prefix registry (the drain checkpoint): a drained and
+        restored replica keeps its warm prefix pages."""
+        step = self.tick if step is None else step
+        extra = {
+            "placement": self.applier.state_dict() if self.applier else None,
+            "serve": {"tick": self.tick},
+        }
+        tree = {"params": self.batcher.params}
+        if self.batcher.paged:
+            extra["kv_alloc"] = self.batcher.alloc.state_dict()
+            tree["kv"] = self.batcher.caches
+        ckpt.save(ckpt_dir, step, tree, extra=extra)
+        return step
 
     def restore_checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
-        raise NotImplementedError("checkpoints come with the checkpoint slice")
+        """Copy a checkpoint into this engine's parameters (and KV pools) in
+        place, with its placement and allocator state."""
+        step = ckpt.latest_step(ckpt_dir) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        extra = ckpt.load_extra(ckpt_dir, step)
+        placement = extra.get("placement")
+        if placement is not None and self.applier is None:
+            raise RuntimeError(
+                "checkpoint carries placement state but this engine has "
+                "no control plane (set reconfig_every > 0)"
+            )
+        skeleton = {"params": self.batcher.params}
+        kv_alloc = extra.get("kv_alloc")
+        if kv_alloc is not None and self.batcher.paged:
+            skeleton["kv"] = self.batcher.caches
+        ckpt.restore(ckpt_dir, step, skeleton)
+        if kv_alloc is not None and self.batcher.paged:
+            self.batcher.alloc.load_state_dict(kv_alloc)
+        serve = extra.get("serve") or {}
+        if "tick" in serve:
+            self.batcher.tick = int(serve["tick"])
+        if placement is not None:
+            self.applier.load_state_dict(placement)
+            self.batcher.expert_perm = self.controlplane.perm_stack()
+            self.batcher.wire_perm = self.applier.wire_perm
+        return step

@@ -91,6 +91,7 @@ def make_train_step(
         out = {"loss": loss, "ce": ce, "balance_loss": aux.balance_loss, "z_loss": aux.z_loss}
         if cfg.is_moe:
             out["expert_load"] = aux.moe_stats  # [repeats, E]
+            out["dropped_fraction"] = aux.dropped_fraction  # [repeats]
         return {k: v.detach() for k, v in out.items()}, grads
 
     def add_slice(acc, part, m):

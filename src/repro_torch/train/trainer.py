@@ -2,7 +2,7 @@
 
   data -> train_step -> MoE telemetry -> MixNet control plane
   (observe -> end_step (COPILOT refit) -> plan -> apply)
-  -> straggler watchdog.
+  -> checkpoint/restart -> straggler watchdog.
 
 Port of :mod:`repro.train.trainer`.  Every ``reconfig_every`` steps the
 trainer asks the shared :class:`ControlPlane` for per-layer placement plans
@@ -15,15 +15,20 @@ moments stay in their slots, so after a reconfiguration a slot's moments
 belong to the expert that sat there before.  The port does the same on
 purpose, so that it can be held against the reference step for step.
 
+Checkpoints (:mod:`repro_torch.train.checkpoint`) carry the parameters,
+the AdamW state and, in ``extra``, the placement state; ``maybe_restore``
+copies them into the trainer's own tensors.
+
 Not ported yet, each raising ``NotImplementedError``: pipeline stages
 (``pp_stages > 1``) and the runtime DP reduction with its compression
-(the multi-device slice), the cached autotuner (the evaluation slice) and
-checkpoints (``ckpt_every > 0``, their own slice).
+(the multi-device slice) and the cached autotuner (the evaluation slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +44,7 @@ from repro_torch.core.controlplane import (
 from repro_torch.obs import metrics, trace
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import init_all, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer", "permute_expert_weights"]
@@ -49,7 +55,7 @@ class TrainerConfig:
     total_steps: int = 100
     log_every: int = 10
     ckpt_every: int = 0  # 0 = disabled
-    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
     ckpt_keep: int = 3
     ckpt_async: bool = True
     # MixNet runtime reconfiguration
@@ -85,8 +91,6 @@ class Trainer:
             )
         if tcfg.autotune_cache:
             raise NotImplementedError("the cached autotuner comes with the evaluation slice")
-        if tcfg.ckpt_every:
-            raise NotImplementedError("trainer checkpoints (ckpt_every > 0) come with their slice")
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
@@ -137,6 +141,43 @@ class Trainer:
     def wire_reconfig_count(self) -> int:
         return self._applier.wire_reconfig_count if self._applier is not None else 0
 
+    # -- checkpoint/restart ---------------------------------------------------
+    def _bound_applier(self) -> PlacementApplier:
+        """The applier of the current control plane (rebound when the engine
+        was swapped after construction: tests and the smoke run inject a
+        multi-device ControlPlane directly)."""
+        if self._applier is None or self._applier.cp is not self.controlplane:
+            self._applier = PlacementApplier(
+                self.controlplane, model_size=max(self.plan.model_size, 1)
+            )
+        return self._applier
+
+    def maybe_restore(self) -> bool:
+        """Restore the newest checkpoint under ``ckpt_dir`` into this
+        trainer's tensors (in place), with its placement state."""
+        last = ckpt.latest_step(self.tcfg.ckpt_dir)
+        if last is None:
+            return False
+        ckpt.restore(self.tcfg.ckpt_dir, last, {"params": self.params, "opt": self.opt_state})
+        # Placement state rides the manifest: restore it WITH the weights or
+        # the router would address pre-reconfiguration slots.
+        extra = ckpt.load_extra(self.tcfg.ckpt_dir, last)
+        if self.controlplane is not None and "placement" in extra:
+            self._bound_applier().load_state_dict(extra["placement"])
+            self.expert_perm = self.controlplane.perm_stack()
+            self.reconfig_count = self.controlplane.reconfig_count
+        self.step = last
+        return True
+
+    def _checkpoint(self):
+        tree = {"params": self.params, "opt": self.opt_state}
+        extra = (
+            {"placement": self._bound_applier().state_dict()}
+            if self.controlplane is not None else None
+        )
+        save = ckpt.save_async if self.tcfg.ckpt_async else ckpt.save
+        save(self.tcfg.ckpt_dir, self.step, tree, keep=self.tcfg.ckpt_keep, extra=extra)
+
     # -- observability ---------------------------------------------------------
     def _track_id(self) -> int:
         if self._tid is None:
@@ -147,13 +188,7 @@ class Trainer:
     def _apply_layer_plans(self, plans: list[LayerPlan]) -> bool:
         """Actuate per-layer placement plans through the shared
         :class:`PlacementApplier`; expert weights move in place."""
-        # Rebind when the engine was swapped after construction (tests and
-        # the smoke run inject a multi-device ControlPlane directly).
-        if self._applier is None or self._applier.cp is not self.controlplane:
-            self._applier = PlacementApplier(
-                self.controlplane, model_size=max(self.plan.model_size, 1)
-            )
-        ap = self._applier  # wire re-addressing (P > 1) comes with the multi-device slice
+        ap = self._bound_applier()  # wire re-addressing (P > 1) comes with the multi-device slice
         tid = self._track_id() if self._tr.enabled else None
         with self._tr.span("train.reconfig", tid=tid, cat="reconfig", step=self.step) as sp:
             with torch.no_grad():
@@ -239,4 +274,7 @@ class Trainer:
 
             if self.controlplane is not None and "expert_load" in step_metrics:
                 self._reconfigure_step(np.asarray(step_metrics["expert_load"]))
+            if t.ckpt_every and self.step % t.ckpt_every == 0:
+                self._checkpoint()
+        ckpt.wait_pending()
         return self.metrics_log

@@ -107,7 +107,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 from repro_torch.kernels.flash_attention import FlashAttentionFn  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
-    GroupedMatmulBlocksFn, grouped_matmul_blocks_cuda, grouped_matmul_cuda,
+    GroupedMatmulBlocksFn, GroupedMatmulFn, grouped_matmul_blocks_cuda, grouped_matmul_cuda,
+    grouped_matmul_dw_cuda, grouped_matmul_dx_cuda,
 )
 from repro_torch.kernels.moe_dispatch import (  # noqa: E402
     MoECombineFn, MoEDispatchFn, moe_combine_cuda, moe_dispatch_cuda,
@@ -231,10 +232,62 @@ def test_grouped_matmul_blocks_kernel_and_backward(dev, dtype, k, n):
     assert torch.equal(w1.grad[1], torch.zeros_like(w1.grad[1]))  # no tiles, zero gradient
 
 
+def _capacity_case(dev, dtype, e, c, k, n, seed):
+    """Capacity buffers ``x [E, C, K]`` with empty slots (zero rows) and, for
+    E > 1, expert 1 wholly empty; weights ``[E, K, N]`` and a cotangent."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, c, k)).astype(np.float32)
+    x[:, c - c // 4:] = 0  # the tail of every buffer is unfilled
+    if e > 1:
+        x[1] = 0
+    w = rng.standard_normal((e, k, n)).astype(np.float32) / k**0.5
+    dy = rng.standard_normal((e, c, n)).astype(np.float32)
+    return (torch.from_numpy(a).to(dev, dtype) for a in (x, w, dy))
+
+
+# C in {4, 12, 20, 200} (and 260: two row chunks of one expert), E = 1,
+# K and N multiples of 8 that are not multiples of the 32 / 64 tiles.
+CAPACITY_CASES = [(3, 4, 64, 192), (3, 12, 72, 136), (1, 20, 40, 200), (3, 200, 136, 72),
+                  (2, 260, 64, 64)]
+
+
 @pytest.mark.cuda
-def test_grouped_matmul_capacity_layout_raises(dev):
-    with pytest.raises(NotImplementedError):
-        grouped_matmul_cuda(torch.zeros((2, 4, 8), device=dev), torch.zeros((2, 8, 8), device=dev))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,k,n", CAPACITY_CASES)
+def test_grouped_matmul_capacity_kernel(dev, dtype, e, c, k, n):
+    x, w, _ = _capacity_case(dev, dtype, e, c, k, n, c + k)
+    got = grouped_matmul_cuda(x, w)
+    torch.testing.assert_close(got.float(), ref.grouped_matmul(x, w).float(), **TOLS[dtype])
+    if e > 1:
+        assert not got[1].any()  # an empty expert's rows stay exactly 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,k,n", CAPACITY_CASES)
+def test_grouped_matmul_capacity_dx(dev, dtype, e, c, k, n):
+    x, w, dy = _capacity_case(dev, dtype, e, c, k, n, c + n)
+    want, _ = ref.grouped_matmul_bwd(x, w, dy)
+    got = grouped_matmul_dx_cuda(dy, w)
+    torch.testing.assert_close(got.float(), want.float(), **GRAD_TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,k,n", CAPACITY_CASES)
+def test_grouped_matmul_capacity_dw_and_autograd(dev, dtype, e, c, k, n):
+    x, w, dy = _capacity_case(dev, dtype, e, c, k, n, c * k)
+    got = grouped_matmul_dw_cuda(x, dy)
+    _, want = ref.grouped_matmul_bwd(x, w, dy)
+    torch.testing.assert_close(got.float(), want.float(), **GRAD_TOLS[dtype])
+    if e > 1:
+        assert not got[1].any()  # no filled rows, zero gradient
+    x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    GroupedMatmulFn.apply(x1, w1).backward(dy)
+    x2, w2 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref.grouped_matmul(x2, w2).backward(dy)
+    torch.testing.assert_close(x1.grad.float(), x2.grad.float(), **GRAD_TOLS[dtype])
+    torch.testing.assert_close(w1.grad.float(), w2.grad.float(), **GRAD_TOLS[dtype])
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.models.transformer import init_model
 from repro_torch.parallel.sharding import make_plan
 from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.serve.workload import WorkloadGenerator
 
 PLAN = make_plan(None)
@@ -116,15 +117,16 @@ def test_entry_points_default_to_the_card():
         ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG))
 
 
-def test_slices_not_ported_yet_raise(port_model):
+def test_slices_not_ported_yet_raise(port_model, tmp_path):
     cfg, params = port_model
     with pytest.raises(NotImplementedError):
         ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, spec_k=2), device="cpu")
     with pytest.raises(NotImplementedError):
         ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, sample=True), device="cpu")
-    eng = ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.save_checkpoint("unused")
+    # An engine without a control plane saves and restores (no placement
+    # to carry).
+    eng = ServeEngine(_clone(params), cfg, PLAN, ServeConfig(**SCFG), device="cpu")
+    assert eng.restore_checkpoint(str(tmp_path), eng.save_checkpoint(str(tmp_path))) == 0
     # The mixnet backend came with the training slice: prefill runs it,
     # decode the dense path, as in the reference.  Only its multi-device
     # pieces still raise.
@@ -136,3 +138,48 @@ def test_slices_not_ported_yet_raise(port_model):
     with pytest.raises(NotImplementedError, match="multi-device slice"):
         ServeEngine(params, chunked, PLAN, ServeConfig(**SCFG), device="cpu").run(
             *_requests(1)[::-1])
+
+
+def test_checkpoint_roundtrip_mid_reconfig_bit_identical(tmp_path):
+    """tests/test_serve.py:253-288 on the port: save mid-reconfiguration,
+    restore into a FRESH engine: the restored perm stack composes with the
+    restored (permuted) weights and KV pages, so the next tokens are
+    bit-identical to the original engine's; an engine without a control
+    plane refuses the placement."""
+    cfg = ModelConfig(
+        "srv", "moe", 2, 32, 4, 2, 0, 64, dtype="float32", remat="none",
+        moe=MoEConfig(num_experts=8, top_k=2, d_ff=32, capacity_factor=8.0, backend="mixnet",
+                      a2a_group=2, dispatch="dropless", decode_backend="dense"),
+    )
+    params = init_model(0, cfg, PLAN, device="cpu")
+
+    def small(gen, n):
+        return [dataclasses.replace(r, prompt_len=min(r.prompt_len, 20),
+                                    max_new_tokens=min(r.max_new_tokens, 6))
+                for r in gen.generate(n)]
+
+    def engine(reconfig_every):
+        scfg = ServeConfig(slots=2, max_len=40, reconfig_every=reconfig_every,
+                           reconfig_min_gain=0.0, num_devices=4)
+        return ServeEngine(_clone(params), cfg, PLAN, scfg, device="cpu")
+
+    gen = WorkloadGenerator("chat", seed=9, vocab_size=cfg.vocab_size)
+    eng = engine(2)
+    eng.run(small(gen, 3), gen)
+    assert eng.controlplane.reconfig_count > 0
+    stack = eng.controlplane.perm_stack()
+    assert (stack != np.tile(np.arange(8, dtype=np.int32), (2, 1))).any()
+    step = eng.save_checkpoint(str(tmp_path))
+    fresh = engine(10**9)
+    fresh.restore_checkpoint(str(tmp_path), step)
+    np.testing.assert_array_equal(fresh.batcher.expert_perm, stack)
+    probe = small(WorkloadGenerator("chat", seed=11, vocab_size=cfg.vocab_size), 2)
+    gen11 = WorkloadGenerator("chat", seed=11, vocab_size=cfg.vocab_size)
+    eng.scfg.reconfig_every = 10**9
+    eng.run(probe, gen11)
+    fresh.run(probe, gen11)
+    a = {r.rid: r.out for r in eng.batcher.finished if r.rid in {p.rid for p in probe}}
+    b = {r.rid: r.out for r in fresh.batcher.finished}
+    assert a == b and len(a) == 2
+    with pytest.raises(RuntimeError):
+        engine(0).restore_checkpoint(str(tmp_path), step)

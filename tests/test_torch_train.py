@@ -14,6 +14,7 @@ order by XLA and by PyTorch's CPU kernels), except the trainer's losses
 moments after them (``rtol=1e-3``).
 """
 
+import dataclasses
 import inspect
 
 import jax
@@ -75,12 +76,12 @@ def _close(got, want, **tol):
     np.testing.assert_allclose(got, np.asarray(want), **(tol or TOL))
 
 
-def _tiny(cfg_cls, moe_cls, dispatch="dropless", layers=2):
+def _tiny(cfg_cls, moe_cls, dispatch="dropless", layers=2, capacity_factor=2.0, remat="none"):
     """The tiny mixnet config of the JAX trainer tests (test_train.py)."""
     return cfg_cls(
-        "tiny-moe8", "moe", layers, 32, 4, 2, 0, 64, dtype="float32", remat="none",
-        moe=moe_cls(num_experts=8, top_k=2, d_ff=32, capacity_factor=2.0, backend="mixnet",
-                    dispatch=dispatch),
+        "tiny-moe8", "moe", layers, 32, 4, 2, 0, 64, dtype="float32", remat=remat,
+        moe=moe_cls(num_experts=8, top_k=2, d_ff=32, capacity_factor=capacity_factor,
+                    backend="mixnet", dispatch=dispatch),
     )
 
 
@@ -207,6 +208,11 @@ def _bwd_case(name):
         g = _t(rng.standard_normal((12, 16)).astype(np.float32))
         want = _grad(lambda a, b: tref.moe_combine(a, _t(slot), b), [_t(y), _t(w)], g)
         return list(tref.moe_combine_bwd(g, _t(y), _t(slot), _t(w), _t(inv))), want
+    if name == "grouped_matmul":
+        xc = _t(rng.standard_normal((3, 12, 16)).astype(np.float32))
+        g = _t(rng.standard_normal((3, 12, 24)).astype(np.float32))
+        want = _grad(tref.grouped_matmul, [xc, _t(wb)], g)
+        return list(tref.grouped_matmul_bwd(xc, _t(wb), g)), want
     assert name == "grouped_matmul_blocks"
     g = _t(rng.standard_normal((6, 8, 24)).astype(np.float32))
     want = _grad(lambda a, b: tref.grouped_matmul_blocks(a, b, _t(be)), [_t(xb), _t(wb)], g)
@@ -215,13 +221,31 @@ def _bwd_case(name):
 
 @pytest.mark.parametrize("name", [
     "topk_gating", "flash_attention", "flash_attention_knobs", "moe_dispatch_one_to_one",
-    "moe_dispatch_many_to_one", "moe_combine", "grouped_matmul_blocks",
+    "moe_dispatch_many_to_one", "moe_combine", "grouped_matmul_blocks", "grouped_matmul",
 ])
 def test_plain_backward_formula_matches_autograd(name):
     got, want = _bwd_case(name)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         _close(g, w.numpy())
+
+
+def test_grouped_matmul_capacity_backward_matches_jax():
+    """The capacity GEMM's plain dX and dW (what the kernels are held to on
+    the card) against jax.vjp of the JAX package's reference, with an
+    expert whose rows are all zero (empty capacity slots)."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3, 20, 16)).astype(np.float32)
+    x[1] = 0
+    w = rng.standard_normal((3, 16, 24)).astype(np.float32)
+    g = rng.standard_normal((3, 20, 24)).astype(np.float32)
+    y, vjp = jax.vjp(jref.grouped_matmul, jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    _close(tref.grouped_matmul(_t(x), _t(w)), y)
+    dx, dw = tref.grouped_matmul_bwd(_t(x), _t(w), _t(g))
+    _close(dx, jdx)
+    _close(dw, jdw)
+    assert not dw[1].any()
 
 
 # ---------------------------------------------------------------------------
@@ -372,27 +396,51 @@ def test_controlplane_default_matches_reference():
 # ---------------------------------------------------------------------------
 
 
+_JAX_INIT: dict = {}
+
+
 def _jit_init_all(key, cfg, plan, opt_cfg):
     """The JAX trainer's initializer under one jit: eagerly, every primitive
     of the initializer compiles on its own, which costs far more on the CPU.
-    Same values; the specs are only read by the pipeline-parallel step."""
-    params = jax.jit(lambda k: jtfm.init_model(k, cfg, plan)[0])(key)
-    return params, None, jax.jit(lambda p: jadamw.init_adamw(p, opt_cfg))(params)
+    Same values; the specs are only read by the pipeline-parallel step.  The
+    weights do not depend on the dispatch layout or remat, so one compile
+    serves every case of a shape (each trainer gets its own copy)."""
+    shape_cfg = dataclasses.replace(cfg, remat="none", moe=dataclasses.replace(
+        cfg.moe, dispatch="dropless", capacity_factor=2.0))
+    sig = (repr(shape_cfg), np.asarray(jax.random.key_data(key)).tobytes(), repr(opt_cfg))
+    if sig not in _JAX_INIT:
+        params = jax.jit(lambda k: jtfm.init_model(k, cfg, plan)[0])(key)
+        _JAX_INIT[sig] = params, jax.jit(lambda p: jadamw.init_adamw(p, opt_cfg))(params)
+    params, opt = jax.tree.map(jnp.copy, _JAX_INIT[sig])
+    return params, None, opt
 
 
-def test_trainer_matches_jax_step_for_step(monkeypatch):
+@pytest.mark.parametrize("dispatch,capacity_factor,remat", [
+    ("dropless", 2.0, "none"),
+    ("capacity", 2.0, "full"),
+    ("capacity", 1.0, "none"),  # 16 slots per expert for 128 choices: choices drop
+])
+def test_trainer_matches_jax_step_for_step(monkeypatch, tmp_path, dispatch, capacity_factor,
+                                           remat):
     """Both trainers from one state, the same injected 4-device control plane
-    (COPILOT on), 6 steps with a reconfiguration every 2."""
+    (COPILOT on), 6 steps with a reconfiguration every 2: the dropless and
+    the capacity layouts, with and without dropped choices, and remat "full"
+    on both sides.  The JAX trainer also checkpoints at step 4; a fresh port
+    trainer restores that checkpoint (weights, moments, placement) and runs
+    steps 5 and 6 as the JAX trainer did."""
     monkeypatch.setattr(jtrainer_mod, "init_all", _jit_init_all)
-    jcfg, cfg = _tiny(JModelConfig, JMoEConfig), _tiny(ModelConfig, MoEConfig)
+    kw = dict(dispatch=dispatch, capacity_factor=capacity_factor, remat=remat)
+    jcfg, cfg = _tiny(JModelConfig, JMoEConfig, **kw), _tiny(ModelConfig, MoEConfig, **kw)
     kw = dict(total_steps=0, reconfig_every=2, reconfig_min_gain=0.0)
-    jtr = JTrainer(jcfg, jadamw.AdamWConfig(lr=1e-3), JTrainerConfig(**kw), JPLAN, seed=0)
+    ck = dict(ckpt_every=4, ckpt_dir=str(tmp_path), ckpt_async=False)
+    jtr = JTrainer(jcfg, jadamw.AdamWConfig(lr=1e-3), JTrainerConfig(**kw, **ck), JPLAN, seed=0)
     tr = Trainer(cfg, adamw.AdamWConfig(lr=1e-3), TrainerConfig(**kw), PLAN, device="cpu")
     tr.params = params_from_numpy(jax.tree.map(np.asarray, jtr.params), cfg, trainable=True)
     tr.opt_state = params_from_numpy(jax.tree.map(np.asarray, jtr.opt_state))
     cp_kw = dict(num_layers=2, num_experts=8, num_devices=4, min_gain_fraction=0.0)
     jtr.controlplane, tr.controlplane = JControlPlane(**cp_kw), ControlPlane(**cp_kw)
     jdata, data = iter(JSyntheticLM(64, 16, 4, seed=0)), iter(SyntheticLM(64, 16, 4, seed=0))
+    drops, jlog, perms = [], [], []
     for step in range(1, 7):
         jtr.tcfg.total_steps = tr.tcfg.total_steps = step
         jm, tm = jtr.train(jdata)[-1], tr.train(data)[-1]
@@ -400,7 +448,24 @@ def test_trainer_matches_jax_step_for_step(monkeypatch):
         np.testing.assert_array_equal(tm["expert_load"], np.asarray(jm["expert_load"]))
         assert tr.reconfig_count == jtr.reconfig_count
         np.testing.assert_array_equal(np.asarray(tr.expert_perm), np.asarray(jtr.expert_perm))
+        drops.append(float(np.mean(tm["dropped_fraction"])))
+        jlog.append(jm)
+        perms.append(np.asarray(jtr.expert_perm).copy())
     assert tr.reconfig_count > 0
+    assert (max(drops) > 0) == (capacity_factor < 2.0), drops
+    resumed = Trainer(cfg, adamw.AdamWConfig(lr=1e-3),
+                      TrainerConfig(**{**kw, "total_steps": 6}, ckpt_dir=str(tmp_path)), PLAN,
+                      seed=1, device="cpu")
+    resumed.controlplane = ControlPlane(**cp_kw)
+    assert resumed.maybe_restore() and resumed.step == 4
+    assert int(resumed.opt_state["step"]) == 4
+    np.testing.assert_array_equal(resumed.expert_perm, perms[3])
+    data = iter(SyntheticLM(64, 16, 4, seed=0))
+    for _ in range(4):
+        next(data)
+    for tm, jm in zip(resumed.train(data), jlog[4:]):
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_array_equal(tm["expert_load"], np.asarray(jm["expert_load"]))
     # The moments stay in their slots in both (trainer.py:256 of the
     # reference permutes the parameters only).
     jmu = jax.tree.map(np.asarray, jtr.opt_state["mu"])
@@ -478,6 +543,101 @@ def _flat(tree, prefix=""):
 
 
 # ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+
+def _loss_and_grads(params, cfg, batch):
+    leaves = dict(_flat(params))
+    loss, (_, aux) = loss_fn(params, batch, cfg, PLAN)
+    return loss.detach(), torch.autograd.grad(loss, list(leaves.values())), aux
+
+
+@pytest.mark.parametrize("dispatch", ["dropless", "capacity"])
+def test_remat_modes_bit_identical(monkeypatch, dispatch):
+    """remat "none", "full" and "dots" on the same weights and batch: the
+    loss, every gradient and the stats bit-identical; "dots" keeps some
+    products (its policy saves) and recomputes the rest."""
+    cfg = _tiny(ModelConfig, MoEConfig, dispatch, capacity_factor=1.0)
+    params, _, _ = init_all(0, cfg, PLAN, adamw.AdamWConfig(), device="cpu")
+    b = next(iter(SyntheticLM(64, 16, 4, seed=1)))
+    batch = {"tokens": _t(b.tokens), "labels": _t(b.labels)}
+    saved = []
+    policy = tfm._dots_policy
+
+    def counting(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        if out.name == "MUST_SAVE":
+            saved.append(op)
+        return out
+
+    monkeypatch.setattr(tfm, "_dots_policy", counting)
+    base = _loss_and_grads(params, cfg, batch)
+    for remat in ("full", "dots"):
+        loss, grads, aux = _loss_and_grads(params, dataclasses.replace(cfg, remat=remat), batch)
+        assert torch.equal(loss, base[0]), remat
+        assert all(torch.equal(a, g) for a, g in zip(grads, base[1])), remat
+        assert torch.equal(aux.moe_stats, base[2].moe_stats)
+        assert torch.equal(aux.dropped_fraction, base[2].dropped_fraction)
+    assert saved and all(op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                                torch.ops.aten.addmm.default) for op in saved)
+    assert (base[2].dropped_fraction > 0).any() == (dispatch == "capacity")
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_through_the_kernel_functions(monkeypatch, remat):
+    """The card's path on the CPU: ops routed to the autograd Functions with
+    each kernel wrapper replaced by its plain version and counted.  Under
+    remat the backward recomputes the group through the same Functions:
+    loss and gradients bit-identical to remat "none", every forward kernel
+    launched twice."""
+    counts = {}
+
+    def fake(mod, name, fn):
+        def run(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, name, run)
+
+    fake(ktg, "topk_gating_cuda", tref.topk_gating)
+    fake(ktg, "topk_gating_bwd_cuda", tref.topk_gating_bwd)
+    fake(kfa, "flash_attention_cuda", lambda q, k, v, return_lse=False, **kw: (
+        (tref.flash_attention(q, k, v, **kw), None) if return_lse
+        else tref.flash_attention(q, k, v, **kw)))
+    fake(kfa, "flash_attention_bwd_cuda",
+         lambda q, k, v, o, lse, do, **kw: tref.flash_attention_bwd(q, k, v, do, **kw))
+    fake(kmd, "moe_dispatch_cuda", tref.moe_dispatch)
+    fake(kmd, "moe_combine_cuda",
+         lambda y, s, w, out_dtype=torch.float32: tref.moe_combine(y, s, w).to(out_dtype))
+    fake(kmd, "moe_combine_bwd_cuda",
+         lambda d, y, s, w, inv, need_dw=True: tref.moe_combine_bwd(d, y, s, w, inv))
+    fake(kgm, "grouped_matmul_cuda", tref.grouped_matmul)
+    fake(kgm, "grouped_matmul_dx_cuda", lambda dy, w: tref.grouped_matmul(dy, w.transpose(1, 2)))
+    fake(kgm, "grouped_matmul_dw_cuda", tref.grouped_matmul_dw)
+    for name in ("topk_gating_cuda", "flash_attention_cuda", "moe_dispatch_cuda",
+                 "moe_combine_cuda", "grouped_matmul_cuda"):
+        monkeypatch.setattr(ops, name, getattr({"t": ktg, "f": kfa, "m": kmd, "g": kgm}[name[0]],
+                                               name))
+    monkeypatch.setattr(ops, "_on_cpu", lambda x: False)
+    cfg = _tiny(ModelConfig, MoEConfig, "capacity", capacity_factor=1.0)
+    params, _, _ = init_all(0, cfg, PLAN, adamw.AdamWConfig(), device="cpu")
+    b = next(iter(SyntheticLM(64, 16, 4, seed=1)))
+    batch = {"tokens": _t(b.tokens), "labels": _t(b.labels)}
+    base = _loss_and_grads(params, cfg, batch)
+    none = dict(counts)
+    counts.clear()
+    loss, grads, _ = _loss_and_grads(params, dataclasses.replace(cfg, remat=remat), batch)
+    assert torch.equal(loss, base[0])
+    assert all(torch.equal(a, g) for a, g in zip(grads, base[1]))
+    assert none["grouped_matmul_cuda"] == 6 and none["grouped_matmul_dw_cuda"] == 6
+    for name in ("topk_gating_cuda", "flash_attention_cuda", "grouped_matmul_cuda"):
+        assert counts[name] == 2 * none[name], (name, counts, none)
+    for name in ("topk_gating_bwd_cuda", "flash_attention_bwd_cuda", "grouped_matmul_dx_cuda",
+                 "grouped_matmul_dw_cuda", "moe_combine_bwd_cuda"):
+        assert counts[name] == none[name], (name, counts, none)
+
+
+# ---------------------------------------------------------------------------
 # the wrappers on the CPU
 # ---------------------------------------------------------------------------
 
@@ -501,6 +661,9 @@ def test_training_wrappers_refuse_cpu_tensors():
                                                torch.zeros((1,), dtype=torch.int32)),
         lambda: ktg.topk_gating_bwd_cuda(x, torch.zeros((4, 2)),
                                          torch.zeros((4, 2), dtype=torch.int32)),
+        lambda: kgm.grouped_matmul_cuda(torch.zeros((2, 4, 8)), torch.zeros((2, 8, 8))),
+        lambda: kgm.grouped_matmul_dx_cuda(torch.zeros((2, 4, 8)), torch.zeros((2, 8, 8))),
+        lambda: kgm.grouped_matmul_dw_cuda(torch.zeros((2, 4, 8)), torch.zeros((2, 4, 8))),
     ]
     for fn in checks:
         with pytest.raises(ValueError):
@@ -516,4 +679,6 @@ def test_ops_training_path_on_cpu_is_plain():
                        tref.moe_combine(_t(y), _t(slot), _t(w)))
     assert torch.equal(ops.grouped_matmul(_t(xb), _t(wb), block_experts=_t(be)),
                        tref.grouped_matmul_blocks(_t(xb), _t(wb), _t(be)))
+    assert torch.equal(ops.grouped_matmul(_t(xb[:3]), _t(wb)),
+                       tref.grouped_matmul(_t(xb[:3]), _t(wb)))
     assert not any(ops.launch_counts().values())
