@@ -7,11 +7,16 @@ Phases, one printed line (or more) each:
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build  — ``nvcc`` builds every kernel of the serving and training paths
-   from ``src/repro_torch/csrc`` (one process per source, all at once);
+   from ``src/repro_torch/csrc`` (7 sources, one process each, all at once);
 3. kernels — each kernel at the serving path's shapes and at a small case
    with window, softcap, ragged lengths and -1 page-table entries, held
    against its plain PyTorch version on the card; kernel, plain and library
    times from CUDA events;
+3b. ssm kernels — kernels 8 (RMSNorm) and 9 (the SSD intra-chunk pass)
+   at Mamba-2 1.3B's serving shapes (one 256-token prefill, generate's
+   4 x 512 batch, norms at a prefill and a decode tick) and at edge cases
+   (L from 1 to 256, odd G, zero, underflowing and masked-overflowing
+   decays; T in {1, 257}, D = 48), against their plain versions;
 4. check  — prefill-then-paged-decode logits against one full-sequence
    prefill of the same tokens;
 5. serve  — grok-1-314b at its published widths (depth cut to 4 of 64
@@ -20,7 +25,21 @@ Phases, one printed line (or more) each:
    (the on-run permutes the expert weights in place).  Tokens must be
    bit-identical, the control plane must reconfigure, and every kernel's
    launch count must grow during the serve;
-6. train kernels — the serving model is freed; every training-path kernel
+5b. mamba2 — the grok model is freed; Mamba-2 1.3B at full width,
+   random weights from ``--seed``: prefill 200 tokens and decode 56 one at
+   a time against one 256-token prefill (every decoded position's logits),
+   held in f32 at all 48 layers and in bf16 at 2 (in bf16 at 48 random
+   layers rounding grows chaotically: measured, beside the distance
+   between two prefills of different chunk length); each row of a 4 x 512
+   prefill against a batch-1 prefill, in f32 at 48 layers; in bf16 at all
+   48 layers, 8 chat requests served twice through
+   ``ServeEngine(ServeConfig(slots=4, max_len=256))``, tokens
+   bit-identical and kernel launches exactly as predicted from the prompts
+   and ticks, decode tick against its bytes bound; greedy ``generate`` of
+   16 tokens for 4 prompts of 512 (two chunks), its first tokens the
+   prefill step's; then a reduced f32 prefill and decode step on the card
+   against the CPU;
+6. train kernels — every training-path kernel
    (MoE dispatch and combine, the dropless grouped GEMM, and the backward
    kernels of the combine, the GEMM (dX, dW), the gate and attention) at
    the Mixtral-8x7B training step's shapes and at small edge cases,
@@ -72,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -128,6 +148,8 @@ KERNEL_ROWS = {
                           "src/repro/kernels/grouped_matmul.py:62"),
     "grouped_matmul_dw": ("src/repro_torch/csrc/grouped_matmul.cu",
                           "src/repro/kernels/grouped_matmul.py:62"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:50"),
 }
 
 
@@ -419,14 +441,13 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
     return rep, toks, counts
 
 
-def profile_serve(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int, page: int):
+def profile_serve(torch, params, cfg, plan, reqs, gen, scfg, label: str = "profile"):
     """Device time by kernel class over one whole serve (``--profile``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import ServeEngine
 
-    scfg = ServeConfig(slots=slots, max_len=max_len, page_size=page, num_devices=4)
     eng = ServeEngine(params, cfg, plan, scfg, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -441,7 +462,8 @@ def profile_serve(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: i
         ms = ev.self_device_time_total / 1e3
         name = ev.key
         low = name.lower()
-        if "topk_gating" in low or "flash_fwd" in low or "paged_decode" in low:
+        if any(w in low for w in ("topk_gating", "flash_fwd", "paged_decode", "rmsnorm",
+                                  "ssd_chunk")):
             cls = "ported kernels"
         elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             cls = "matmul (cuBLAS)"
@@ -452,12 +474,12 @@ def profile_serve(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: i
         classes[cls] = classes.get(cls, 0.0) + ms
         kernels.append((ms, ev.count, name[:90]))
     busy = sum(classes.values())
-    print(f"profile: {rep.ticks} ticks, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    print(f"{label}: {rep.ticks} ticks, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%", flush=True)
     for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
-        print(f"profile class {cls}: {ms:.2f} ms ({100 * ms / busy:.1f}% of device time)")
+        print(f"{label} class {cls}: {ms:.2f} ms ({100 * ms / busy:.1f}% of device time)")
     for ms, n, name in sorted(kernels, reverse=True)[:12]:
-        print(f"profile kernel {ms:9.3f} ms x{n:<5} {name}")
+        print(f"{label} kernel {ms:9.3f} ms x{n:<5} {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -1380,6 +1402,440 @@ def profile_train(torch, tr, data, tokens: int):
         print(f"profile train kernel {ms:9.3f} ms x{n:<5} {name}")
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 (slice 4): kernels 8 and 9, the prefill-then-decode check, serve,
+# generate
+# ---------------------------------------------------------------------------
+
+MAMBA_REQUESTS = 8
+SSM_KERNELS = ("rmsnorm", "ssd_chunk")
+# f32 sums over N = 128 products and up to 256 gated terms in another order
+# than the plain version, and cumulative sums taken in another order:
+# 1e-4 of the largest magnitude.
+SSD_REL = 1e-4
+# Mamba-2 at full width with random weights amplifies a rounding difference
+# through its 48 layers until, in bf16, it is as large as the logits: two
+# prefills of the same tokens that differ only in chunk length (L = 201 and
+# 256) disagree about as much as the recurrence and the scan do (the ssm
+# check prints both; PERF.md has the H100's numbers).  So the path is held
+# in f32 at full depth, within 2e-2 of the largest logit (f32 sums in
+# another order: cuBLAS, the kernels, the scan against the recurrence), and
+# in bf16 at depth 2, within 5e-2 (activations rounded along two paths, as
+# the paged decode check); the served bf16 model at full depth is measured,
+# not held.  A misplaced state, chunk or row is off by O(1).
+MAMBA_F32_LOGIT_REL = 2e-2
+MAMBA_LOGIT_REL = 5e-2
+# A reduced f32 forward on the card against the CPU: f32 in another order.
+REDUCED_FEAT_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def ssd_inputs(torch, g, groups: int, heads: int, l: int, p: int, n: int, da_fill=None):
+    """Inputs of kernel 9 as the model builds them: ``x`` dt-weighted,
+    ``da = dt * A`` with ``A = -1`` (``A_log`` = 0 at init), B and C once per
+    (batch, chunk) -> (x, da, bmat, cmat) on the card, f32."""
+    dev = torch.device("cuda")
+    dt = torch.nn.functional.softplus(torch.randn((groups, l), generator=g, device=dev))
+    x = torch.randn((groups, l, p), generator=g, device=dev) * dt[:, :, None]
+    da = -dt if da_fill is None else torch.full((groups, l), float(da_fill), device=dev)
+    bmat = torch.randn((groups // heads, l, n), generator=g, device=dev)
+    cmat = torch.randn((groups // heads, l, n), generator=g, device=dev)
+    return x, da, bmat, cmat
+
+
+def ssd_plain(torch, x, da, bmat, cmat, heads: int):
+    """The plain version on the per-group copy of B and C it takes."""
+    from repro_torch.kernels import ref
+
+    ex = lambda m: m.repeat_interleave(heads, dim=0)
+    return ref.ssd_chunk(x, da, ex(bmat), ex(cmat))
+
+
+def ssd_cost(g: int, bc: int, l: int, p: int, n: int) -> tuple[float, float]:
+    """(bytes, FLOP) the least work needs: x, da, B and C (once per (batch,
+    chunk)) read once, y and the state written once; C B^T once per (batch,
+    chunk) and the gated product over the causal half (s <= l) only, plus
+    the state product."""
+    tri = l * (l + 1) / 2
+    bytes_moved = 4.0 * (2 * g * l * p + g * l + 2 * bc * l * n + g * n * p)
+    flops = 2.0 * bc * tri * n + 2.0 * g * tri * p + 2.0 * g * l * n * p
+    return bytes_moved, flops
+
+
+def ssm_kernel_phase(torch, cfg, seed: int):
+    """Kernels 8 and 9 at Mamba-2 1.3B's shapes on the serving path, against
+    their plain versions on the card, then edge cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    s = cfg.ssm
+    d, inner = cfg.d_model, s.expand * cfg.d_model
+    heads, p, n, l = inner // s.head_dim, s.head_dim, s.state_dim, s.chunk
+    rows = {}
+
+    # -- kernel 9 at one 256-token prefill (G = 64) and at generate's batch
+    # of 4 x 512 tokens (2 chunks each, G = 512); the first is the row.
+    for batch_chunks, what in ((1, "prefill of 256 tokens"), (8, "generate, 4 x 512 tokens")):
+        gg = batch_chunks * heads
+        x, da, bm, cm = ssd_inputs(torch, g, gg, heads, l, p, n)
+        y, st = ssd_chunk_cuda(x, da, bm, cm, heads)
+        wy, wst = ssd_plain(torch, x, da, bm, cm, heads)
+        err = max(check_rel(y, wy, SSD_REL, f"ssd_chunk y ({what})"),
+                  check_rel(st, wst, SSD_REL, f"ssd_chunk state ({what})"))
+        bytes_moved, flops = ssd_cost(gg, batch_chunks, l, p, n)
+        row = kernel_row(
+            torch, "ssd_chunk", err,
+            time_ms(torch, lambda: ssd_chunk_cuda(x, da, bm, cm, heads), 50),
+            time_ms(torch, lambda: ssd_plain(torch, x, da, bm, cm, heads), 10), None,
+            bytes_moved, flops, "float32",
+            f"{what}: x [{gg}, {l}, {p}] f32, B/C [{batch_chunks}, {l}, {n}] shared by "
+            f"{heads} heads",
+        )
+        rows.setdefault("ssd_chunk", row)
+
+    # -- kernel 8: norm1 (D = d_model) and the gated norm (D = inner) at a
+    # 256-token prefill and at a decode tick of 4 slots; [256, inner] is the row.
+    for t, dd in ((256, inner), (256, d), (4, inner), (4, d)):
+        x = torch.randn((t, dd), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((dd,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        got = rmsnorm_cuda(x, w, cfg.norm_eps)
+        want = ref.rmsnorm(x, w, cfg.norm_eps)
+        err = check(torch, got, want, BF16_TOL, f"rmsnorm [{t}, {dd}]")
+        w1 = (1.0 + w.float()).to(torch.bfloat16)  # the library's weight, formed before timing
+        row = kernel_row(
+            torch, "rmsnorm", err,
+            time_ms(torch, lambda: rmsnorm_cuda(x, w, cfg.norm_eps), 200),
+            time_ms(torch, lambda: ref.rmsnorm(x, w, cfg.norm_eps), 200),
+            library_time(torch, lambda: F.rms_norm(x, (dd,), w1, cfg.norm_eps), want,
+                         BF16_TOL["rtol"], 200, "rmsnorm (F.rms_norm)"),
+            (2 * t * dd + dd) * 2, 4.0 * t * dd, "bfloat16", f"x [{t}, {dd}] bf16, w [{dd}]",
+        )
+        rows.setdefault("rmsnorm", row)
+    ssm_edge_cases(torch, g)
+    return rows
+
+
+def ssm_edge_cases(torch, g):
+    """Kernel 9: L in {1, 3, 16, 100, 256}, G = 1 and odd G, P and N off the
+    tiles, da = 0, da = -30 a step (every decay underflows), da = -40 a step
+    (above the diagonal exp(cum[l] - cum[s]) overflows; only the mask hides
+    it: no NaN may come out).  Kernel 8: T in {1, 257}, D = 48, f32 and bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+
+    dev = torch.device("cuda")
+    errs = []
+    cases = [  # (groups, heads, L, P, N, da_fill)
+        (1, 1, 1, 64, 128, None), (3, 3, 3, 64, 128, None), (5, 5, 16, 16, 16, None),
+        (6, 2, 100, 72, 100, None), (3, 1, 256, 64, 128, None), (4, 4, 256, 64, 128, 0.0),
+        (4, 4, 100, 64, 128, -30.0), (2, 2, 256, 64, 128, -40.0), (7, 7, 37, 33, 5, None),
+    ]
+    for groups, heads, l, p, n, fill in cases:
+        x, da, bm, cm = ssd_inputs(torch, g, groups, heads, l, p, n, fill)
+        y, st = ssd_chunk_cuda(x, da, bm, cm, heads)
+        wy, wst = ssd_plain(torch, x, da, bm, cm, heads)
+        what = f"ssd_chunk edge G={groups} H={heads} L={l} P={p} N={n} da={fill}"
+        assert torch.isfinite(y).all() and torch.isfinite(st).all(), f"{what}: not finite"
+        errs += [check_rel(y, wy, SSD_REL, what), check_rel(st, wst, SSD_REL, what)]
+    for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for t, dd in ((1, 48), (257, 48), (257, 4096), (1, 2048)):
+            x = (torch.randn((t, dd), generator=g, device=dev) * 3).to(dt)
+            w = (torch.randn((dd,), generator=g, device=dev) * 0.1).to(dt)
+            errs.append(check(torch, rmsnorm_cuda(x, w), ref.rmsnorm(x, w), tol,
+                              f"rmsnorm edge {dt} [{t}, {dd}]"))
+    torch.cuda.synchronize()
+    print(f"ssm kernels edge cases: {len(errs)} comparisons within tolerance, "
+          f"max_abs_err={max(errs):.3e}", flush=True)
+
+
+def mamba_logits(torch, params, cfg, plan, tokens):
+    """Full-sequence prefill logits ``[B, S, V]`` (f32) and its caches."""
+    from repro_torch.models import transformer as tfm
+
+    with torch.no_grad():
+        feats, _, caches = tfm.model_apply(params, {"tokens": tokens}, cfg, plan, mode="prefill")
+        return tfm.logits_from_features(params, feats, cfg).float(), caches
+
+
+def mamba_decode_check(torch, params, cfg, plan, seed: int, rel: float | None,
+                       prefix: int = 200, total: int = 256):
+    """Prefill ``prefix`` tokens, scatter the caches into f32 slot caches as
+    the batcher does, decode the rest one token at a time (the recurrence),
+    and hold every decoded position's logits against one prefill of all
+    ``total`` tokens (the chunked scan through kernel 9), within ``rel`` of
+    the largest logit (``None``: measured, not held).  Beside it, the same
+    distance between two prefills that differ only in chunk length: a
+    prefill of ``prefix + 1`` tokens at position ``prefix``."""
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen, dtype=torch.int32).to(dev)
+    full, _ = mamba_logits(torch, params, cfg, plan, tokens)
+    _, one = mamba_logits(torch, params, cfg, plan, tokens[:, :prefix])
+    slots = tfm.init_caches(cfg, 1, total, device=dev)
+    for name, leaves in slots.items():
+        for key, leaf in leaves.items():
+            leaf.copy_(one[name][key])
+    worst = 0.0
+    scale = full.abs().max().item()
+    with torch.no_grad():
+        for i in range(prefix, total):
+            feats, _, _ = tfm.model_apply(
+                params, {"tokens": tokens[:, i:i + 1]}, cfg, plan, mode="decode", caches=slots,
+                t=torch.tensor([i], dtype=torch.int32, device=dev),
+            )
+            # Position i's output predicts token i + 1: the full prefill's row i.
+            got = tfm.logits_from_features(params, feats, cfg).float()[0, 0]
+            assert torch.isfinite(got).all(), f"decode step {i}: non-finite logits"
+            worst = max(worst, (got - full[0, i]).abs().max().item())
+    assert torch.isfinite(full).all(), "non-finite prefill logits"
+    shorter, _ = mamba_logits(torch, params, cfg, plan, tokens[:, :prefix + 1])
+    control = (shorter[0, prefix] - full[0, prefix]).abs().max().item()
+    assert rel is None or worst <= rel * scale, \
+        f"decoded logits differ from the prefill's: max |diff| {worst} vs max |logit| {scale}"
+    print(f"ssm check ({cfg.dtype}, {cfg.num_layers} layers): prefill {prefix} + decode "
+          f"{total - prefix} tokens one at a time vs one {total}-token prefill, all "
+          f"{total - prefix} decoded positions: max |diff| / max |logit| = {worst / scale:.3e} "
+          f"({'measured, not held' if rel is None else f'limit {rel}'}); a {prefix + 1}-token "
+          f"prefill vs the {total}-token one at position {prefix}: {control / scale:.3e}",
+          flush=True)
+    return worst / scale
+
+
+def mamba_rows_check(torch, params, cfg, plan, seed: int, rel: float, batch: int = 4,
+                     prompt: int = 512):
+    """Each row's prefill logits in a batch of ``batch`` prompts of
+    ``prompt`` tokens (two chunks: the inter-chunk loop runs; G = 512 groups
+    in kernel 9) against a batch-1 prefill of that row."""
+    prompts = generate_prompts(torch, cfg, seed, batch, prompt)
+    logits, _ = mamba_logits(torch, params, cfg, plan, prompts)
+    scale = logits.abs().max().item()
+    worst = 0.0
+    for r in range(batch):
+        one, _ = mamba_logits(torch, params, cfg, plan, prompts[r:r + 1])
+        worst = max(worst, (one[0] - logits[r]).abs().max().item())
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    assert worst <= rel * scale, \
+        f"batch-{batch} prefill logits differ from batch-1: {worst} vs max |logit| {scale}"
+    print(f"ssm check ({cfg.dtype}, {cfg.num_layers} layers): each row's prefill logits of "
+          f"{batch} x {prompt} tokens vs a batch-1 prefill: max |diff| / max |logit| = "
+          f"{worst / scale:.3e} (limit {rel})", flush=True)
+
+
+def generate_prompts(torch, cfg, seed: int, batch: int, prompt: int):
+    gen = torch.Generator().manual_seed(seed + 9)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         dtype=torch.int32).to("cuda")
+
+
+def reduced_card_vs_cpu(torch, seed: int):
+    """Reduced Mamba-2 (f32, d_model 64, 8 heads of 16, N 16, chunk 16): one
+    prefill of [2, 24] tokens (two chunks of 12) and one decode step, on the
+    card (kernels 8 and 9) and on the CPU (plain versions)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import make_plan
+
+    cfg = get_reduced("mamba2-1.3b")
+    plan = make_plan(None)
+    params = tfm.init_model(seed, cfg, plan, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 25), generator=torch.Generator().manual_seed(seed))
+
+    def run(dev):
+        tree = _map_tree(params, lambda t: t.to(dev))
+        tok = tokens.to(dev)
+        with torch.no_grad():
+            f, _, c = tfm.model_apply(tree, {"tokens": tok[:, :24]}, cfg, plan, mode="prefill")
+            slots = tfm.init_caches(cfg, 2, 32, device=dev)
+            for name, leaves in slots.items():
+                for key, leaf in leaves.items():
+                    leaf.copy_(c[name][key])
+            fd, _, _ = tfm.model_apply(tree, {"tokens": tok[:, 24:]}, cfg, plan, mode="decode",
+                                       caches=slots, t=torch.tensor(24, device=dev))
+        return f.cpu(), fd.cpu(), _map_tree(slots, lambda t: t.cpu())
+
+    want = run("cpu")
+    ops.reset_launch_counts()
+    got = run("cuda")
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk"] == cfg.num_layers and counts["rmsnorm"] == 4 * cfg.num_layers, \
+        counts
+    errs = [check(torch, got[0], want[0], REDUCED_FEAT_TOL, "reduced prefill features"),
+            check(torch, got[1], want[1], REDUCED_FEAT_TOL, "reduced decode features")]
+    for (name, a), (_, b) in zip(_flat_tree(got[2]), _flat_tree(want[2])):
+        errs.append(check(torch, a, b, REDUCED_FEAT_TOL, f"reduced cache {name}"))
+    print(f"ssm check: reduced Mamba-2 f32 prefill [2, 24] + one decode step, card (kernels) vs "
+          f"cpu (plain): features and caches max_abs_err={max(errs):.3e} "
+          f"(rtol {REDUCED_FEAT_TOL['rtol']}, atol {REDUCED_FEAT_TOL['atol']})", flush=True)
+
+
+def mamba_requests(gen, max_len: int):
+    out_cap = max(1, min(12, max_len // 4))
+    return [
+        dataclasses.replace(
+            r, prompt_len=max(1, min(r.prompt_len, max_len - out_cap - 2)),
+            max_new_tokens=min(r.max_new_tokens, out_cap),
+        )
+        for r in gen.generate(MAMBA_REQUESTS)
+    ]
+
+
+def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int):
+    """Serve ``reqs`` through ``ServeEngine`` (dense slot caches, whole-prompt
+    prefill).  Prefills are clocked one by one (each ends in a host read of
+    its token); decode ticks are those that admitted nothing.  Kernel 8
+    launches twice per layer per prefill and per decode tick, kernel 9 once
+    per layer per prefill: the counts must equal that prediction."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    eng = ServeEngine(params, cfg, plan, ServeConfig(slots=slots, max_len=max_len), device="cuda")
+    prefill_ms, tick_ms = [], []
+    prefill, step = eng.batcher._prefill_fn, eng.step
+
+    def timed_prefill(params_, batch, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(params_, batch, *a)
+        torch.cuda.synchronize()
+        prefill_ms.append((batch["tokens"].shape[1], 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def timed_step():
+        t0 = time.perf_counter()
+        st = step()
+        tick_ms.append((1e3 * (time.perf_counter() - t0), st.admitted == 0 and st.live > 0))
+        return st
+
+    eng.batcher._prefill_fn, eng.step = timed_prefill, timed_step
+    gc.collect()  # an earlier engine, held only by its clock wrapper's cycle
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = eng.run(reqs, gen)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prefills = sum(st.admitted for st in eng.tick_log)
+    decode_ticks = sum(1 for st in eng.tick_log if st.live > 0)
+    layers = cfg.num_layers
+    want = {"rmsnorm": 2 * layers * (prefills + decode_ticks), "ssd_chunk": layers * prefills}
+    assert {k: counts[k] for k in want} == want, f"launches {counts} != predicted {want}"
+    assert len(prefill_ms) == prefills and all(st.gate_load is None for st in eng.tick_log)
+    toks = {r.rid: list(r.out) for r in eng.batcher.finished}
+    decode = sorted(ms for ms, pure in tick_ms if pure)
+    med = decode[len(decode) // 2] if decode else float("nan")
+    per_prompt = ", ".join(f"{n}: {ms:.2f}" for n, ms in prefill_ms)
+    # A decode tick's least bytes: every weight read once (the tied LM head
+    # included), every slot's state and conv leaves read and written once.
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for _, t in _flat_tree(tree))
+    tick_bound = (nbytes(params) + 2 * nbytes(eng.batcher.caches)) / HBM_BYTES_PER_S * 1e3
+    print(f"serve mamba2: completed={rep.completed}/{rep.requests} ticks={rep.ticks} "
+          f"tokens={rep.tokens_out} wall_s={rep.wall_s:.3f} tokens_per_s={rep.tokens_per_s:.2f} "
+          f"decode_tick_ms median={med:.3f} (n={len(decode)}, bytes bound "
+          f"{tick_bound:.3f}) peak_gb={peak:.3f}; prefill ms "
+          f"by prompt length {{{per_prompt}}}; launches rmsnorm={counts['rmsnorm']} "
+          f"ssd_chunk={counts['ssd_chunk']} as predicted ({prefills} prefills, {decode_ticks} "
+          f"decode ticks)", flush=True)
+    return rep, toks, counts
+
+
+def generate_phase(torch, params, cfg, plan, seed: int, batch: int = 4, prompt: int = 512,
+                   new: int = 16):
+    """Greedy ``generate`` of ``new`` tokens for ``batch`` prompts of
+    ``prompt`` tokens (two chunks of 256: the inter-chunk loop runs); its
+    first tokens must be the prefill step's on the same batch, bit for
+    bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.decode import generate
+    from repro_torch.train.train_step import make_prefill_step
+
+    prompts = generate_prompts(torch, cfg, seed, batch, prompt)
+    generate(params, cfg, plan, prompts[:, :64], max_new_tokens=2)  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, plan, prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {"rmsnorm": 2 * cfg.num_layers * new, "ssd_chunk": cfg.num_layers}
+    assert {k: counts[k] for k in want} == want, f"generate launches {counts} != {want}"
+    assert out.shape == (batch, new) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    first, _ = make_prefill_step(cfg, plan)(params, {"tokens": prompts})
+    assert torch.equal(out[:, :1], first), "generate's first tokens are not the prefill step's"
+    print(f"generate: {batch} prompts x {prompt} tokens, {new} new tokens greedy in "
+          f"{1e3 * wall:.1f} ms ({batch * new / wall:.1f} tokens/s, prefill included); "
+          f"launches rmsnorm={counts['rmsnorm']} ssd_chunk={counts['ssd_chunk']}", flush=True)
+    return counts
+
+
+def mamba_phases(torch, seed: int, profile: bool, slots: int = 4, max_len: int = 256):
+    """Mamba-2 1.3B at full width, random weights from ``seed``: the
+    prefill-then-decode and batch-vs-row checks in f32 at all 48 layers and
+    the first in bf16 at 2; then, in bf16 at all 48 layers, the
+    prefill-then-decode distance measured, two serves (tokens
+    bit-identical) and generate; then the reduced card-vs-CPU forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.serve.workload import WorkloadGenerator
+
+    cfg = get_config("mamba2-1.3b")
+    plan = make_plan(None)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_model(seed, f32, plan, device="cuda")
+    mamba_decode_check(torch, params, f32, plan, seed, MAMBA_F32_LOGIT_REL)
+    mamba_rows_check(torch, params, f32, plan, seed, MAMBA_F32_LOGIT_REL)
+    del params
+    shallow = dataclasses.replace(cfg, num_layers=2)
+    params = init_model(seed, shallow, plan, device="cuda")
+    mamba_decode_check(torch, params, shallow, plan, seed, MAMBA_LOGIT_REL)
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = init_model(seed, cfg, plan, device="cuda")
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    nparams = sum(t.numel() for _, t in _flat_tree(params))
+    print(f"model: {cfg.name} d_model={cfg.d_model} inner={s.expand * cfg.d_model} "
+          f"heads={s.expand * cfg.d_model // s.head_dim}x{s.head_dim} N={s.state_dim} "
+          f"conv={s.conv_width} chunk={s.chunk} vocab={cfg.vocab_size} "
+          f"layers={cfg.num_layers}/48 {cfg.dtype}: {nparams / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    mamba_decode_check(torch, params, cfg, plan, seed, None)
+
+    gen = WorkloadGenerator("chat", seed=seed, vocab_size=cfg.vocab_size)
+    reqs = mamba_requests(gen, max_len)
+    runs = [serve_mamba(torch, params, cfg, plan, reqs, gen, slots=slots, max_len=max_len)
+            for _ in range(2)]
+    (rep_a, toks_a, _), (rep_b, toks_b, counts) = runs
+    assert rep_a.completed == rep_b.completed == len(reqs), "not every request completed"
+    assert toks_a == toks_b, "two serves of the same requests gave different tokens"
+    assert all(0 <= t < cfg.vocab_size for out in toks_b.values() for t in out)
+    print(f"serve mamba2: tokens bit-identical across two runs "
+          f"({sum(len(v) for v in toks_b.values())} tokens, {len(toks_b)} requests)", flush=True)
+    if profile:
+        from repro_torch.serve.engine import ServeConfig
+
+        profile_serve(torch, params, cfg, plan, reqs, gen,
+                      ServeConfig(slots=slots, max_len=max_len), label="profile mamba2")
+    counts_gen = generate_phase(torch, params, cfg, plan, seed)
+    del params
+    torch.cuda.empty_cache()
+    reduced_card_vs_cpu(torch, seed)
+    return counts, counts_gen
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and workload seed")
@@ -1429,6 +1885,7 @@ def main(argv=None) -> int:
     ]
     prompt_lens = [r.prompt_len for r in reqs]
     rows = kernel_phase(torch, cfg, prompt_lens, slots, page, max_len, args.seed)
+    rows.update(ssm_kernel_phase(torch, get_config("mamba2-1.3b"), args.seed))
 
     t0 = time.perf_counter()
     params = init_model(args.seed, cfg, plan, device="cuda")
@@ -1459,11 +1916,18 @@ def main(argv=None) -> int:
     print(f"serve: tokens bit-identical with reconfiguration off and on "
           f"({rep_on.reconfig_count} reconfigurations)", flush=True)
     if args.profile:
-        profile_serve(torch, params, cfg, plan, reqs, gen, slots=slots, max_len=max_len, page=page)
+        from repro_torch.serve.engine import ServeConfig
 
-    # Training: free the serving model first.
+        profile_serve(torch, params, cfg, plan, reqs, gen,
+                      ServeConfig(slots=slots, max_len=max_len, page_size=page, num_devices=4))
+
+    # Mamba-2 serving, then training: free the serving model first (the
+    # served engines' clocked ``step`` wrappers hold them in reference
+    # cycles, which only the collector frees).
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    counts_mamba, counts_gen = mamba_phases(torch, args.seed, args.profile)
     from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
 
     rows.update(train_kernel_phase(torch, MIXTRAL_8X7B_CONFIG, 2, 256, args.seed))
@@ -1482,25 +1946,29 @@ def main(argv=None) -> int:
 
     # launches: each kernel's count from the path it belongs to — the
     # capacity training run for kernel 6 and its backward, the dropless run
-    # for every other kernel it launches, the serve (reconfiguration on) for
-    # the decode kernel, which only serving runs.  The times of the training
+    # for every other kernel it launches, the Mamba-2 serve (its second run)
+    # for kernels 8 and 9, the grok serve (reconfiguration on) for the
+    # decode kernel, which only serving runs.  The times of the training
     # kernels are at the training steps' shapes.
     line = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         r = rows[name]
         launches = (counts_train[name] if name in TRAIN_KERNELS
-                    else counts_cap[name] if name in CAPACITY_KERNELS else counts_on[name])
+                    else counts_cap[name] if name in CAPACITY_KERNELS
+                    else counts_mamba[name] if name in SSM_KERNELS else counts_on[name])
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             launches_by_path={"serve": counts_on[name], "train": counts_train[name],
-                              "train_capacity": counts_cap[name]},
+                              "train_capacity": counts_cap[name],
+                              "serve_mamba2": counts_mamba[name], "generate": counts_gen[name]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
+    assert len(line) == 16, [r["name"] for r in line]
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,10 @@ import torch
 
 __all__ = ["tensor_from_numpy", "params_from_numpy"]
 
+# Leaves that stay f32 whatever ``cfg.dtype`` says: the MoE router, and the
+# Mamba-2 block's per-head ``dt_bias``, ``A_log`` and ``D``.
+_F32_LEAVES = frozenset({"router", "dt_bias", "A_log", "D"})
+
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     """One numpy array (or scalar) as a tensor on ``device``, bit for bit.
@@ -32,18 +36,20 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 def params_from_numpy(tree, cfg=None, device="cpu", *, trainable: bool = False):
     """The port's parameters (or optimizer state) from a numpy tree (nested
     dicts of arrays), same names, same shapes, same dtypes.  With ``cfg``
-    given, the floating leaves are checked against ``cfg.dtype`` (the
-    router stays f32, as in both packages); with ``trainable`` every
-    floating leaf requires grad, as the trainer's parameters do."""
+    given, each floating leaf is checked against the dtype both packages
+    give it: f32 for the router and Mamba-2's ``dt_bias``, ``A_log`` and
+    ``D``, ``cfg.dtype`` for every other; with ``trainable`` every floating
+    leaf requires grad, as the trainer's parameters do."""
 
     def conv(node, path):
         if isinstance(node, dict):
             return {k: conv(v, f"{path}/{k}") for k, v in node.items()}
         t = tensor_from_numpy(node, device)
-        if cfg is not None and t.is_floating_point() and not path.endswith("router"):
-            want = getattr(torch, cfg.dtype)
+        if cfg is not None and t.is_floating_point():
+            leaf = path.rsplit("/", 1)[-1]
+            want = torch.float32 if leaf in _F32_LEAVES else getattr(torch, cfg.dtype)
             if t.dtype != want:
-                raise TypeError(f"{path}: {t.dtype} but the config says {want}")
+                raise TypeError(f"{path}: {t.dtype} but this leaf is {want} under {cfg.dtype}")
         if trainable and t.is_floating_point():
             t.requires_grad_(True)
         return t

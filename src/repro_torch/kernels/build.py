@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = (
     "topk_gating", "flash_attention", "paged_flash_decode", "moe_dispatch", "grouped_matmul",
+    "rmsnorm", "ssd_chunk",
 )
 # No --use_fast_math: the top-k ids and the softmax rely on IEEE expf/tanhf.
 NVCC_FLAGS = (

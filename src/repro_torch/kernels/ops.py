@@ -36,11 +36,14 @@ from repro_torch.kernels.moe_dispatch import (
     moe_combine_cuda,
     moe_dispatch_cuda,
 )
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 from repro_torch.kernels.topk_gating import TopkGatingFn, topk_gating_bwd_cuda, topk_gating_cuda
 
 __all__ = [
     "topk_gating", "flash_attention", "paged_flash_decode", "moe_dispatch", "moe_combine",
-    "grouped_matmul", "KERNELS", "launch_counts", "reset_launch_counts",
+    "grouped_matmul", "rmsnorm", "ssd_chunk", "KERNELS", "launch_counts",
+    "reset_launch_counts",
 ]
 
 # Every kernel's CUDA wrapper, by kernel name (backward kernels included).
@@ -59,6 +62,8 @@ KERNELS = {
     "grouped_matmul": grouped_matmul_cuda,
     "grouped_matmul_dx": grouped_matmul_dx_cuda,
     "grouped_matmul_dw": grouped_matmul_dw_cuda,
+    "rmsnorm": rmsnorm_cuda,
+    "ssd_chunk": ssd_chunk_cuda,
 }
 
 
@@ -156,3 +161,36 @@ def grouped_matmul(x, w, *, block_experts=None):
     if _wants_grad(x, w):
         return GroupedMatmulBlocksFn.apply(x, w, block_experts)
     return grouped_matmul_blocks_cuda(x, w, block_experts)
+
+
+def _no_backward(name: str, *tensors) -> None:
+    if _wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel yet (it comes with the Mamba-2 training slice); "
+            "call it under torch.no_grad() on the card"
+        )
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6):
+    """Fused RMSNorm over ``x [T, D]`` with weight ``w [D]`` (the norm is
+    ``1 + w``), rounded once to x's dtype."""
+    if _on_cpu(x):
+        return ref.rmsnorm(x, w, eps)
+    _no_backward("rmsnorm", x, w)
+    return rmsnorm_cuda(x.contiguous(), w.contiguous(), eps)
+
+
+def ssd_chunk(x, da, bmat, cmat, *, heads: int):
+    """Mamba-2 SSD intra-chunk pass: ``x [G, L, P]``, ``da [G, L]`` and
+    ``bmat``/``cmat [G / heads, L, N]`` shared by the heads of each (batch,
+    chunk), groups ordered (batch, chunk, head) -> (``y [G, L, P]``, chunk
+    ``state [G, N, P]``), f32.  The CPU path expands B/C to the plain
+    version's ``[G, L, N]``."""
+    if _on_cpu(x):
+        def per_group(m):
+            return m[:, None].expand(m.shape[0], heads, *m.shape[1:]).reshape(-1, *m.shape[1:])
+
+        return ref.ssd_chunk(x, da, per_group(bmat), per_group(cmat))
+    _no_backward("ssd_chunk", x, da, bmat, cmat)
+    return ssd_chunk_cuda(x.float().contiguous(), da.float().contiguous(),
+                          bmat.float().contiguous(), cmat.float().contiguous(), heads)

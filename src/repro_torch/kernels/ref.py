@@ -29,6 +29,8 @@ __all__ = [
     "grouped_matmul_blocks",
     "grouped_matmul_blocks_dw",
     "grouped_matmul_blocks_bwd",
+    "rmsnorm",
+    "ssd_chunk",
 ]
 
 _NEG = -1e30
@@ -332,3 +334,40 @@ def grouped_matmul_blocks_bwd(
     :func:`grouped_matmul_blocks_dw`."""
     dx = grouped_matmul_blocks(dy, w.transpose(1, 2), block_experts)
     return dx, grouped_matmul_blocks_dw(x, dy, block_experts, w.shape[0]).to(w.dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last dim, f32 math,
+    rounded once to x's dtype: the JAX package's ``layers.rms_norm`` (and
+    ``ops.rmsnorm``'s plain branch, ``x [T, D]``, ``w [D]``)."""
+    dtype = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * (1.0 + w.float())).to(dtype)
+
+
+def ssd_chunk(
+    x: torch.Tensor, da: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD intra-chunk pass, one group per (batch, chunk, head).
+
+    ``x [G, L, P]`` dt-weighted inputs, ``da [G, L]`` per-step log-decays,
+    ``bmat``/``cmat [G, L, N]`` -> (``y [G, L, P]``, ``state [G, N, P]``),
+    both f32::
+
+        y[l]  = sum_{s <= l} (C_l . B_s) exp(cum[l] - cum[s]) x_s
+        state = sum_s B_s^T exp(cum[L-1] - cum[s]) x_s
+
+    with ``cum`` the within-chunk cumulative sum of ``da``.  The decay for
+    ``s > l`` is positive and may overflow; ``where`` selects 0 there (a
+    product with a 0/1 mask would give ``inf * 0 = NaN``)."""
+    x, da, bmat, cmat = x.float(), da.float(), bmat.float(), cmat.float()
+    l = x.shape[1]
+    cum = torch.cumsum(da, dim=1)
+    cb = torch.einsum("gln,gsn->gls", cmat, bmat)
+    gate = torch.exp(cum[:, :, None] - cum[:, None, :])
+    mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    y = torch.einsum("gls,gls,gsp->glp", cb, torch.where(mask, gate, 0.0), x)
+    st = torch.einsum("gsn,gs,gsp->gnp", bmat, torch.exp(cum[:, -1:] - cum), x)
+    return y, st

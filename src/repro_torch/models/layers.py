@@ -39,11 +39,8 @@ def normal(gen: torch.Generator, shape, dtype, device, scale: float) -> torch.Te
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    dtype = x.dtype
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    xf = xf * torch.rsqrt(var + eps)
-    return (xf * (1.0 + w.float())).to(dtype)
+    """RMSNorm over the last dim in plain PyTorch (:func:`kref.rmsnorm`)."""
+    return kref.rmsnorm(x, w, eps)
 
 
 def init_rms_norm(d: int, dtype, device, reps: int | None = None) -> torch.Tensor:

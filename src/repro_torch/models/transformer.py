@@ -1,12 +1,14 @@
-"""Model assembly for attention-only block patterns: embeddings -> stacked
-block weights looped over repeats -> final norm -> LM head.
+"""Model assembly: embeddings -> stacked block weights looped over repeats
+-> final norm -> LM head.  Block patterns: attention-only (GQA) with MoE
+FFNs, and Mamba-2's SSD blocks (``"ssm"``, no MLP).
 
 Port of :mod:`repro.models.transformer`.  Parameters are the JAX package's
 tree as nested dicts of tensors, block weights stacked ``[reps, ...]`` per
 pattern position; the scan over repeats is a Python loop over that
 leading dim.  Modes: ``train``/``prefill`` (full sequence; prefill also
-returns stacked ``[reps, B, S, Hkv, dh]`` caches) and ``decode`` (a ``[B,
-C]`` chunk against dense or paged caches, written in place).  Training
+returns stacked ``[reps, B, S, Hkv, dh]`` attention caches, or ``{"state",
+"conv"}`` for ssm blocks) and ``decode`` (a ``[B, C]`` chunk against dense
+or paged caches, written in place; ssm blocks decode one token).  Training
 differentiates through ``model_apply`` with ``torch.autograd`` and takes
 its loss from :func:`chunked_cross_entropy`.
 
@@ -28,8 +30,10 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
 
 __all__ = [
@@ -39,10 +43,19 @@ __all__ = [
 ]
 
 
+def _is_ssm(cfg) -> bool:
+    """Mamba-2: every block an SSD block, no tail."""
+    return set(cfg.block_pattern) == {"ssm"} and not cfg.tail_pattern
+
+
 def _check_supported(cfg) -> None:
-    if not paged_supported(cfg) or cfg.vision_patches or cfg.encoder_layers:
+    if cfg.vision_patches or cfg.encoder_layers:
+        raise NotImplementedError(f"{cfg.name}: encoder and vision inputs come with later slices")
+    if _is_ssm(cfg):
+        return
+    if not paged_supported(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention-only GQA block patterns so far "
+            f"{cfg.name}: the port runs attention-only GQA and all-ssm block patterns so far "
             f"(got {cfg.block_pattern} / tail {cfg.tail_pattern} / mla={cfg.mla is not None})"
         )
     if not cfg.is_moe:
@@ -63,6 +76,12 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None) -> dict:
     params: dict = {"embed": L.normal(gen, (cfg.vocab_size, d), dtype, dev, d**-0.5)}
     blocks = {}
     for i, kind in enumerate(cfg.block_pattern):
+        if kind == "ssm":
+            blocks[f"{i}_{kind}"] = {
+                "norm1": L.init_rms_norm(d, dtype, dev, reps),
+                "ssm": ssm_mod.init_ssm(gen, cfg, plan, reps=reps, device=dev),
+            }
+            continue
         blocks[f"{i}_{kind}"] = {
             "norm1": L.init_rms_norm(d, dtype, dev, reps),
             "attn": L.init_attention(gen, cfg, plan, reps=reps, device=dev),
@@ -93,13 +112,17 @@ def paged_supported(cfg) -> bool:
 
 
 def init_caches(cfg, batch: int, max_len: int, *, device) -> dict:
-    """Dense per-slot caches: ``{"k","v": [reps, B, max_len, Hkv, dh]}`` per
-    pattern position."""
+    """Dense per-slot caches per pattern position: ``{"k","v": [reps, B,
+    max_len, Hkv, dh]}`` for attention, ``{"state": [reps, B, H, P, N],
+    "conv": [reps, B, W-1, inner]}`` f32 for ssm."""
     _check_supported(cfg)
     reps = cfg.pattern_repeats
     out = {}
     for i, kind in enumerate(cfg.block_pattern):
-        c = L.init_attention_cache(cfg, reps * batch, max_len, device=device)
+        if kind == "ssm":
+            c = ssm_mod.init_ssm_cache(cfg, reps * batch, device=device)
+        else:
+            c = L.init_attention_cache(cfg, reps * batch, max_len, device=device)
         out[f"{i}_{kind}"] = {k: v.reshape(reps, batch, *v.shape[1:]) for k, v in c.items()}
     return out
 
@@ -123,7 +146,7 @@ def init_paged_caches(cfg, num_pages: int, page_size: int, *, device) -> dict:
 
 def pad_caches(caches: dict, target_len: int) -> dict:
     """Grow the sequence axis (dim 2) of every ``k``/``v`` cache leaf to
-    ``target_len`` with zeros."""
+    ``target_len`` with zeros; other leaves (ssm state, conv) pass through."""
     out = {}
     for name, c in caches.items():
         out[name] = {}
@@ -144,10 +167,10 @@ def pad_caches(caches: dict, target_len: int) -> dict:
 
 @dataclasses.dataclass
 class ForwardAux:
-    moe_stats: torch.Tensor | None  # [reps, E] expert loads, or None
-    balance_loss: torch.Tensor
+    moe_stats: torch.Tensor | None  # [reps, E] expert loads; None without MoE
+    balance_loss: torch.Tensor  # 0 without MoE
     z_loss: torch.Tensor
-    dropped_fraction: torch.Tensor  # [reps] routed choices dropped, first block of each
+    dropped_fraction: torch.Tensor | None  # [reps] routed choices dropped, first block of each
 
 
 def _layer(tree: dict, li: int) -> dict:
@@ -196,6 +219,13 @@ def _apply_block(
     kind, p, x, cfg, plan, mode, cache, t, expert_perm, positions,
     wire_perm=None, gate_weights=None, page_table=None, writes=None,
 ):
+    if kind == "ssm":
+        # norm1 + SSD only (no norm2, no MLP), as the reference.  Every slot
+        # advances its state, live or not, as the reference's decode does.
+        b, s, d = x.shape
+        h = ops.rmsnorm(x.reshape(b * s, d), p["norm1"], eps=cfg.norm_eps).reshape(b, s, d)
+        y, sc = ssm_mod.ssm_apply(p["ssm"], h, cfg, mode=mode, cache=cache, t=t)
+        return x + y, sc, None
     # Decode-time live mask: dead continuous-batching slots must not write
     # K/V at their stale positions.
     write_mask = None
@@ -249,12 +279,12 @@ def model_apply(
     positions = batch.get("positions")
     reps = cfg.pattern_repeats
     names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
-    if expert_perm is None:
+    if expert_perm is None and cfg.is_moe:
         ev, _ = virtual_experts(cfg.moe.num_experts, plan.model_size)
         expert_perm = torch.arange(ev, dtype=torch.int32, device=dev).expand(reps, ev)
 
     writes = None
-    if mode == "decode":
+    if mode == "decode" and not _is_ssm(cfg):
         # One write plan for every layer of the step (see L.DecodeWrites).
         gw = gate_weights
         first = caches[names[0]]["k"]
@@ -277,12 +307,16 @@ def model_apply(
             cache_i = _layer(caches[names[i]], li) if caches is not None else None
             x, nc, st = _apply_block(
                 kind, block_params[names[i]][li], x, cfg, plan, mode,
-                cache_i, t, expert_perm[li], positions,
+                cache_i, t, None if expert_perm is None else expert_perm[li], positions,
                 wire_perm=None if wire_perm is None else wire_perm[li],
                 gate_weights=gate_weights, page_table=page_table, writes=writes,
             )
             ncs.append(nc)
-            stats_list.append(st)
+            if st is not None:
+                stats_list.append(st)
+        if not stats_list:  # no MoE block: zero losses, no loads
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            return x, zero, zero, None, None, ncs
         bal = sum(st.balance_loss for st in stats_list) / len(stats_list)
         zl = sum(st.z_loss for st in stats_list) / len(stats_list)
         return x, bal, zl, stats_list[0].expert_load, stats_list[0].dropped_fraction, ncs
@@ -303,15 +337,16 @@ def model_apply(
     new_caches = caches
     if mode == "prefill":
         new_caches = {
-            n: {k: torch.stack([c[k] for c in cs]) for k in ("k", "v")}
+            n: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
             for n, cs in prefill_caches.items()
         }
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    moe = loads[0] is not None
     aux = ForwardAux(
-        moe_stats=torch.stack(loads),
+        moe_stats=torch.stack(loads) if moe else None,
         balance_loss=torch.stack(bal).mean(),
         z_loss=torch.stack(zl).mean(),
-        dropped_fraction=torch.stack(drops),
+        dropped_fraction=torch.stack(drops) if moe else None,
     )
     return x, aux, new_caches
 

@@ -8,8 +8,11 @@ scatter into the slot — and chunked prefill (``prefill_chunk > 0``), which
 streams the prompt through the tick loop.  The paged KV cache (auto-on for
 attention-only models) replaces the per-slot ring buffer with page pools
 plus a ``[slots, max_pages]`` table from :class:`PageAllocator`, with
-prefix reuse through copy-on-write forks.  Every cache update here is an
-in-place index write into the batcher's tensors.  Sampled decoding
+prefix reuse through copy-on-write forks.  A model with recurrent state
+(Mamba-2) runs dense, whole-prompt only: admission overwrites the slot's
+whole state column, and every slot, live or dead, advances its state each
+tick, as the reference's do.  Every cache update here is an in-place index
+write into the batcher's tensors.  Sampled decoding
 (``sample=True``) and speculative decoding (``spec_k > 0``) raise until
 their slice.
 """

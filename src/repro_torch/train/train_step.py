@@ -134,7 +134,7 @@ def init_all(seed: int, cfg, plan: ShardingPlan, opt_cfg: AdamWConfig, *, device
 
 def make_prefill_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: bool = False):
     """``(params, batch, expert_perm, wire_perm) -> (next_tok [B, 1] i32,
-    caches[, gate loads [reps, E]])``."""
+    caches[, gate loads [reps, E], or None for a model without MoE])``."""
 
     @torch.no_grad()
     def prefill_step(params, batch, expert_perm=None, wire_perm=None):

@@ -333,3 +333,86 @@ def test_paged_decode_refuses_grad(dev):
         paged_flash_decode_cuda(q, pool, pool, table, t)
     with torch.no_grad():
         paged_flash_decode_cuda(q, pool, pool, table, t)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 kernels: RMSNorm (kernel 8) and the SSD intra-chunk pass (kernel
+# 9).  RMSNorm sums squares in f32 in another order and rounds once:
+# torch.testing's dtype defaults.  The SSD pass sums over N and up to L
+# gated terms in f32 in another order, with its own cumulative sum: within
+# 1e-4 of the largest magnitude.  Neither has a backward kernel yet: on the
+# card the ops refuse a gradient.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(1, 48), (257, 48), (256, 2048), (256, 4096), (4, 4096), (3, 8)])
+def test_rmsnorm_kernel(dev, dtype, t, d):
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    x = (torch.randn((t, d), generator=g, device=dev) * 3).to(dtype)
+    w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dtype)
+    got = rmsnorm_cuda(x, w, 1e-6)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, ref.rmsnorm(x, w, 1e-6))
+
+
+def _ssd_case(dev, groups, heads, l, p, n, fill, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn((groups, l), generator=g, device=dev))
+    x = torch.randn((groups, l, p), generator=g, device=dev) * dt[:, :, None]
+    da = -dt if fill is None else torch.full((groups, l), float(fill), device=dev)
+    bm = torch.randn((groups // heads, l, n), generator=g, device=dev)
+    cm = torch.randn((groups // heads, l, n), generator=g, device=dev)
+    return x, da, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,heads,l,p,n,fill", [
+    (1, 1, 1, 64, 128, None), (3, 3, 3, 64, 128, None), (5, 5, 16, 16, 16, None),
+    (6, 2, 100, 72, 100, None), (3, 1, 256, 64, 128, None), (128, 64, 256, 64, 128, None),
+    (4, 4, 256, 64, 128, 0.0), (4, 4, 100, 64, 128, -30.0), (2, 2, 256, 64, 128, -40.0),
+    (7, 7, 37, 33, 5, None),
+])
+def test_ssd_chunk_kernel(dev, groups, heads, l, p, n, fill):
+    """fill = -40: above the diagonal the decay overflows, which only the
+    mask may hide; no NaN or inf may come out."""
+    x, da, bm, cm = _ssd_case(dev, groups, heads, l, p, n, fill, seed=l + groups)
+    y, st = ssd_chunk_cuda(x, da, bm, cm, heads)
+    wy, wst = ref.ssd_chunk(x, da, bm.repeat_interleave(heads, 0), cm.repeat_interleave(heads, 0))
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    for got, want in ((y, wy), (st, wst)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.cuda
+def test_ssm_ops_refuse_grad_and_wrappers_refuse_bad_inputs(dev):
+    x = torch.randn((4, 64), device=dev, requires_grad=True)
+    w = torch.zeros((64,), device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rmsnorm(x, w)
+    with torch.no_grad():
+        ops.rmsnorm(x, w)
+    xs, da, bm, cm = _ssd_case(dev, 2, 2, 8, 16, 16, None, seed=0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_chunk(xs.requires_grad_(), da, bm, cm, heads=2)
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(torch.zeros((2, 10), device=dev), torch.zeros((10,), device=dev))  # D % 4
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(torch.zeros((2, 4100), device=dev), torch.zeros((4100,), device=dev))
+    with pytest.raises(TypeError):
+        rmsnorm_cuda(torch.zeros((2, 16), device=dev), torch.zeros((16,), device=dev,
+                                                                    dtype=torch.bfloat16))
+    z = torch.zeros((2, 8, 16), device=dev)
+    with pytest.raises(ValueError):
+        ssd_chunk_cuda(z, torch.zeros((2, 8), device=dev), torch.zeros((1, 8, 129), device=dev),
+                       torch.zeros((1, 8, 129), device=dev), 2)  # N > 128
+    with pytest.raises(ValueError):
+        ssd_chunk_cuda(z, torch.zeros((2, 8), device=dev), z[:1], z[:1], 3)  # G % heads
+    with pytest.raises(TypeError):
+        ssd_chunk_cuda(z.bfloat16(), torch.zeros((2, 8), device=dev), z[:1], z[:1], 2)
