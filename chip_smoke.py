@@ -47,10 +47,11 @@ Phases, one printed line (or more) each:
    plain forward); kernel, plain and library times from CUDA events;
 7. capacity kernels — kernel 6 (the capacity-layout grouped GEMM) and its
    dX and dW at the capacity step's w_in shapes, built from a real
-   two-stage capacity plan (empty send rows, empty expert slots), and edge
-   cases (C in {4, 12, 20, 200, 260}, E = 1, an all-zero expert, f32 and
-   bf16, K and N off the tiles), against the plain versions and
-   ``torch.autograd``; ``torch.bmm`` as the library yardstick;
+   two-stage capacity plan (empty send rows, empty expert slots), its
+   forward and dX at the w_out shapes, and edge cases (C in {4, 12, 20,
+   200, 260, 300}, E = 1, an all-zero expert, f32 and bf16, K and N off
+   the tiles), against the plain versions and ``torch.autograd``;
+   ``torch.bmm`` as the library yardstick;
 8. step   — one training step's loss and EVERY parameter's gradient at a
    reduced width (2 layers, d_model 512, 8 experts of d_ff 1024, f32,
    remat "full"), on the card (kernels) against the CPU (plain versions),
@@ -148,6 +149,12 @@ KERNEL_ROWS = {
                           "src/repro/kernels/grouped_matmul.py:62"),
     "grouped_matmul_dw": ("src/repro_torch/csrc/grouped_matmul.cu",
                           "src/repro/kernels/grouped_matmul.py:62"),
+    # Kernel 6 and its dX again at the w_out shapes: the same kernels, so the
+    # same launch counts (each wrapper counts its launches at every shape).
+    "grouped_matmul_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
+                            "src/repro/kernels/grouped_matmul.py:62"),
+    "grouped_matmul_dx_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
+                               "src/repro/kernels/grouped_matmul.py:62"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:50"),
 }
@@ -769,7 +776,9 @@ def capacity_config(cfg):
 
 def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     """Kernel 6 (the capacity-layout grouped GEMM) and its dX and dW at the
-    capacity step's w_in shapes: T = batch x seq tokens routed top-k, stage 1
+    capacity step's w_in shapes, and its forward and dX at the w_out shapes
+    (rows ``grouped_matmul_wout``, ``grouped_matmul_dx_wout``): T = batch x
+    seq tokens routed top-k, stage 1
     packs them into capacity(T, k, 1, cf) send rows (at P = 1 the rows past
     T * k stay empty), stage 2 into E buffers of C = capacity(rows, 1, E, cf)
     rows, empty slots and dropped choices as zero rows.  All bf16, against
@@ -848,14 +857,47 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
         (e * c * d + e * c * f + e * d * f) * 2, gemm, "bfloat16",
         f"x [{e}, {c}, {d}], dy [{e}, {c}, {f}] bf16 -> dW [{e}, {d}, {f}]",
     )
-    del x, w, dy, y, want, want_dx, want_dw, dx, dw, wt, xt
+    del w, y, want, want_dx, want_dw, dx, dw, wt, xt
+    # The w_out shapes: the hidden [E, C, F] (zero in empty slots) times
+    # w_out [E, F, D], and dX of that product, [E, C, D] @ w_out[e]^T.
+    h = randn(e, c, f, dt=bf16)
+    h.reshape(-1, f)[plan2.src < 0] = 0
+    w_out = (randn(e, f, d) * f**-0.5).to(bf16)
+    dy_out = randn(e, c, d, dt=bf16)
+    dy_out.reshape(-1, d)[plan2.src < 0] = 0
+    want = ref.grouped_matmul(h, w_out)
+    rows["grouped_matmul_wout"] = kernel_row(
+        torch, "grouped_matmul_wout",
+        check_rel(kgm.grouped_matmul_cuda(h, w_out), want, BF16_GEMM_REL, "grouped_matmul w_out"),
+        time_ms(torch, lambda: kgm.grouped_matmul_cuda(h, w_out), 20),
+        time_ms(torch, lambda: ref.grouped_matmul(h, w_out), 5),
+        library_time(torch, lambda: torch.bmm(h, w_out), want, BF16_GEMM_REL, 20,
+                     "grouped_matmul_wout (torch.bmm)"),
+        (e * c * f + e * f * d + e * c * d) * 2, gemm, "bfloat16",
+        f"h [{e}, {c}, {f}] bf16 @ w_out [{e}, {f}, {d}], {empty} empty slots",
+    )
+    wt = w_out.transpose(1, 2)
+    want = ref.grouped_matmul(dy_out, wt)
+    rows["grouped_matmul_dx_wout"] = kernel_row(
+        torch, "grouped_matmul_dx_wout",
+        check_rel(kgm.grouped_matmul_dx_cuda(dy_out, w_out), want, BF16_GEMM_REL,
+                  "grouped_matmul dX w_out"),
+        time_ms(torch, lambda: kgm.grouped_matmul_dx_cuda(dy_out, w_out), 20),
+        time_ms(torch, lambda: ref.grouped_matmul(dy_out, wt), 5),
+        library_time(torch, lambda: torch.bmm(dy_out, wt), want, BF16_GEMM_REL, 20,
+                     "grouped_matmul_dx_wout (torch.bmm)"),
+        (e * c * d + e * f * d + e * c * f) * 2, gemm, "bfloat16",
+        f"dy [{e}, {c}, {d}] bf16 @ w_out[e]^T, w_out [{e}, {f}, {d}]",
+    )
+    del x, dy, h, w_out, dy_out, want, wt
     capacity_edge_cases(torch, g)
     return rows
 
 
 def capacity_edge_cases(torch, g):
-    """C in {4, 12, 20, 200}, E = 1, an expert whose rows are all zero, f32
-    and bf16, K and N multiples of 8 that are not multiples of the tiles."""
+    """C in {4, 12, 20, 200, 260, 300}, E = 1, an expert whose rows are all
+    zero, f32 and bf16, K and N multiples of 8 that are not multiples of
+    the tiles."""
     from repro_torch.kernels import grouped_matmul as kgm
     from repro_torch.kernels import ref
 
@@ -864,7 +906,7 @@ def capacity_edge_cases(torch, g):
     for dt in (torch.float32, torch.bfloat16):
         rel = BF16_GEMM_REL if dt == torch.bfloat16 else 1e-5
         for e, c, kd, nd in ((3, 4, 64, 192), (3, 12, 72, 136), (1, 20, 40, 200),
-                             (3, 200, 136, 72), (2, 260, 4096, 200)):
+                             (3, 200, 136, 72), (2, 260, 4096, 200), (2, 300, 136, 200)):
             x = torch.randn((e, c, kd), generator=g, device=dev)
             x[:, c - c // 4:] = 0  # unfilled slots
             if e > 1:
@@ -1130,6 +1172,8 @@ TRAIN_KERNELS = (
     "grouped_matmul_blocks_dw",
 )
 CAPACITY_KERNELS = TRAIN_KERNELS[:7] + ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
+# Kernel rows at a second shape of the path -> the kernel they time.
+SHAPE_ROWS = {"grouped_matmul_wout": "grouped_matmul", "grouped_matmul_dx_wout": "grouped_matmul_dx"}
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
 FORWARD_KERNELS = ("topk_gating", "flash_attention", "grouped_matmul_blocks")
@@ -1398,8 +1442,10 @@ def profile_train(torch, tr, data, tokens: int):
           flush=True)
     for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"profile train class {cls}: {ms:.2f} ms ({100 * ms / busy:.1f}% of device time)")
-    for ms, n, name in sorted(kernels, reverse=True)[:16]:
-        print(f"profile train kernel {ms:9.3f} ms x{n:<5} {name}")
+    # The 16 largest, then every ported kernel below them.
+    top = sorted(kernels, reverse=True)
+    for ms, n, name in top[:16] + [k for k in top[16:] if any(w in k[2].lower() for w in ours)]:
+        print(f"profile train kernel {ms:9.3f} ms ({100 * ms / busy:4.1f}%) x{n:<5} {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -1948,19 +1994,21 @@ def main(argv=None) -> int:
     # capacity training run for kernel 6 and its backward, the dropless run
     # for every other kernel it launches, the Mamba-2 serve (its second run)
     # for kernels 8 and 9, the grok serve (reconfiguration on) for the
-    # decode kernel, which only serving runs.  The times of the training
+    # decode kernel, which only serving runs.  A row at a second shape
+    # (SHAPE_ROWS) reports its kernel's count.  The times of the training
     # kernels are at the training steps' shapes.
     line = []
-    for name, (source, replaces) in KERNEL_ROWS.items():
-        r = rows[name]
+    for row_name, (source, replaces) in KERNEL_ROWS.items():
+        r = rows[row_name]
+        name = SHAPE_ROWS.get(row_name, row_name)
         launches = (counts_train[name] if name in TRAIN_KERNELS
                     else counts_cap[name] if name in CAPACITY_KERNELS
                     else counts_mamba[name] if name in SSM_KERNELS else counts_on[name])
         line.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=row_name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
+            library_ms=r["library_ms"], shape=r["shape"],
             launches_by_path={"serve": counts_on[name], "train": counts_train[name],
                               "train_capacity": counts_cap[name],
                               "serve_mamba2": counts_mamba[name], "generate": counts_gen[name]},
@@ -1968,7 +2016,7 @@ def main(argv=None) -> int:
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == 16, [r["name"] for r in line]
+    assert len(line) == 18, [r["name"] for r in line]
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -41,23 +41,40 @@
 //
 // Design, capacity: one expert's C rows share its weights, so a forward /
 // dX block owns up to 256 rows (all C rows when C <= 256, as at the main
-// path's C = 200) of ONE expert for one 64-column output tile: each weight
-// element is read once per call (ceil(C / 256) times for a larger C).  The
-// bf16 warps skip the 16-row fragments that lie wholly past C.  dW is the
-// dropless dW tile over the expert's rows [e * C, (e + 1) * C).
+// path's C = 200) of ONE expert: each weight element is read from HBM once
+// per call (ceil(C / 256) times for a larger C, whose row chunks are
+// adjacent in launch order and meet in L2).  bf16 (the training path) is
+// built for Hopper: a 384-thread block of one producer warpgroup and two
+// consumer warpgroups over a 128-column output tile.  The producer's one
+// thread streams (x, w) tiles 64 deep with TMA (3-D tensor maps over
+// [E, C, K] and the weights, 128-byte swizzle, zeros past C, K and N) into
+// a 4-stage ring of 48 KB stages guarded by "full" / "empty" mbarriers,
+// 4 x 16 KB of weights in flight per SM; each consumer runs wgmma m64n128k16
+// on its 128 rows with f32 accumulators in registers (setmaxnreg moves
+// registers from the producer to them).  The forward's w[e] [K, N] is the
+// MN-major B operand (wgmma's transpose bit); dX reads w[e] [N_out, K_red]
+// as the K-major B operand: neither copies.  The x tile is re-read for every
+// 128 columns, from L2; two blocks of adjacent column tiles form a cluster
+// and each loads half of it into both (TMA multicast), halving that L2
+// traffic.  The epilogue stages bf16 in swizzled shared memory and TMA
+// stores it, clipped at C and N.  f32 runs the CUDA-core kernel: 256-row x
+// 64-column blocks, one shared-memory stage.
+// dW is the dropless dW tile over the expert's rows [e * C, (e + 1) * C).
 //
-// Both layouts: no atomics.  dW's sum order depends only on the expert's
-// own rows, so an expert's gradient is bit-identical whatever slot it
-// occupies (zero padding rows add exact zeros).  bf16 runs on the tensor
-// cores through WMMA (16 x 16 x 16, f32 accumulators); f32 runs on the CUDA
-// cores.  Tiles are staged through shared memory with 16-byte loads, one
-// stage: cp.async / TMA pipelining and wgmma are later work.
+// Both layouts: no atomics, no split of K.  Every output element sums its K
+// products in one order fixed by K alone, so two calls agree bit for bit
+// and an expert's results do not depend on the slot it occupies.  dW's sum
+// order depends only on the expert's own rows (zero padding rows add exact
+// zeros).  Kernel 7 and both dW kernels run bf16 on the tensor cores
+// through WMMA (16 x 16 x 16, f32 accumulators) with tiles staged through
+// shared memory by 16-byte loads, one stage; f32 on the CUDA cores.
 #include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -391,73 +408,6 @@ struct CapLayout {
 template <typename T>
 struct CapMath;
 
-// bf16: 8 warps as 4 x 2, each a 64 x 32 sub-tile of 4 x 2 WMMA fragments;
-// fragment rows wholly past the block's valid rows are skipped.
-template <>
-struct CapMath<__nv_bfloat16> {
-  using L = CapLayout<__nv_bfloat16>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ void step(const __nv_bfloat16* As, const __nv_bfloat16* Bs, int rows) {
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1;
-    const int wn = warp & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * L::B_LD + wn * 32 + j * 16, L::B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16;
-        if (r >= rows) continue;  // warp-uniform
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, As + r * L::A_LD + kk, L::A_LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-  }
-
-  // Caller has synchronised: each warp stages its fragments, one at a time,
-  // through its own 16 x 16 f32 scratch in smem.
-  __device__ void store(__nv_bfloat16* out, size_t ld, int row_lim, int col_lim,
-                        unsigned char* smem) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int wm = warp >> 1;
-    const int wn = warp & 1;
-    float* sc = reinterpret_cast<float*>(smem) + warp * 256;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = wm * 64 + i * 16;
-      if (r >= row_lim) continue;  // warp-uniform
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = wn * 32 + j * 16;
-        wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int q = lane; q < 256; q += 32) {
-          const int m = r + (q >> 4);
-          const int n = c + (q & 15);
-          if (m < row_lim && n < col_lim)
-            out[static_cast<size_t>(m) * ld + n] = __float2bfloat16_rn(sc[q]);
-        }
-        __syncwarp();
-      }
-    }
-  }
-};
-
 // f32: thread (tr, tc) owns rows tr + 32 * i and columns tc + 8 * j.
 template <>
 struct CapMath<float> {
@@ -504,8 +454,8 @@ struct CapMath<float> {
   }
 };
 
-// out[e, r0:r0+256, n0:n0+64] = x[e, rows] @ W[e] (kBTrans: W[e] stored [N, K]);
-// blockIdx = (n tile, row chunk, e).
+// f32: out[e, r0:r0+256, n0:n0+64] = x[e, rows] @ W[e] (kBTrans: W[e]
+// stored [N, K]); blockIdx = (n tile, row chunk, e).
 template <typename T, bool kBTrans>
 __global__ void __launch_bounds__(kThreads)
     gmm_cap_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int C,
@@ -536,17 +486,211 @@ __global__ void __launch_bounds__(kThreads)
   tm.store(out + (static_cast<size_t>(e) * C + r0) * N + n0, N, rows, N - n0, smem);
 }
 
-template <typename T>
-int launch_cap(const void* x, const void* w, void* out, int E, int C, int K, int N, int trans,
-               cudaStream_t st) {
+int launch_cap_f32(const void* x, const void* w, void* out, int E, int C, int K, int N, int trans,
+                   cudaStream_t st) {
   const dim3 grid((N + CBN - 1) / CBN, (C + CBM - 1) / CBM, E);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w);
+  float* op = static_cast<float*>(out);
   if (trans)
-    gmm_cap_kernel<T, true><<<grid, kThreads, 0, st>>>(xp, wp, op, C, K, N);
+    gmm_cap_kernel<float, true><<<grid, kThreads, 0, st>>>(xp, wp, op, C, K, N);
   else
-    gmm_cap_kernel<T, false><<<grid, kThreads, 0, st>>>(xp, wp, op, C, K, N);
+    gmm_cap_kernel<float, false><<<grid, kThreads, 0, st>>>(xp, wp, op, C, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// capacity layout, bf16 forward and dX: TMA ring, warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+struct Cap90 {
+  static constexpr int BM = 256;  // rows of one expert per block: 2 consumers x 2 x m64
+  static constexpr int BN = 128;  // output columns per block: one m64n128 per m64 tile
+  static constexpr int BK = 64;   // reduction depth per stage: one 128-byte swizzled row
+  static constexpr int kStages = 4;
+  static constexpr int kCluster = 2;        // CTAs along N sharing each x tile
+  static constexpr int kThreads = 384;      // warpgroup 0 produces, 1 and 2 consume
+  static constexpr int kConsumerWarps = 8;  // each arrives on a stage's "empty" in every CTA
+  static constexpr int A_BYTES = BM * BK * 2;     // x tile [256 rows][64 k]
+  static constexpr int A_SLICE_ROWS = BM / kCluster;  // rows of it each CTA loads
+  static constexpr int B_BYTES = BK * BN * 2;     // w tile, 2 x [64 k][64 n] or [128 n][64 k]
+  static constexpr int HALF_BYTES = B_BYTES / 2;  // one [64 k][64 n] box (forward)
+  static constexpr int M64_BYTES = 64 * BK * 2;   // 64 rows of 128 bytes
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // the ring, its 2 x kStages barriers and 1024 bytes to align the ring
+  static constexpr int SMEM = kStages * STAGE_BYTES + 2 * kStages * 8 + 1024;
+};
+
+// One consumer's m64 x 128 f32 tile (its rows `row0`...) -> bf16 in the
+// 128-byte-swizzled staging buffer of two [128 rows][64 columns] halves
+// that the output map's boxes read.
+__device__ __forceinline__ void stage_m64(const float (&acc)[64], uint32_t stage, int row0) {
+  using L = Cap90;
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + (t >> 5) * 16 + (lane >> 2) + 8 * h;
+      const uint32_t addr = stage + (j >> 3) * (L::HALF_BYTES * 2) + row * 128 +
+                            (((j & 7) ^ (row & 7)) << 4) + (lane & 3) * 4;
+      const __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr),
+                   "r"(*reinterpret_cast<const uint32_t*>(&v))
+                   : "memory");
+    }
+  }
+}
+
+// out[e, r0:r0+256, n0:n0+128] = x[e, rows] @ W[e]; kBTrans: W[e] stored
+// [N, K] (dX).  blockIdx = (row chunk, n tile, e): the row chunks of one
+// (expert, n tile) are adjacent in launch order, so for C > 256 they meet
+// in L2; a cluster is kCluster adjacent n tiles of one (row chunk, expert).
+// Maps: x [E, C, K] boxes {64, 256 / kCluster, 1}; w [E, K, N] boxes
+// {64, 64, 1} (kBTrans: [E, N, K], {64, 128, 1}); out [E, C, N] boxes
+// {64, 64, 1}; all 128-byte swizzled, zeros past every edge on load,
+// clipped on store.
+template <bool kBTrans>
+__global__ void __cluster_dims__(1, Cap90::kCluster, 1) __launch_bounds__(Cap90::kThreads, 1)
+    gmm_cap_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_out, int C, int K, int N) {
+  using namespace repro::hopper;
+  using L = Cap90;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sa = base;
+  const uint32_t sb = base + L::kStages * L::A_BYTES;
+  const uint32_t bars = base + L::kStages * L::STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (L::kStages + s); };
+  const int r0 = blockIdx.x * L::BM;
+  const int n0 = blockIdx.y * L::BN;
+  const int e = blockIdx.z;
+  const int nk = (K + L::BK - 1) / L::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), L::kConsumerWarps * L::kCluster);
+    }
+    fence_mbar_init();
+  }
+  cluster_sync();  // every CTA's barriers exist before any multicast
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // Producer: one thread keeps kStages (x, w) tiles in flight.  The x
+    // tile is the cluster's: this CTA loads its slice of rows into every
+    // CTA of the cluster, and a stage is refilled only once the consumers
+    // of every CTA have released it.
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      const uint32_t rank = cluster_rank();
+      const uint16_t all = (1u << L::kCluster) - 1;
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % L::kStages;
+        mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), L::STAGE_BYTES);
+        const int k0 = it * L::BK;
+        tma_load_3d_multicast(sa + s * L::A_BYTES + rank * L::A_SLICE_ROWS * 128, &map_x, full(s),
+                              all, k0, r0 + rank * L::A_SLICE_ROWS, e);
+        if constexpr (kBTrans) {
+          tma_load_3d(sb + s * L::B_BYTES, &map_w, full(s), k0, n0, e);
+        } else {
+          tma_load_3d(sb + s * L::B_BYTES, &map_w, full(s), n0, k0, e);
+          tma_load_3d(sb + s * L::B_BYTES + L::HALF_BYTES, &map_w, full(s), n0 + 64, k0, e);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns rows [128 c, 128 c + 128) of the block as
+    // two m64 tiles.  Every wgmma is issued unconditionally (a tile past C
+    // multiplies zeros): a branch around them serialises the wgmma pipeline.
+    reg_alloc<232>();
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127;
+    const int rows = min(L::BM, C - r0) - 128 * c;
+    const int mt = rows <= 0 ? 0 : rows <= 64 ? 1 : 2;  // m64 tiles to store
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % L::kStages;
+      mbar_wait(full(s), (it / L::kStages) & 1);
+      const uint32_t a = sa + s * L::A_BYTES + 2 * c * L::M64_BYTES;
+      const uint32_t b = sb + s * L::B_BYTES;
+      fence_operands(acc0);
+      fence_operands(acc1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::BK / 16; ++kk) {
+        // K-major tiles step 32 bytes along the swizzled row; the forward's
+        // MN-major w tile steps 16 rows of 128 bytes.
+        const uint64_t db = kBTrans ? desc_sw128(b + kk * 32, 16, 1024)
+                                    : desc_sw128(b + kk * 2048, L::HALF_BYTES, 1024);
+        wgmma_m64n128k16_bf16<kBTrans ? 0 : 1>(acc0, desc_sw128(a + kk * 32, 16, 1024), db);
+        wgmma_m64n128k16_bf16<kBTrans ? 0 : 1>(
+            acc1, desc_sw128(a + L::M64_BYTES + kk * 32, 16, 1024), db);
+      }
+      wgmma_commit();
+      fence_operands(acc0);
+      fence_operands(acc1);
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+#pragma unroll
+      for (int r = 0; r < L::kCluster; ++r)
+        mbar_arrive_cluster(empty((it + L::kStages - 1) % L::kStages), r, it > 0 && (t & 31) == 0);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc0);
+    fence_operands(acc1);
+
+    // Epilogue: both consumers are done with the ring, so consumer c stages
+    // its bf16 tile in the ring's first 64 KB and one thread stores it with
+    // TMA (rows past C and columns past N are not written).
+    named_bar_sync(1, 2 * 128);
+    if (mt > 0) {
+      const uint32_t stage = base + c * L::A_BYTES;
+      stage_m64(acc0, stage, 0);
+      if (mt == 2) stage_m64(acc1, stage, 64);
+      fence_proxy_async();
+      named_bar_sync(2 + c, 128);
+      if (t == 0) {
+        for (int jm = 0; jm < mt; ++jm)
+          for (int half = 0; half < 2; ++half)
+            if (n0 + 64 * half < N)
+              tma_store_3d(&map_out, stage + half * 2 * L::HALF_BYTES + jm * L::M64_BYTES,
+                           n0 + 64 * half, r0 + 128 * c + 64 * jm, e);
+        tma_store_commit();
+        tma_store_wait_read();
+      }
+    }
+    // No CTA exits while another may still arrive on its barriers.
+    __syncwarp();
+    cluster_sync();
+  }
+}
+
+int launch_cap_bf16(const void* x, const void* w, void* out, int E, int C, int K, int N, int trans,
+                    cudaStream_t st) {
+  using namespace repro::hopper;
+  using L = Cap90;
+  CUtensorMap mx, mw, mo;
+  int err = bf16_map_3d(&mx, x, K, C, E, 64, L::A_SLICE_ROWS);
+  if (!err) err = trans ? bf16_map_3d(&mw, w, K, N, E, 64, L::BN)
+                        : bf16_map_3d(&mw, w, N, K, E, 64, 64);
+  if (!err) err = bf16_map_3d(&mo, out, N, C, E, 64, 64);
+  if (err) return err;
+  // n tiles rounded up to whole clusters: a tile past N loads zeros and
+  // stores nothing.
+  const int n_tiles = (N + L::BN - 1) / L::BN;
+  const dim3 grid((C + L::BM - 1) / L::BM, (n_tiles + L::kCluster - 1) / L::kCluster * L::kCluster,
+                  E);
+  const auto kernel = trans ? &gmm_cap_wgmma_kernel<true> : &gmm_cap_wgmma_kernel<false>;
+  const cudaError_t ae = repro::allow_smem(kernel, L::SMEM);
+  if (ae != cudaSuccess) return static_cast<int>(ae);
+  kernel<<<grid, L::kThreads, L::SMEM, st>>>(mx, mw, mo, C, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -621,8 +765,8 @@ extern "C" int grouped_matmul_capacity(const void* x, const void* w, void* out, 
   if (E <= 0 || C <= 0 || N <= 0) return 0;
   if (E > kMaxExperts || K <= 0) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16) return launch_cap<__nv_bfloat16>(x, w, out, E, C, K, N, trans, st);
-  if (dtype == repro::kF32) return launch_cap<float>(x, w, out, E, C, K, N, trans, st);
+  if (dtype == repro::kBF16) return launch_cap_bf16(x, w, out, E, C, K, N, trans, st);
+  if (dtype == repro::kF32) return launch_cap_f32(x, w, out, E, C, K, N, trans, st);
   return -2;
 }
 

@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds).  The
 library's file name carries a hash of its sources and flags, so an edit
 rebuilds; builds go to ``build/repro_torch_kernels/`` at the repository
-root, which git ignores.  :func:`build_all` starts one ``nvcc`` per missing
-library, all at once.  A failed build raises with nvcc's stderr.
+root, which git ignores.  The hash covers every ``csrc/*.cuh``, so an edit
+to a shared header rebuilds every library.  :func:`build_all` starts one
+``nvcc`` per missing library, all at once.  A failed build raises with
+nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"

@@ -245,10 +245,13 @@ def _capacity_case(dev, dtype, e, c, k, n, seed):
     return (torch.from_numpy(a).to(dev, dtype) for a in (x, w, dy))
 
 
-# C in {4, 12, 20, 200} (and 260: two row chunks of one expert), E = 1,
-# K and N multiples of 8 that are not multiples of the 32 / 64 tiles.
+# C in {4, 12, 20, 200} (and 260, 300: two row chunks of one expert), E = 1,
+# K and N multiples of 8 that are not multiples of the tiles (64 deep, 64
+# or 128 wide), and the main path's C = 200 at K = 4096.
 CAPACITY_CASES = [(3, 4, 64, 192), (3, 12, 72, 136), (1, 20, 40, 200), (3, 200, 136, 72),
-                  (2, 260, 64, 64)]
+                  (2, 260, 64, 64), (2, 300, 136, 200), (8, 200, 4096, 1024)]
+# bf16 cases for the invariances the training path relies on.
+INVARIANCE_CASES = [(3, 200, 136, 72), (2, 300, 136, 200), (8, 200, 4096, 1024)]
 
 
 @pytest.mark.cuda
@@ -288,6 +291,27 @@ def test_grouped_matmul_capacity_dw_and_autograd(dev, dtype, e, c, k, n):
     ref.grouped_matmul(x2, w2).backward(dy)
     torch.testing.assert_close(x1.grad.float(), x2.grad.float(), **GRAD_TOLS[dtype])
     torch.testing.assert_close(w1.grad.float(), w2.grad.float(), **GRAD_TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,k,n", INVARIANCE_CASES)
+def test_grouped_matmul_capacity_bf16_bit_identical(dev, e, c, k, n):
+    """No atomics and no split of K: two calls agree bit for bit."""
+    x, w, dy = _capacity_case(dev, torch.bfloat16, e, c, k, n, c + k + n)
+    assert torch.equal(grouped_matmul_cuda(x, w), grouped_matmul_cuda(x, w))
+    assert torch.equal(grouped_matmul_dx_cuda(dy, w), grouped_matmul_dx_cuda(dy, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,k,n", INVARIANCE_CASES)
+def test_grouped_matmul_capacity_bf16_expert_permutation(dev, e, c, k, n):
+    """An expert's rows do not depend on its slot: permuting the experts
+    permutes the forward and dX outputs bit for bit (re-placement)."""
+    x, w, dy = _capacity_case(dev, torch.bfloat16, e, c, k, n, c * n + k)
+    perm = torch.arange(e - 1, -1, -1, device=dev)
+    xp, wp, dyp = (t[perm].contiguous() for t in (x, w, dy))
+    assert torch.equal(grouped_matmul_cuda(xp, wp), grouped_matmul_cuda(x, w)[perm])
+    assert torch.equal(grouped_matmul_dx_cuda(dyp, wp), grouped_matmul_dx_cuda(dy, w)[perm])
 
 
 @pytest.mark.cuda

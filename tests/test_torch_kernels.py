@@ -164,6 +164,32 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert not any(counts.values()), counts
 
 
+def test_build_hash_covers_every_header(tmp_path, monkeypatch):
+    """Editing any ``csrc/*.cuh`` (or adding one) renames every library, so
+    each is rebuilt; nothing here runs nvcc."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    for f in build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._lib_path(n) for n in build.SOURCES}
+    assert {n: build._lib_path(n) for n in build.SOURCES} == before  # stable
+    headers = sorted(tmp_path.glob("*.cuh"))
+    assert {"common.cuh", "hopper.cuh"} <= {h.name for h in headers}
+    seen = [before]
+    for h in headers:
+        h.write_text(h.read_text() + "\n// edited\n")
+        now = {n: build._lib_path(n) for n in build.SOURCES}
+        assert all(now[n] != old[n] for old in seen for n in build.SOURCES), h.name
+        seen.append(now)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    now = {n: build._lib_path(n) for n in build.SOURCES}
+    assert all(now[n] != seen[-1][n] for n in build.SOURCES)
+
+
 # ---------------------------------------------------------------------------
 # the port stands alone
 # ---------------------------------------------------------------------------
