@@ -8,15 +8,17 @@ Phases, one printed line (or more) each:
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build  — ``nvcc`` builds every kernel of the serving and training paths
    from ``src/repro_torch/csrc`` (7 sources, one process each, all at once);
-3. kernels — each kernel at the serving path's shapes and at a small case
-   with window, softcap, ragged lengths and -1 page-table entries, held
+3. kernels — each kernel at the serving path's shapes and at small cases
+   with window, softcap, ragged lengths, -1 page-table entries and head
+   dims from 32 to 256 (40 zero-padded), held
    against its plain PyTorch version on the card; kernel, plain and library
    times from CUDA events;
 3b. ssm kernels — kernels 8 (RMSNorm) and 9 (the SSD intra-chunk pass)
    at Mamba-2 1.3B's serving shapes (one 256-token prefill, generate's
    4 x 512 batch, norms at a prefill and a decode tick) and at edge cases
    (L from 1 to 256, odd G, zero, underflowing and masked-overflowing
-   decays; T in {1, 257}, D = 48), against their plain versions;
+   decays; T in {1, 257}, D = 48, 12288 and 16384), against their plain
+   versions;
 4. check  — prefill-then-paged-decode logits against one full-sequence
    prefill of the same tokens;
 5. serve  — grok-1-314b at its published widths (depth cut to 4 of 64
@@ -42,14 +44,18 @@ Phases, one printed line (or more) each:
 6. train kernels — every training-path kernel
    (MoE dispatch and combine, the dropless grouped GEMM, and the backward
    kernels of the combine, the GEMM (dX, dW), the gate and attention) at
-   the Mixtral-8x7B training step's shapes and at small edge cases,
-   against its plain version (a backward against ``torch.autograd`` of the
-   plain forward); kernel, plain and library times from CUDA events;
+   the Mixtral-8x7B training step's shapes (the grouped GEMM and its dX and
+   dW at the w_in and w_out shapes, its forward and dW also at a skewed
+   plan, 3/8 of the choices on each of two experts) and at small edge
+   cases (experts of more than 256 rows, every row in one expert, K and N
+   off the tiles, head dims 32 to 192), against its plain version (a
+   backward against ``torch.autograd`` of the plain forward); kernel, plain
+   and library times from CUDA events;
 7. capacity kernels — kernel 6 (the capacity-layout grouped GEMM) and its
    dX and dW at the capacity step's w_in shapes, built from a real
-   two-stage capacity plan (empty send rows, empty expert slots), its
-   forward and dX at the w_out shapes, and edge cases (C in {4, 12, 20,
-   200, 260, 300}, E = 1, an all-zero expert, f32 and bf16, K and N off
+   two-stage capacity plan (empty send rows, empty expert slots), the same
+   three at the w_out shapes, and edge cases (C in {4, 12, 20, 200, 257,
+   260, 300, 520}, E = 1, an all-zero expert, f32 and bf16, K and N off
    the tiles), against the plain versions and ``torch.autograd``;
    ``torch.bmm`` as the library yardstick;
 8. step   — one training step's loss and EVERY parameter's gradient at a
@@ -154,6 +160,20 @@ KERNEL_ROWS = {
     "grouped_matmul_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
                             "src/repro/kernels/grouped_matmul.py:62"),
     "grouped_matmul_dx_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
+                               "src/repro/kernels/grouped_matmul.py:62"),
+    # Kernel 7 and its dX and dW at the w_out shapes, kernel 7 and its dW at
+    # a skewed plan, and kernel 6's dW at the w_out shapes (SHAPE_ROWS).
+    "grouped_matmul_blocks_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                   "src/repro/kernels/grouped_matmul.py:116"),
+    "grouped_matmul_blocks_dx_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                      "src/repro/kernels/grouped_matmul.py:116"),
+    "grouped_matmul_blocks_dw_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                      "src/repro/kernels/grouped_matmul.py:116"),
+    "grouped_matmul_blocks_skew": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                   "src/repro/kernels/grouped_matmul.py:116"),
+    "grouped_matmul_blocks_dw_skew": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                      "src/repro/kernels/grouped_matmul.py:116"),
+    "grouped_matmul_dw_wout": ("src/repro_torch/csrc/grouped_matmul.cu",
                                "src/repro/kernels/grouped_matmul.py:62"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:50"),
@@ -328,7 +348,8 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
 
 
 def edge_cases(torch, g, cpu_g):
-    """Window, softcap, ragged S, -1 table entries and C > 1, in f32 and bf16."""
+    """Window, softcap, ragged S, -1 table entries and C > 1, at head dims 32
+    to 256 (40 zero-padded to the kernels' 64), in f32 and bf16."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda, paged_flash_decode_cuda
     from repro_torch.kernels.topk_gating import topk_gating_cuda
@@ -341,7 +362,7 @@ def edge_cases(torch, g, cpu_g):
     assert torch.equal(i, ri) and i[0].tolist() == list(range(6)), "topk tie order"
     errs = [check(torch, w, rw, F32_TOL, "topk_gating edge")]
     for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for d in (64, 128, 256):
+        for d in (32, 40, 64, 96, 128, 192, 256):  # 40: zero-padded to the 64 kernel
             q = torch.randn((2, 6, 77, d), generator=g, device=dev).to(dt)
             k = torch.randn((2, 2, 77, d), generator=g, device=dev).to(dt)
             v = torch.randn((2, 2, 77, d), generator=g, device=dev).to(dt)
@@ -349,17 +370,17 @@ def edge_cases(torch, g, cpu_g):
                 got = flash_attention_cuda(q, k, v, **kw)
                 errs.append(check(torch, got, ref.flash_attention(q, k, v, **kw), tol,
                                   f"flash_attention edge {dt} D={d} {kw}"))
-        for c in (1, 2, 5):
+        for c, hd in ((1, 128), (2, 128), (5, 128), (2, 32), (2, 40), (1, 96), (2, 192)):
             lengths = [37, 20, 3]
             table = page_table_for(torch, lengths, c, 8, 7, 30, cpu_g).to(dev)
             tvec = torch.tensor(lengths, dtype=torch.int32, device=dev)
-            qd = torch.randn((3, c, 6, 128), generator=g, device=dev).to(dt)
-            kp = torch.randn((30, 8, 2, 128), generator=g, device=dev).to(dt)
-            vp = torch.randn((30, 8, 2, 128), generator=g, device=dev).to(dt)
+            qd = torch.randn((3, c, 6, hd), generator=g, device=dev).to(dt)
+            kp = torch.randn((30, 8, 2, hd), generator=g, device=dev).to(dt)
+            vp = torch.randn((30, 8, 2, hd), generator=g, device=dev).to(dt)
             for kw in ({}, dict(window=12, softcap=25.0)):
                 got = paged_flash_decode_cuda(qd, kp, vp, table, tvec, **kw)
                 errs.append(check(torch, got, ref.paged_flash_decode(qd, kp, vp, table, tvec, **kw),
-                                  tol, f"paged_flash_decode edge {dt} C={c} {kw}"))
+                                  tol, f"paged_flash_decode edge {dt} C={c} D={hd} {kw}"))
     torch.cuda.synchronize()
     print(f"kernels edge cases: {len(errs)} comparisons within tolerance, "
           f"max_abs_err={max(errs):.3e}", flush=True)
@@ -502,6 +523,55 @@ def _grads(torch, fn, inputs, cot):
     return torch.autograd.grad(out, leaves, cot)
 
 
+def blocks_rows(torch, rows, suffix, xb, w, dy, be, counts, what, parts=("", "_dx", "_dw")):
+    """Kernel 7 (``grouped_matmul_blocks``) and its dX and dW on the tiles
+    ``xb [nb, 8, K]`` (``counts[e]`` real rows of expert e), weights ``w [E,
+    K, N]`` and the output gradient ``dy [nb, 8, N]``, each against its plain
+    version or ``torch.autograd`` of the plain forward, with
+    ``torch._grouped_mm`` over the same rows (expert e's tiles as the group
+    ending at offs[e]) as the yardstick.  Adds the rows named
+    ``grouped_matmul_blocks{part}{suffix}`` for each part."""
+    from repro_torch.kernels import grouped_matmul as kgm
+    from repro_torch.kernels import ref
+
+    nb, _, kd = xb.shape
+    e, _, nd = w.shape
+    n = int(counts.sum())
+    used = int((counts > 0).sum())
+    offs = torch.cumsum(torch.bincount(be, minlength=e) * 8, 0).to(torch.int32)
+    x2, w_t, dy2 = xb.reshape(-1, kd), w.transpose(1, 2), dy.reshape(-1, nd)
+    gemm, tiles = 2.0 * n * kd * nd, nb * 4
+    want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul_blocks(a, b, be), [xb, w], dy)
+    cases = {
+        "": (lambda: kgm.grouped_matmul_blocks_cuda(xb, w, be),
+             lambda: ref.grouped_matmul_blocks(xb, w, be), None,
+             lambda: torch._grouped_mm(x2, w, offs=offs), (n * kd + used * kd * nd + n * nd) * 2,
+             f"x [{nb}, 8, {kd}] bf16 @ w [{e}, {kd}, {nd}], {n} rows in {nb} tiles"),
+        "_dx": (lambda: kgm.grouped_matmul_blocks_dx_cuda(dy, w, be),
+                lambda: ref.grouped_matmul_blocks(dy, w_t, be), want_dx,
+                lambda: torch._grouped_mm(dy2, w_t, offs=offs),
+                (n * nd + used * kd * nd + n * kd) * 2,
+                f"dy [{nb}, 8, {nd}] bf16 @ w[e]^T, w [{e}, {kd}, {nd}]"),
+        "_dw": (lambda: kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, e),
+                lambda: ref.grouped_matmul_blocks_dw(xb, dy, be, e), want_dw,
+                lambda: torch._grouped_mm(x2.t(), dy2, offs=offs),
+                (n * kd + n * nd + e * kd * nd) * 2,
+                f"x [{nb}, 8, {kd}], dy [{nb}, 8, {nd}] bf16 -> dW [{e}, {kd}, {nd}]"),
+    }
+    for part in parts:
+        kernel, plain, want, lib, bytes_moved, shape = cases[part]
+        name = f"grouped_matmul_blocks{part}{suffix}"
+        got = kernel()
+        want = plain() if want is None else want
+        err = check_rel(got, want, BF16_GEMM_REL, name)
+        rows[name] = kernel_row(
+            torch, name, err, time_ms(torch, kernel, 20), time_ms(torch, plain, 5),
+            library_time(torch, lib, got.reshape(lib().shape), BF16_GEMM_REL, 20,
+                         f"{name} (torch._grouped_mm)"),
+            bytes_moved + tiles, gemm, "bfloat16", shape + what,
+        )
+
+
 def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     """Every training-path kernel at the Mixtral step's shapes: T = batch x
     seq tokens routed top-k over E experts (dropless, P = 1), expert width
@@ -557,53 +627,42 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
         (distinct + n) * d * 2 + n * 4, 0.0, "bfloat16", f"x [{t}, {d}] bf16 -> [{n}, {d}]",
     )
 
-    # -- grouped_matmul_blocks (w_in): packed [nb, 8, D] @ w [E, D, F].
+    # -- grouped_matmul_blocks (kernel 7) and its dX and dW at the w_in
+    # shapes: packed [nb, 8, D] @ w [E, D, F]; padding rows get no gradient.
     xb = packed.reshape(nb, 8, d)
+    pad = (plan2.src < 0).reshape(nb, 8)
     w = (randn(e, d, f) * d**-0.5).to(bf16)
-    h = kgm.grouped_matmul_blocks_cuda(xb, w, be)
-    err = check_rel(h, ref.grouped_matmul_blocks(xb, w, be), BF16_GEMM_REL, "grouped_matmul_blocks")
-    used = int((counts2 > 0).sum())
-    # Library yardstick: one grouped GEMM over the same rows, with expert e's
-    # tiles as the row group ending at offs[e] (trailing zero tiles in the
-    # last expert's group, as the kernel clips them).
-    offs = torch.cumsum(torch.bincount(be, minlength=e) * 8, 0).to(torch.int32)
-    x2, w_t = xb.reshape(-1, d), w.transpose(1, 2)
-    rows["grouped_matmul_blocks"] = kernel_row(
-        torch, "grouped_matmul_blocks", err,
-        time_ms(torch, lambda: kgm.grouped_matmul_blocks_cuda(xb, w, be), 20),
-        time_ms(torch, lambda: ref.grouped_matmul_blocks(xb, w, be), 5),
-        library_time(torch, lambda: torch._grouped_mm(x2, w, offs=offs), h.reshape(-1, f),
-                     BF16_GEMM_REL, 20, "grouped_matmul_blocks (torch._grouped_mm)"),
-        (n * d + used * d * f + n * f) * 2 + nb * 4, 2.0 * n * d * f, "bfloat16",
-        f"x [{nb}, 8, {d}] bf16 @ w [{e}, {d}, {f}], {n} rows in {nb} tiles",
-    )
-    # -- its backward: dX (the transposed-weight flag) and dW, against autograd.
     dy = randn(nb, 8, f, dt=bf16)
-    dy[(plan2.src < 0).reshape(nb, 8)] = 0  # padding rows get no gradient in the layer
-    want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul_blocks(a, b, be), [xb, w], dy)
-    dx = kgm.grouped_matmul_blocks_dx_cuda(dy, w, be)
-    dw = kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, e)
-    err_dx = check_rel(dx, want_dx, BF16_GEMM_REL, "grouped_matmul_blocks dX")
-    err_dw = check_rel(dw, want_dw, BF16_GEMM_REL, "grouped_matmul_blocks dW")
-    dy2 = dy.reshape(-1, f)
-    rows["grouped_matmul_blocks_dx"] = kernel_row(
-        torch, "grouped_matmul_blocks_dx", err_dx,
-        time_ms(torch, lambda: kgm.grouped_matmul_blocks_dx_cuda(dy, w, be), 20),
-        time_ms(torch, lambda: ref.grouped_matmul_blocks(dy, w_t, be), 5),
-        library_time(torch, lambda: torch._grouped_mm(dy2, w_t, offs=offs), dx.reshape(-1, d),
-                     BF16_GEMM_REL, 20, "grouped_matmul_blocks_dx (torch._grouped_mm)"),
-        (n * f + used * d * f + n * d) * 2 + nb * 4, 2.0 * n * d * f, "bfloat16",
-        f"dy [{nb}, 8, {f}] bf16 @ w[e]^T, w [{e}, {d}, {f}]",
-    )
-    rows["grouped_matmul_blocks_dw"] = kernel_row(
-        torch, "grouped_matmul_blocks_dw", err_dw,
-        time_ms(torch, lambda: kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, e), 20),
-        time_ms(torch, lambda: ref.grouped_matmul_blocks_dw(xb, dy, be, e), 5),
-        library_time(torch, lambda: torch._grouped_mm(x2.t(), dy2, offs=offs), dw,
-                     BF16_GEMM_REL, 20, "grouped_matmul_blocks_dw (torch._grouped_mm)"),
-        (n * d + n * f + e * d * f) * 2 + nb * 4, 2.0 * n * d * f, "bfloat16",
-        f"x [{nb}, 8, {d}], dy [{nb}, 8, {f}] bf16 -> dW [{e}, {d}, {f}]",
-    )
+    dy[pad] = 0
+    blocks_rows(torch, rows, "", xb, w, dy, be, counts2, "")
+    del w, dy
+    # -- the same at the w_out shapes: the hidden [nb, 8, F] @ w_out [E, F, D].
+    hb = randn(nb, 8, f, dt=bf16)
+    hb[pad] = 0
+    w_out = (randn(e, f, d) * f**-0.5).to(bf16)
+    dy_out = randn(nb, 8, d, dt=bf16)
+    dy_out[pad] = 0
+    blocks_rows(torch, rows, "_wout", hb, w_out, dy_out, be, counts2, "")
+    del hb, w_out, dy_out
+    # -- forward and dW at a skewed plan: 3/8 of the choices on each of two
+    # experts, the rest spread over the others, as the router's collapse
+    # under training gives (PERF.md); torch._grouped_mm beside each.
+    hot = 3 * n // 8
+    skew = [hot, hot] + [(n - 2 * hot) // (e - 2) + (i < (n - 2 * hot) % (e - 2))
+                         for i in range(e - 2)]
+    with torch.no_grad():
+        sk_e = torch.repeat_interleave(torch.arange(e, device=dev), torch.tensor(skew, device=dev))
+        sk_e = sk_e[torch.randperm(n, generator=g, device=dev)].to(torch.int32)
+        sk_valid = torch.ones(n, dtype=torch.bool, device=dev)
+        sk_rank, sk_counts = routing.bucket_ranks(sk_e, e, valid=sk_valid)
+        sk_plan = routing.dropless_plan(sk_e, sk_rank, sk_counts, sk_valid, e, 8)
+        xs = kmd.moe_dispatch_cuda(randn(n, d, dt=bf16), sk_plan.src)
+    nbs = sk_plan.block_experts.shape[0]
+    dys = randn(nbs, 8, f, dt=bf16)
+    dys[(sk_plan.src < 0).reshape(nbs, 8)] = 0
+    blocks_rows(torch, rows, "_skew", xs.reshape(nbs, 8, d), (randn(e, d, f) * d**-0.5).to(bf16),
+                dys, sk_plan.block_experts, sk_counts, f", skewed {skew}", parts=("", "_dw"))
+    del xs, dys
 
     # -- moe_combine: y [T * k, D] bf16 by slot / wfull [T, k] -> [T, D] f32.
     y = randn(n, d, dt=bf16)
@@ -700,7 +759,9 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
 
 def train_edge_cases(torch, g):
     """-1 sources, fully dropped rows, S in {1, 2}, padding tiles, empty
-    experts, ragged S with window and softcap, in f32 and bf16."""
+    experts, experts of more than 256 rows, every row in one expert, K and N
+    off the tiles, ragged S with window and softcap at head dims 32, 40, 96,
+    128 and 192, in f32 and bf16."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import grouped_matmul as kgm
@@ -731,37 +792,48 @@ def train_edge_cases(torch, g):
             want = _grads(torch, lambda a, b: ref.moe_combine(a, slot, b), [y, w], dout)
             for a, b in zip(kmd.moe_combine_bwd_cuda(dout, y, slot, w, inv), want):
                 errs.append(check(torch, a, b, tol, f"combine_bwd edge {dt} S={s}"))
-        # Tiles: an expert with 100 rows (two runs), an empty one, ragged
-        # tails, and trailing zero tiles clipped to the last expert.
-        counts, kdim, ndim = [100, 0, 9, 64, 1], 64, 200
-        be = sum(([ei] * -(-c // 8) for ei, c in enumerate(counts)), []) + [4] * 3
-        xb = torch.zeros((len(be) * 8, kdim), device=dev)
-        row = 0
-        for c in counts:
-            xb[row:row + c] = torch.randn((c, kdim), generator=g, device=dev)
-            row += -(-c // 8) * 8
-        xb = xb.reshape(-1, 8, kdim).to(dt)
-        be = torch.tensor(be, dtype=torch.int32, device=dev)
-        w = (torch.randn((5, kdim, ndim), generator=g, device=dev) / 8).to(dt)
-        rel = BF16_GEMM_REL if dt == torch.bfloat16 else 1e-5
-        errs.append(check_rel(kgm.grouped_matmul_blocks_cuda(xb, w, be),
-                              ref.grouped_matmul_blocks(xb, w, be), rel, f"gmm edge {dt}"))
-        dy = torch.randn((len(be), 8, ndim), generator=g, device=dev).to(dt)
-        want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul_blocks(a, b, be), [xb, w], dy)
-        errs.append(check_rel(kgm.grouped_matmul_blocks_dx_cuda(dy, w, be), want_dx, rel, "dX edge"))
-        dwk = kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, 5)
-        assert not dwk[1].any(), "an expert without tiles has a zero gradient"
-        errs.append(check_rel(dwk, want_dw, rel, "dW edge"))
-        q = torch.randn((2, 6, 77, 128), generator=g, device=dev).to(dt)
-        k = torch.randn((2, 2, 77, 128), generator=g, device=dev).to(dt)
-        v = torch.randn((2, 2, 77, 128), generator=g, device=dev).to(dt)
-        do = torch.randn((2, 6, 77, 128), generator=g, device=dev).to(dt)
-        for kw in (dict(causal=True, window=33, softcap=30.0), dict(causal=False)):
-            out, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-            got = kfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
-            want = _grads(torch, lambda a, b, c: ref.flash_attention(a, b, c, **kw), [q, k, v], do)
-            rel = BF16_GRAD_REL if dt == torch.bfloat16 else 1e-4
-            errs += [check_rel(a, b, rel, f"flash bwd edge {dt} {kw}") for a, b in zip(got, want)]
+        # Tiles: experts of 100 (two f32 runs), 300 and 257 rows (two bf16
+        # runs each), empty ones, ragged tails, every row in one expert,
+        # trailing zero tiles clipped to the last expert; K and N multiples
+        # of 8 off the 64-deep / 128-wide tiles.
+        for counts, kdim, ndim in (([100, 0, 9, 64, 1], 64, 200), ([300, 0, 9, 257, 1], 72, 136),
+                                   ([700], 136, 40), ([0, 0, 520, 0], 64, 192)):
+            ne = len(counts)
+            be = sum(([ei] * -(-c // 8) for ei, c in enumerate(counts)), []) + [ne - 1] * 3
+            xb = torch.zeros((len(be) * 8, kdim), device=dev)
+            row = 0
+            for c in counts:
+                xb[row:row + c] = torch.randn((c, kdim), generator=g, device=dev)
+                row += -(-c // 8) * 8
+            xb = xb.reshape(-1, 8, kdim).to(dt)
+            be = torch.tensor(be, dtype=torch.int32, device=dev)
+            w = (torch.randn((ne, kdim, ndim), generator=g, device=dev) / 8).to(dt)
+            rel = BF16_GEMM_REL if dt == torch.bfloat16 else 1e-5
+            what = f"{dt} counts={counts} K={kdim} N={ndim}"
+            errs.append(check_rel(kgm.grouped_matmul_blocks_cuda(xb, w, be),
+                                  ref.grouped_matmul_blocks(xb, w, be), rel, f"gmm edge {what}"))
+            dy = torch.randn((len(be), 8, ndim), generator=g, device=dev).to(dt)
+            want_dx, want_dw = _grads(torch, lambda a, b: ref.grouped_matmul_blocks(a, b, be),
+                                      [xb, w], dy)
+            errs.append(check_rel(kgm.grouped_matmul_blocks_dx_cuda(dy, w, be), want_dx, rel,
+                                  f"dX edge {what}"))
+            dwk = kgm.grouped_matmul_blocks_dw_cuda(xb, dy, be, ne)
+            for ei, c in enumerate(counts):
+                assert c or not dwk[ei].any(), "an expert without tiles has a zero gradient"
+            errs.append(check_rel(dwk, want_dw, rel, f"dW edge {what}"))
+        for hd in (32, 40, 96, 128, 192):  # kernel widths and a zero-padded one (40)
+            q = torch.randn((2, 6, 77, hd), generator=g, device=dev).to(dt)
+            k = torch.randn((2, 2, 77, hd), generator=g, device=dev).to(dt)
+            v = torch.randn((2, 2, 77, hd), generator=g, device=dev).to(dt)
+            do = torch.randn((2, 6, 77, hd), generator=g, device=dev).to(dt)
+            for kw in (dict(causal=True, window=33, softcap=30.0), dict(causal=False)):
+                out, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+                got = kfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+                want = _grads(torch, lambda a, b, c: ref.flash_attention(a, b, c, **kw), [q, k, v],
+                              do)
+                rel = BF16_GRAD_REL if dt == torch.bfloat16 else 1e-4
+                errs += [check_rel(a, b, rel, f"flash bwd edge {dt} D={hd} {kw}")
+                         for a, b in zip(got, want)]
     torch.cuda.synchronize()
     print(f"train kernels edge cases: {len(errs)} comparisons within tolerance, "
           f"max_abs_err={max(errs):.3e}", flush=True)
@@ -776,8 +848,9 @@ def capacity_config(cfg):
 
 def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     """Kernel 6 (the capacity-layout grouped GEMM) and its dX and dW at the
-    capacity step's w_in shapes, and its forward and dX at the w_out shapes
-    (rows ``grouped_matmul_wout``, ``grouped_matmul_dx_wout``): T = batch x
+    capacity step's w_in shapes, and at the w_out shapes (rows
+    ``grouped_matmul_wout``, ``grouped_matmul_dx_wout``,
+    ``grouped_matmul_dw_wout``): T = batch x
     seq tokens routed top-k, stage 1
     packs them into capacity(T, k, 1, cf) send rows (at P = 1 the rows past
     T * k stay empty), stage 2 into E buffers of C = capacity(rows, 1, E, cf)
@@ -876,6 +949,20 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
         (e * c * f + e * f * d + e * c * d) * 2, gemm, "bfloat16",
         f"h [{e}, {c}, {f}] bf16 @ w_out [{e}, {f}, {d}], {empty} empty slots",
     )
+    want = ref.grouped_matmul_dw(h, dy_out)
+    ht = h.transpose(1, 2)
+    rows["grouped_matmul_dw_wout"] = kernel_row(
+        torch, "grouped_matmul_dw_wout",
+        check_rel(kgm.grouped_matmul_dw_cuda(h, dy_out), want, BF16_GEMM_REL,
+                  "grouped_matmul dW w_out"),
+        time_ms(torch, lambda: kgm.grouped_matmul_dw_cuda(h, dy_out), 20),
+        time_ms(torch, lambda: ref.grouped_matmul_dw(h, dy_out), 5),
+        library_time(torch, lambda: torch.bmm(ht, dy_out), want, BF16_GEMM_REL, 20,
+                     "grouped_matmul_dw_wout (torch.bmm)"),
+        (e * c * f + e * c * d + e * f * d) * 2, gemm, "bfloat16",
+        f"h [{e}, {c}, {f}], dy [{e}, {c}, {d}] bf16 -> dW [{e}, {f}, {d}]",
+    )
+    del ht
     wt = w_out.transpose(1, 2)
     want = ref.grouped_matmul(dy_out, wt)
     rows["grouped_matmul_dx_wout"] = kernel_row(
@@ -895,9 +982,9 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
 
 
 def capacity_edge_cases(torch, g):
-    """C in {4, 12, 20, 200, 260, 300}, E = 1, an expert whose rows are all
-    zero, f32 and bf16, K and N multiples of 8 that are not multiples of
-    the tiles."""
+    """C in {4, 12, 20, 200, 257, 260, 300, 520}, E = 1, an expert whose
+    rows are all zero, f32 and bf16, K and N multiples of 8 that are not
+    multiples of the tiles."""
     from repro_torch.kernels import grouped_matmul as kgm
     from repro_torch.kernels import ref
 
@@ -906,7 +993,8 @@ def capacity_edge_cases(torch, g):
     for dt in (torch.float32, torch.bfloat16):
         rel = BF16_GEMM_REL if dt == torch.bfloat16 else 1e-5
         for e, c, kd, nd in ((3, 4, 64, 192), (3, 12, 72, 136), (1, 20, 40, 200),
-                             (3, 200, 136, 72), (2, 260, 4096, 200), (2, 300, 136, 200)):
+                             (3, 200, 136, 72), (2, 260, 4096, 200), (2, 300, 136, 200),
+                             (2, 257, 72, 136), (2, 520, 8, 40)):
             x = torch.randn((e, c, kd), generator=g, device=dev)
             x[:, c - c // 4:] = 0  # unfilled slots
             if e > 1:
@@ -1173,7 +1261,15 @@ TRAIN_KERNELS = (
 )
 CAPACITY_KERNELS = TRAIN_KERNELS[:7] + ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
 # Kernel rows at a second shape of the path -> the kernel they time.
-SHAPE_ROWS = {"grouped_matmul_wout": "grouped_matmul", "grouped_matmul_dx_wout": "grouped_matmul_dx"}
+SHAPE_ROWS = {
+    "grouped_matmul_wout": "grouped_matmul", "grouped_matmul_dx_wout": "grouped_matmul_dx",
+    "grouped_matmul_dw_wout": "grouped_matmul_dw",
+    "grouped_matmul_blocks_wout": "grouped_matmul_blocks",
+    "grouped_matmul_blocks_dx_wout": "grouped_matmul_blocks_dx",
+    "grouped_matmul_blocks_dw_wout": "grouped_matmul_blocks_dw",
+    "grouped_matmul_blocks_skew": "grouped_matmul_blocks",
+    "grouped_matmul_blocks_dw_skew": "grouped_matmul_blocks_dw",
+}
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
 FORWARD_KERNELS = ("topk_gating", "flash_attention", "grouped_matmul_blocks")
@@ -1442,6 +1538,12 @@ def profile_train(torch, tr, data, tokens: int):
           flush=True)
     for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"profile train class {cls}: {ms:.2f} ms ({100 * ms / busy:.1f}% of device time)")
+    # The grouped GEMMs (kernel 7 or 6, forward and dX; the dW kernels).
+    gmm = [(ms, name.lower()) for ms, _, name in kernels if "gmm_" in name.lower()]
+    dw = sum(ms for ms, name in gmm if "dw_" in name)
+    fwd = sum(ms for ms, _ in gmm) - dw
+    print(f"profile train grouped GEMMs: forward and dX {fwd:.3f} ms ({100 * fwd / busy:.1f}%), "
+          f"dW {dw:.3f} ms ({100 * dw / busy:.1f}% of device time)", flush=True)
     # The 16 largest, then every ported kernel below them.
     top = sorted(kernels, reverse=True)
     for ms, n, name in top[:16] + [k for k in top[16:] if any(w in k[2].lower() for w in ours)]:
@@ -1589,7 +1691,7 @@ def ssm_edge_cases(torch, g):
         assert torch.isfinite(y).all() and torch.isfinite(st).all(), f"{what}: not finite"
         errs += [check_rel(y, wy, SSD_REL, what), check_rel(st, wst, SSD_REL, what)]
     for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for t, dd in ((1, 48), (257, 48), (257, 4096), (1, 2048)):
+        for t, dd in ((1, 48), (257, 48), (257, 4096), (1, 2048), (3, 12288), (2, 16384)):
             x = (torch.randn((t, dd), generator=g, device=dev) * 3).to(dt)
             w = (torch.randn((dd,), generator=g, device=dev) * 0.1).to(dt)
             errs.append(check(torch, rmsnorm_cuda(x, w), ref.rmsnorm(x, w), tol,
@@ -2016,7 +2118,7 @@ def main(argv=None) -> int:
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == 18, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 24, [r["name"] for r in line]
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -386,18 +386,14 @@ int launch_bwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBwd>
-int dispatch_d(int D, const Args& a) {
-  switch (D) {
-    case 64:
-      return kBwd ? launch_bwd<T, 64>(a) : launch_fwd<T, 64>(a);
-    case 128:
-      return kBwd ? launch_bwd<T, 128>(a) : launch_fwd<T, 128>(a);
-    case 256:
-      return kBwd ? launch_bwd<T, 256>(a) : launch_fwd<T, 256>(a);
-    default:
-      return -1;
-  }
+// Built at every multiple of 32 up to 256 (the wrapper zero-pads any other
+// multiple of 8 to the next one); the largest, D = 256, takes 144 KB of
+// shared memory in the forward.
+template <typename T, bool kBwd, int D = 32>
+int dispatch_d(int d, const Args& a) {
+  if (d == D) return kBwd ? launch_bwd<T, D>(a) : launch_fwd<T, D>(a);
+  if constexpr (D < 256) return dispatch_d<T, kBwd, D + 32>(d, a);
+  return -1;
 }
 
 template <bool kBwd>

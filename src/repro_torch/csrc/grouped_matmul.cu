@@ -17,68 +17,82 @@
 // C a multiple of 4, empty slots zero rows.  dX reads w[e] transposed in
 // place as above; dW[e] = x[e]^T dY[e] sums expert e's C rows in order.
 //
-// What bounds them on an H100: the weight stream.  At Mixtral's training
-// step (T = 512 tokens -> 1024 choices -> 135 tiles of B = 8 rows) one
-// w_in call reads 8 experts x 4096 x 14336 bf16 = 0.94 GB of weights and
-// does 2 x 1080 x 4096 x 14336 = 127 GFLOP: 0.28 ms at 3.35 TB/s against
-// 0.13 ms at 989 TFLOP/s (capacity layout, C = 200: 188 GFLOP, 0.19 ms).
-// The Pallas grid walked (tile, F block, D block) and re-read an expert's
-// weights for every 8-row tile; a CUDA block per 8-row tile would do the
-// same, about 135 x 0.94 GB per call.
+// What bounds them on an H100: bytes.  At Mixtral's training step (T = 512
+// tokens -> 1024 choices -> 135 tiles of B = 8 rows, or C = 200 capacity
+// slots) a w_in forward or dX call reads 8 experts x 4096 x 14336 bf16 =
+// 0.94 GB of weights and does 2 x 1080 x 4096 x 14336 = 127 GFLOP: 0.28 ms
+// at 3.35 TB/s against 0.13 ms at 989 TFLOP/s; a dW call writes those 0.94
+// GB.  The Pallas grid walked (tile, F block, D block) and re-read an
+// expert's weights for every 8-row tile.
 //
-// Design, dropless: be is non-decreasing (the dropless plan sorts choices
-// by expert, and its trailing padding tiles are clipped to the last
-// expert), so an expert owns one contiguous range of tiles.  A forward / dX
-// block takes a RUN of up to 8 consecutive tiles (64 rows) of one expert,
-// counted from the expert's first tile, and one 128-column output tile:
-// each weight tile is read once per run, and the runs of one expert for the
-// same columns are adjacent in launch order, so they meet in L2.  Every
-// block finds its run on the device from be alone (lower bounds per expert
-// and a warp prefix sum over experts' run counts): no host sync.  A dW
-// block owns one expert and one 64 x 128 tile of dW[e]; it finds the
-// expert's tile range with two lower bounds and sums its rows in order, 32
-// rows at a time from the expert's first row.
+// bf16 (the training path) runs on Hopper's tensor cores with the pieces of
+// hopper.cuh: TMA tensor maps (128-byte swizzle, zeros past every edge on
+// load, clipped on store), a ring of stages guarded by "full" / "empty"
+// mbarriers, one producer warpgroup (one thread issues every TMA load) and
+// two consumer warpgroups running wgmma m64n128k16 with f32 accumulators in
+// registers (setmaxnreg moves registers from the producer to them), and
+// 2-CTA clusters that TMA-multicast the operand both CTAs share.  Every
+// wgmma is issued unconditionally, with waits and predicates inside PTX: a
+// branch around them makes ptxas serialise the wgmma pipeline (C7520).
 //
-// Design, capacity: one expert's C rows share its weights, so a forward /
-// dX block owns up to 256 rows (all C rows when C <= 256, as at the main
-// path's C = 200) of ONE expert: each weight element is read from HBM once
-// per call (ceil(C / 256) times for a larger C, whose row chunks are
-// adjacent in launch order and meet in L2).  bf16 (the training path) is
-// built for Hopper: a 384-thread block of one producer warpgroup and two
-// consumer warpgroups over a 128-column output tile.  The producer's one
-// thread streams (x, w) tiles 64 deep with TMA (3-D tensor maps over
-// [E, C, K] and the weights, 128-byte swizzle, zeros past C, K and N) into
-// a 4-stage ring of 48 KB stages guarded by "full" / "empty" mbarriers,
-// 4 x 16 KB of weights in flight per SM; each consumer runs wgmma m64n128k16
-// on its 128 rows with f32 accumulators in registers (setmaxnreg moves
-// registers from the producer to them).  The forward's w[e] [K, N] is the
-// MN-major B operand (wgmma's transpose bit); dX reads w[e] [N_out, K_red]
-// as the K-major B operand: neither copies.  The x tile is re-read for every
-// 128 columns, from L2; two blocks of adjacent column tiles form a cluster
-// and each loads half of it into both (TMA multicast), halving that L2
-// traffic.  The epilogue stages bf16 in swizzled shared memory and TMA
-// stores it, clipped at C and N.  f32 runs the CUDA-core kernel: 256-row x
-// 64-column blocks, one shared-memory stage.
-// dW is the dropless dW tile over the expert's rows [e * C, (e + 1) * C).
+// Forward and dX, both layouts (gmm_wgmma_kernel): a block owns up to 256
+// rows of ONE expert and a 128-column output tile, and streams (x, w)
+// 64-deep through a 4-stage ring of 48 KB stages; each weight element is
+// read from HBM once per 256 rows of its expert, and the row chunks of one
+// (expert, column tile) are adjacent in launch order, so they meet in L2.
+// The forward's w[e] [K, N] is wgmma's MN-major B (transpose bit); dX reads
+// w[e] [N_out, K_red] as the K-major B: neither copies.  The x tile is
+// re-read for every 128 columns, from L2; a cluster of two adjacent column
+// tiles loads half of it into both CTAs.  The epilogue stages bf16 in
+// swizzled shared memory and TMA-stores it.
+//   capacity: blockIdx = (256-row chunk of C, column tile, expert); maps
+//   over [E, C, .], rows past C load as zeros and are not stored.
+//   dropless: blockIdx.x is a RUN slot: up to 32 consecutive tiles (256
+//   rows) of one expert counted from its first tile, found on the device
+//   from be alone (one pass over be into a shared-memory table of the
+//   experts' first tiles, then a warp prefix sum over the experts' run
+//   counts): no host sync.  be is non-decreasing (the dropless
+//   plan sorts choices by expert and clips its trailing padding tiles to the
+//   last expert), so an expert owns one contiguous range of tiles.  x and
+//   out are [1, n * 8, .] maps: the 128-row x boxes of a short run read the
+//   next expert's rows, which are multiplied and never stored (another
+//   block owns them): the epilogue stores only the run's whole tiles, each
+//   an 8-row x 128-byte box, one 1024-byte swizzle atom of the staging
+//   buffer.  The grid is a host-side bound on the runs, ceil(n / 32) +
+//   min(E, n) slots; a block past the last run leaves at once (both CTAs
+//   of a cluster share its slot, so they decide alike).
 //
-// Both layouts: no atomics, no split of K.  Every output element sums its K
-// products in one order fixed by K alone, so two calls agree bit for bit
-// and an expert's results do not depend on the slot it occupies.  dW's sum
-// order depends only on the expert's own rows (zero padding rows add exact
-// zeros).  Kernel 7 and both dW kernels run bf16 on the tensor cores
-// through WMMA (16 x 16 x 16, f32 accumulators) with tiles staged through
-// shared memory by 16-byte loads, one stage; f32 on the CUDA cores.
-#include <mma.h>
+// dW, both layouts (gmm_dw_wgmma_kernel): dW[e] = x_e^T dY_e, a short
+// reduction (the expert's rows: C = 200, ~135 dropless) into a wide output
+// ([K, N] per expert).  Persistent 2-CTA clusters walk (expert, 256-row K
+// tile, pair of 128-column N tiles) in that order.  A = x_e^T is wgmma's
+// MN-major A (transpose bit): 64-row x 64-column boxes of x put d_model
+// contiguous; the cluster's two CTAs (adjacent N tiles) each load half of
+// it into both.  B = dY_e is the MN-major B, as the forward's w tile.  The
+// ring has 3 stages of 64 rows; a 64 KB staging buffer apart from it lets a
+// tile's TMA store and the producer's loads of the next tile run while the
+// consumers convert.  Capacity maps are [E, C, .] (rows past C load as
+// zeros).  Dropless boxes start at the expert's first row (the experts'
+// first rows come from one pass over be into shared memory); the rows past
+// its last row belong to the next expert and are zeroed in shared memory,
+// in both operands, after the stage's "full" wait (proxy fence, named
+// barrier).  An expert without rows stores exact zeros.
+//
+// f32 runs the CUDA-core kernels with one shared-memory stage: dropless
+// forward / dX blocks of 64 rows (a run of 8 tiles) x 128 columns,
+// capacity 256 rows x 64 columns, dW 64 x 128 tiles of dW[e].
+//
+// Both layouts: no atomics, no split of a reduction.  Every output element
+// sums its products in one order fixed by the reduction index alone (dW: by
+// the expert's own rows, from its first row, k16 steps in order; zero rows
+// add exact zeros), so two calls agree bit for bit and an expert's results
+// do not depend on the slot it occupies.
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kThreads = 256;
 constexpr int BM = 64;     // output rows per block
@@ -94,10 +108,7 @@ struct Layout {
   static constexpr int PAD = VEC;             // keeps 16-byte rows and spreads banks
   static constexpr int A_LD = BK + PAD;       // As [BM][A_LD]
   static constexpr int B_LD = BN + PAD;       // Bs [BK][B_LD]
-  static constexpr int C_LD = BN + 4;         // Cs [BM][C_LD] f32 (bf16 epilogue)
-  static constexpr size_t AB_BYTES = (BM * A_LD + BK * B_LD) * sizeof(T);
-  static constexpr size_t C_BYTES = std::is_same<T, float>::value ? 0 : BM * C_LD * sizeof(float);
-  static constexpr size_t SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
+  static constexpr size_t SMEM = (BM * A_LD + BK * B_LD) * sizeof(T);
 };
 
 // dst[r][c] (row stride dst_ld) <- tile of a global matrix, zero outside
@@ -153,63 +164,6 @@ __device__ __forceinline__ void load_tile(T* dst, int dst_ld, const T* __restric
 
 template <typename T>
 struct TileMath;
-
-// bf16: 8 warps as 2 x 4, each a 32 x 32 sub-tile of 2 x 2 WMMA fragments.
-template <>
-struct TileMath<__nv_bfloat16> {
-  using L = Layout<__nv_bfloat16>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ void step(const __nv_bfloat16* As, const __nv_bfloat16* Bs) {
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 2;
-    const int wn = warp & 3;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * L::A_LD + kk, L::A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * L::B_LD + wn * 32 + j * 16, L::B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-
-  // Caller has synchronised: smem (As/Bs) is free to hold the f32 tile.
-  __device__ void store(__nv_bfloat16* out, size_t ld, int row_lim, int col_lim,
-                        unsigned char* smem) {
-    float* Cs = reinterpret_cast<float*>(smem);
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 2;
-    const int wn = warp & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * L::C_LD + wn * 32 + j * 16, acc[i][j],
-                                L::C_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
-      const int m = idx / BN;
-      const int n = idx % BN;
-      if (m < row_lim && n < col_lim)
-        out[static_cast<size_t>(m) * ld + n] = __float2bfloat16_rn(Cs[m * L::C_LD + n]);
-    }
-  }
-};
 
 // f32: thread (tr, tc) owns rows tr * 4 + i and columns tc + 16 * j.
 template <>
@@ -270,7 +224,63 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ be, int n, in
   return lo;
 }
 
-// out[rows of run] = x[rows] @ W[e] (kBTrans: x[rows] @ W[e]^T, W[e] stored [N, K]).
+// Experts at most this many (+ 1) keep their first tiles in a shared-memory
+// table (expert_starts); beyond it each block finds them by binary search.
+constexpr int kTableMax = 4096;
+
+// table[v] = first tile of expert v for v in [0, E], table[E] = n_tiles: the
+// tile i with be[i - 1] < v <= be[i].  One pass over be by the block's
+// `threads` threads (one load latency, where a binary search per expert
+// waits for ~2 log2(n) dependent loads); the caller synchronises.
+__device__ __forceinline__ void expert_starts(const int* __restrict__ be, int n_tiles, int E,
+                                              int* table, int threads) {
+  for (int i = threadIdx.x; i <= n_tiles; i += threads) {
+    const int prev = i > 0 ? min(max(be[i - 1], 0), E) : -1;
+    const int cur = i < n_tiles ? min(max(be[i], 0), E) : E;
+    for (int v = prev + 1; v <= cur; ++v) table[v] = i;
+  }
+}
+
+// Run slot r of the dropless plan -> out = {expert, first tile, tile count},
+// expert -1 past the last run: experts in order, each contributing
+// ceil(tiles / kRun) runs of up to kRun tiles from its first tile.  The
+// experts' first tiles come from `table` (expert_starts) or, when it is
+// null, by binary search.  Called by one whole warp; the caller
+// synchronises before reading `out`.
+template <int kRun>
+__device__ __forceinline__ void find_run(const int* __restrict__ be, int n_tiles, int E, int r,
+                                         int* out, const int* table) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) out[0] = -1;
+  __syncwarp();
+  int base = 0;  // runs of the experts before e0 (warp-uniform)
+  for (int e0 = 0; e0 < E && base <= r; e0 += 32) {
+    const int e = e0 + lane;
+    int lo = 0, cnt = 0, runs = 0;
+    if (e < E) {
+      lo = table ? table[e] : lower_bound(be, n_tiles, e);
+      cnt = (table ? table[e + 1] : lower_bound(be, n_tiles, e + 1)) - lo;
+      runs = (cnt + kRun - 1) / kRun;
+    }
+    int incl = runs;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(repro::kFullMask, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const int excl = base + incl - runs;
+    if (e < E && r >= excl && r < excl + runs) {
+      const int k = r - excl;
+      out[0] = e;
+      out[1] = lo + k * kRun;
+      out[2] = min(kRun, cnt - k * kRun);
+    }
+    base += __shfl_sync(repro::kFullMask, incl, 31);
+  }
+}
+
+// f32: out[rows of run] = x[rows] @ W[e] (kBTrans: x[rows] @ W[e]^T, W[e]
+// stored [N, K]); a run is up to 8 tiles (64 rows).
 template <typename T, bool kBTrans>
 __global__ void __launch_bounds__(kThreads)
     gmm_rows_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ be,
@@ -280,39 +290,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int s_run[3];  // expert, first tile, tile count
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = As + BM * L::A_LD;
-
-  // Warp 0 maps blockIdx.x to (expert, first tile, count): experts in
-  // order, each contributing ceil(tiles / 8) runs.
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int r = blockIdx.x;
-    if (lane == 0) s_run[0] = -1;
-    __syncwarp();
-    int base = 0;
-    for (int e0 = 0; e0 < E; e0 += 32) {
-      const int e = e0 + lane;
-      int lo = 0, cnt = 0, runs = 0;
-      if (e < E) {
-        lo = lower_bound(be, n_tiles, e);
-        cnt = lower_bound(be, n_tiles, e + 1) - lo;
-        runs = (cnt + kRunTiles - 1) / kRunTiles;
-      }
-      int incl = runs;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(repro::kFullMask, incl, off);
-        if (lane >= off) incl += v;
-      }
-      const int excl = base + incl - runs;
-      if (e < E && r >= excl && r < excl + runs) {
-        const int k = r - excl;
-        s_run[0] = e;
-        s_run[1] = lo + k * kRunTiles;
-        s_run[2] = min(kRunTiles, cnt - k * kRunTiles);
-      }
-      base += __shfl_sync(repro::kFullMask, incl, 31);
-    }
-  }
+  if (threadIdx.x < 32) find_run<kRunTiles>(be, n_tiles, E, blockIdx.x, s_run, nullptr);
   __syncthreads();
   const int e = s_run[0];
   if (e < 0) return;
@@ -337,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
   tm.store(out + static_cast<size_t>(row0) * N + n0, N, rows, N - n0, smem);
 }
 
-// dw[e][k0:k0+64, n0:n0+128] = sum over rows r in [r_begin, r_end) of
+// f32: dw[e][k0:k0+64, n0:n0+128] = sum over rows r in [r_begin, r_end) of
 // x[r, k]^T dy[r, n], in row order; blockIdx = (n tile, k tile, e).
 template <typename T>
 __device__ __forceinline__ void dw_tile(const T* __restrict__ x, const T* __restrict__ dy,
@@ -500,10 +478,10 @@ int launch_cap_f32(const void* x, const void* w, void* out, int E, int C, int K,
 }
 
 // ---------------------------------------------------------------------------
-// capacity layout, bf16 forward and dX: TMA ring, warp-specialised wgmma
+// bf16 forward and dX, both layouts: TMA ring, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-struct Cap90 {
+struct Gmm90 {
   static constexpr int BM = 256;  // rows of one expert per block: 2 consumers x 2 x m64
   static constexpr int BN = 128;  // output columns per block: one m64n128 per m64 tile
   static constexpr int BK = 64;   // reduction depth per stage: one 128-byte swizzled row
@@ -511,6 +489,7 @@ struct Cap90 {
   static constexpr int kCluster = 2;        // CTAs along N sharing each x tile
   static constexpr int kThreads = 384;      // warpgroup 0 produces, 1 and 2 consume
   static constexpr int kConsumerWarps = 8;  // each arrives on a stage's "empty" in every CTA
+  static constexpr int kRunTiles = BM / kTileRows;  // dispatch tiles of a dropless run
   static constexpr int A_BYTES = BM * BK * 2;     // x tile [256 rows][64 k]
   static constexpr int A_SLICE_ROWS = BM / kCluster;  // rows of it each CTA loads
   static constexpr int B_BYTES = BK * BN * 2;     // w tile, 2 x [64 k][64 n] or [128 n][64 k]
@@ -525,7 +504,7 @@ struct Cap90 {
 // 128-byte-swizzled staging buffer of two [128 rows][64 columns] halves
 // that the output map's boxes read.
 __device__ __forceinline__ void stage_m64(const float (&acc)[64], uint32_t stage, int row0) {
-  using L = Cap90;
+  using L = Gmm90;
   const int t = threadIdx.x & 127;
   const int lane = t & 31;
 #pragma unroll
@@ -543,31 +522,54 @@ __device__ __forceinline__ void stage_m64(const float (&acc)[64], uint32_t stage
   }
 }
 
-// out[e, r0:r0+256, n0:n0+128] = x[e, rows] @ W[e]; kBTrans: W[e] stored
-// [N, K] (dX).  blockIdx = (row chunk, n tile, e): the row chunks of one
-// (expert, n tile) are adjacent in launch order, so for C > 256 they meet
-// in L2; a cluster is kCluster adjacent n tiles of one (row chunk, expert).
-// Maps: x [E, C, K] boxes {64, 256 / kCluster, 1}; w [E, K, N] boxes
-// {64, 64, 1} (kBTrans: [E, N, K], {64, 128, 1}); out [E, C, N] boxes
-// {64, 64, 1}; all 128-byte swizzled, zeros past every edge on load,
+// out[rows] = x[rows] @ W[e] for up to 256 rows of one expert and 128
+// columns; kBTrans: W[e] stored [N, K] (dX).  Capacity (kDropless false):
+// blockIdx = (256-row chunk of C, n tile, e), maps x [E, C, K] (boxes {64,
+// 128, 1}) and out [E, C, N] ({64, 64, 1}).  Dropless: blockIdx = (run
+// slot, n tile), maps x [1, n_tiles * 8, K] and out [1, n_tiles * 8, N]
+// ({64, 8, 1}: one dispatch tile).  w [E, K, N] boxes {64, 64, 1} (kBTrans:
+// [E, N, K], {64, 128, 1}).  A cluster is kCluster adjacent n tiles of one
+// row chunk.  All boxes 128-byte swizzled, zeros past every edge on load,
 // clipped on store.
-template <bool kBTrans>
-__global__ void __cluster_dims__(1, Cap90::kCluster, 1) __launch_bounds__(Cap90::kThreads, 1)
-    gmm_cap_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
-                         const __grid_constant__ CUtensorMap map_w,
-                         const __grid_constant__ CUtensorMap map_out, int C, int K, int N) {
+template <bool kBTrans, bool kDropless>
+__global__ void __cluster_dims__(1, Gmm90::kCluster, 1) __launch_bounds__(Gmm90::kThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_out, const int* __restrict__ be,
+                     int n_tiles, int E, int C, int K, int N) {
   using namespace repro::hopper;
-  using L = Cap90;
+  using L = Gmm90;
   extern __shared__ unsigned char smem_raw[];
+  __shared__ int s_run[3];  // dropless: expert, first tile, tile count
+  int e, r0, rows, z;       // expert, first row, rows to store, the maps' outer coordinate
+  if constexpr (kDropless) {
+    // The experts' first tiles (after the ring and its barriers), then warp
+    // 0 maps the run slot to its run.
+    int* table = reinterpret_cast<int*>(smem_raw + L::SMEM);
+    const bool starts_in_smem = E + 1 <= kTableMax;
+    if (starts_in_smem) expert_starts(be, n_tiles, E, table, L::kThreads);
+    __syncthreads();
+    if (threadIdx.x < 32)
+      find_run<L::kRunTiles>(be, n_tiles, E, blockIdx.x, s_run, starts_in_smem ? table : nullptr);
+    __syncthreads();
+    e = s_run[0];
+    if (e < 0) return;  // past the last run: the cluster's other CTA has the same slot
+    r0 = s_run[1] * kTileRows;
+    rows = s_run[2] * kTileRows;
+    z = 0;
+  } else {
+    e = blockIdx.z;
+    r0 = blockIdx.x * L::BM;
+    rows = min(L::BM, C - r0);
+    z = e;
+  }
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sa = base;
   const uint32_t sb = base + L::kStages * L::A_BYTES;
   const uint32_t bars = base + L::kStages * L::STAGE_BYTES;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (L::kStages + s); };
-  const int r0 = blockIdx.x * L::BM;
   const int n0 = blockIdx.y * L::BN;
-  const int e = blockIdx.z;
   const int nk = (K + L::BK - 1) / L::BK;
 
   if (threadIdx.x == 0) {
@@ -595,7 +597,7 @@ __global__ void __cluster_dims__(1, Cap90::kCluster, 1) __launch_bounds__(Cap90:
         mbar_arrive_expect_tx(full(s), L::STAGE_BYTES);
         const int k0 = it * L::BK;
         tma_load_3d_multicast(sa + s * L::A_BYTES + rank * L::A_SLICE_ROWS * 128, &map_x, full(s),
-                              all, k0, r0 + rank * L::A_SLICE_ROWS, e);
+                              all, k0, r0 + rank * L::A_SLICE_ROWS, z);
         if constexpr (kBTrans) {
           tma_load_3d(sb + s * L::B_BYTES, &map_w, full(s), k0, n0, e);
         } else {
@@ -606,13 +608,11 @@ __global__ void __cluster_dims__(1, Cap90::kCluster, 1) __launch_bounds__(Cap90:
     }
   } else {
     // Consumers: warpgroup c owns rows [128 c, 128 c + 128) of the block as
-    // two m64 tiles.  Every wgmma is issued unconditionally (a tile past C
-    // multiplies zeros): a branch around them serialises the wgmma pipeline.
+    // two m64 tiles.  Every wgmma is issued unconditionally (a tile past the
+    // rows multiplies zeros or rows another block stores).
     reg_alloc<232>();
     const int c = wg - 1;
     const int t = threadIdx.x & 127;
-    const int rows = min(L::BM, C - r0) - 128 * c;
-    const int mt = rows <= 0 ? 0 : rows <= 64 ? 1 : 2;  // m64 tiles to store
     float acc0[64], acc1[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
@@ -630,8 +630,8 @@ __global__ void __cluster_dims__(1, Cap90::kCluster, 1) __launch_bounds__(Cap90:
         // MN-major w tile steps 16 rows of 128 bytes.
         const uint64_t db = kBTrans ? desc_sw128(b + kk * 32, 16, 1024)
                                     : desc_sw128(b + kk * 2048, L::HALF_BYTES, 1024);
-        wgmma_m64n128k16_bf16<kBTrans ? 0 : 1>(acc0, desc_sw128(a + kk * 32, 16, 1024), db);
-        wgmma_m64n128k16_bf16<kBTrans ? 0 : 1>(
+        wgmma_m64n128k16_bf16<0, kBTrans ? 0 : 1>(acc0, desc_sw128(a + kk * 32, 16, 1024), db);
+        wgmma_m64n128k16_bf16<0, kBTrans ? 0 : 1>(
             acc1, desc_sw128(a + L::M64_BYTES + kk * 32, 16, 1024), db);
       }
       wgmma_commit();
@@ -648,20 +648,23 @@ __global__ void __cluster_dims__(1, Cap90::kCluster, 1) __launch_bounds__(Cap90:
 
     // Epilogue: both consumers are done with the ring, so consumer c stages
     // its bf16 tile in the ring's first 64 KB and one thread stores it with
-    // TMA (rows past C and columns past N are not written).
+    // TMA: capacity in 64-row boxes (rows past C and columns past N are not
+    // written), dropless in 8-row boxes, the run's own tiles only.
     named_bar_sync(1, 2 * 128);
-    if (mt > 0) {
+    const int valid = min(max(rows - 128 * c, 0), 128);  // this consumer's rows to store
+    if (valid > 0) {
       const uint32_t stage = base + c * L::A_BYTES;
       stage_m64(acc0, stage, 0);
-      if (mt == 2) stage_m64(acc1, stage, 64);
+      if (valid > 64) stage_m64(acc1, stage, 64);
       fence_proxy_async();
       named_bar_sync(2 + c, 128);
       if (t == 0) {
-        for (int jm = 0; jm < mt; ++jm)
+        constexpr int kBoxRows = kDropless ? kTileRows : 64;
+        for (int bx = 0; bx < (valid + kBoxRows - 1) / kBoxRows; ++bx)
           for (int half = 0; half < 2; ++half)
             if (n0 + 64 * half < N)
-              tma_store_3d(&map_out, stage + half * 2 * L::HALF_BYTES + jm * L::M64_BYTES,
-                           n0 + 64 * half, r0 + 128 * c + 64 * jm, e);
+              tma_store_3d(&map_out, stage + half * 2 * L::HALF_BYTES + bx * kBoxRows * 128,
+                           n0 + 64 * half, r0 + 128 * c + kBoxRows * bx, z);
         tma_store_commit();
         tma_store_wait_read();
       }
@@ -672,25 +675,304 @@ __global__ void __cluster_dims__(1, Cap90::kCluster, 1) __launch_bounds__(Cap90:
   }
 }
 
-int launch_cap_bf16(const void* x, const void* w, void* out, int E, int C, int K, int N, int trans,
-                    cudaStream_t st) {
+// Capacity: x [E, C, K] -> out [E, C, N].  Dropless: x [n_tiles * 8, K]
+// (E experts, be [n_tiles]) -> out [n_tiles * 8, N].  w [E, K, N] (trans:
+// [E, N, K]).
+int launch_wgmma(const void* x, const void* w, const void* be, void* out, bool dropless,
+                 int n_tiles, int E, int C, int K, int N, int trans, cudaStream_t st) {
   using namespace repro::hopper;
-  using L = Cap90;
+  using L = Gmm90;
+  const int rows = dropless ? n_tiles * kTileRows : C;
+  const int outer = dropless ? 1 : E;
   CUtensorMap mx, mw, mo;
-  int err = bf16_map_3d(&mx, x, K, C, E, 64, L::A_SLICE_ROWS);
+  int err = bf16_map_3d(&mx, x, K, rows, outer, 64, L::A_SLICE_ROWS);
   if (!err) err = trans ? bf16_map_3d(&mw, w, K, N, E, 64, L::BN)
                         : bf16_map_3d(&mw, w, N, K, E, 64, 64);
-  if (!err) err = bf16_map_3d(&mo, out, N, C, E, 64, 64);
+  if (!err) err = bf16_map_3d(&mo, out, N, rows, outer, 64, dropless ? kTileRows : 64);
   if (err) return err;
   // n tiles rounded up to whole clusters: a tile past N loads zeros and
   // stores nothing.
-  const int n_tiles = (N + L::BN - 1) / L::BN;
-  const dim3 grid((C + L::BM - 1) / L::BM, (n_tiles + L::kCluster - 1) / L::kCluster * L::kCluster,
-                  E);
-  const auto kernel = trans ? &gmm_cap_wgmma_kernel<true> : &gmm_cap_wgmma_kernel<false>;
-  const cudaError_t ae = repro::allow_smem(kernel, L::SMEM);
+  const int n_tiles_n = (N + L::BN - 1) / L::BN;
+  const int gy = (n_tiles_n + L::kCluster - 1) / L::kCluster * L::kCluster;
+  const dim3 grid = dropless ? dim3((n_tiles + L::kRunTiles - 1) / L::kRunTiles +
+                                        min(E, n_tiles), gy, 1)
+                             : dim3((C + L::BM - 1) / L::BM, gy, E);
+  const auto kernel = dropless ? (trans ? &gmm_wgmma_kernel<true, true>
+                                        : &gmm_wgmma_kernel<false, true>)
+                               : (trans ? &gmm_wgmma_kernel<true, false>
+                                        : &gmm_wgmma_kernel<false, false>);
+  const size_t smem = L::SMEM + (dropless && E + 1 <= kTableMax ? 4u * (E + 1) : 0u);
+  const cudaError_t ae = repro::allow_smem(kernel, smem);
   if (ae != cudaSuccess) return static_cast<int>(ae);
-  kernel<<<grid, L::kThreads, L::SMEM, st>>>(mx, mw, mo, C, K, N);
+  kernel<<<grid, L::kThreads, smem, st>>>(mx, mw, mo, static_cast<const int*>(be), n_tiles, E, C,
+                                          K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dW, both layouts: persistent clusters, TMA ring, wgmma with A = x^T
+// ---------------------------------------------------------------------------
+
+struct Dw90 {
+  static constexpr int BM = 256;  // dW rows (x columns) per tile: 2 consumers x 2 x m64
+  static constexpr int BN = 128;  // dW columns (dY columns) per tile
+  static constexpr int BR = 64;   // reduction rows per stage
+  static constexpr int kStages = 3;
+  static constexpr int kCluster = 2;        // CTAs along N sharing each x slice
+  static constexpr int kThreads = 384;      // warpgroup 0 produces, 1 and 2 consume
+  static constexpr int kConsumerWarps = 8;  // each arrives on a stage's "empty" in every CTA
+  static constexpr int BOX_BYTES = BR * 64 * 2;  // one [64 rows][64 columns] box
+  static constexpr int A_BOXES = BM / 64;        // x slice: 4 boxes along d_model
+  static constexpr int A_BYTES = A_BOXES * BOX_BYTES;
+  static constexpr int B_BYTES = 2 * BOX_BYTES;  // dY tile: 2 boxes along N
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int OUT_BYTES = BM * BN * 2;  // staged bf16 tile: 32 KB a consumer
+  // the ring, the staging buffer, 2 x kStages barriers, 1024 bytes to align
+  static constexpr int SMEM = kStages * STAGE_BYTES + OUT_BYTES + 2 * kStages * 8 + 1024;
+};
+
+// dW[e][k0:k0+256, n0:n0+128] = sum over expert e's rows r of x[r, k] dY[r, n],
+// 64 rows a stage from its first row.  Capacity: maps x [E, C, K] and dY
+// [E, C, N], rows [0, C).  Dropless: maps x [1, n_tiles * 8, K] and dY
+// [1, n_tiles * 8, N], the rows of e's tiles in be.  dW [E, K, N].  All
+// boxes {64, 64, 1}, 128-byte swizzled.  Cluster (rank 0, 1) = the two N
+// tiles of a pair; cluster i walks tiles i, i + clusters, ... of the
+// (expert, K tile, N pair) order.
+template <bool kDropless>
+__global__ void __cluster_dims__(Dw90::kCluster, 1, 1) __launch_bounds__(Dw90::kThreads, 1)
+    gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_dy,
+                        const __grid_constant__ CUtensorMap map_dw, const int* __restrict__ be,
+                        int n_tiles, int E, int C, int K, int N) {
+  using namespace repro::hopper;
+  using L = Dw90;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sa = base;
+  const uint32_t sb = base + L::kStages * L::A_BYTES;
+  const uint32_t so = base + L::kStages * L::STAGE_BYTES;  // staging, OUT_BYTES
+  const uint32_t bars = so + L::OUT_BYTES;
+  int* table = reinterpret_cast<int*>(smem_raw + (bars + 16u * L::kStages - raw));
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (L::kStages + s); };
+  const bool use_table = kDropless && E + 1 <= kTableMax;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), L::kConsumerWarps * L::kCluster);
+    }
+    fence_mbar_init();
+  }
+  if (use_table) expert_starts(be, n_tiles, E, table, L::kThreads);
+  cluster_sync();  // barriers and table visible; every CTA's barriers exist before any multicast
+
+  const int n_pairs = ((N + L::BN - 1) / L::BN + 1) / 2;
+  const int per_e = (K + L::BM - 1) / L::BM * n_pairs;
+  const int n_ctiles = E * per_e;
+  const int first = blockIdx.x / L::kCluster;
+  const int stride = gridDim.x / L::kCluster;
+  const int rank = static_cast<int>(cluster_rank());
+  // Expert e's rows [rb, re) in the maps' row coordinate.
+  auto rows_of = [&](int e, int& rb, int& re) {
+    if constexpr (kDropless) {
+      if (use_table) {
+        rb = table[e] * kTileRows;
+        re = table[e + 1] * kTileRows;
+      } else {
+        rb = lower_bound(be, n_tiles, e) * kTileRows;
+        re = lower_bound(be, n_tiles, e + 1) * kTileRows;
+      }
+    } else {
+      rb = 0;
+      re = C;
+    }
+  };
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // Producer: one thread streams every tile's stages through the ring; it
+    // runs ahead into the next tile while the consumers store this one.
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      const uint16_t all = (1u << L::kCluster) - 1;
+      int it = 0;
+      for (int tile = first; tile < n_ctiles; tile += stride) {
+        const int e = tile / per_e;
+        const int k0 = tile % per_e / n_pairs * L::BM;
+        const int n0 = (tile % n_pairs * L::kCluster + rank) * L::BN;
+        const int z = kDropless ? 0 : e;
+        int rb, re;
+        rows_of(e, rb, re);
+        for (int r = rb; r < re; r += L::BR, ++it) {
+          const int s = it % L::kStages;
+          mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(full(s), L::STAGE_BYTES);
+#pragma unroll
+          for (int j = 0; j < L::A_BOXES / L::kCluster; ++j) {
+            const int box = rank * (L::A_BOXES / L::kCluster) + j;
+            tma_load_3d_multicast(sa + s * L::A_BYTES + box * L::BOX_BYTES, &map_x, full(s), all,
+                                  k0 + 64 * box, r, z);
+          }
+          tma_load_3d(sb + s * L::B_BYTES, &map_dy, full(s), n0, r, z);
+          tma_load_3d(sb + s * L::B_BYTES + L::BOX_BYTES, &map_dy, full(s), n0 + 64, r, z);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns dW rows [k0 + 128 c, k0 + 128 c + 128) of
+    // the tile as two m64 tiles, A the x boxes 2c and 2c + 1 (MN-major,
+    // d_model contiguous), B the whole dY tile (MN-major).
+    reg_alloc<232>();
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127;
+    const uint32_t stage_out = so + c * (L::OUT_BYTES / 2);
+    float acc0[64], acc1[64];
+    int it = 0;
+    for (int tile = first; tile < n_ctiles; tile += stride) {
+      const int e = tile / per_e;
+      const int k0 = tile % per_e / n_pairs * L::BM;
+      const int n0 = (tile % n_pairs * L::kCluster + rank) * L::BN;
+      int rb, re;
+      rows_of(e, rb, re);
+      const int nst = (re - rb + L::BR - 1) / L::BR;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+      for (int j = 0; j < nst; ++j, ++it) {
+        const int s = it % L::kStages;
+        mbar_wait(full(s), (it / L::kStages) & 1);
+        const uint32_t a = sa + s * L::A_BYTES + 2 * c * L::BOX_BYTES;
+        const uint32_t b = sb + s * L::B_BYTES;
+        if constexpr (kDropless) {
+          // Rows past the expert's last row belong to the next expert: zero
+          // them in this consumer's two x boxes and its half of the dY tile
+          // (whole 128-byte rows; the swizzle stays inside a row), then make
+          // the zeros visible to wgmma in both consumers.
+          const int valid = re - rb - j * L::BR;
+#pragma unroll
+          for (int i = 0; i < 12; ++i) {
+            const int q = t + 128 * i;  // 16-byte chunk: box q / 512, row (q / 8) % 64
+            const int box = q >> 9;
+            const int row = (q >> 3) & 63;
+            const uint32_t at = box < 2 ? a + box * L::BOX_BYTES : b + c * L::BOX_BYTES;
+            st_shared_zero16_if(at + row * 128 + (q & 7) * 16, row >= valid);
+          }
+          fence_proxy_async();
+          named_bar_sync(1, 2 * 128);
+        }
+        fence_operands(acc0);
+        fence_operands(acc1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < L::BR / 16; ++kk) {
+          // MN-major operands step 16 rows of 128 bytes; the dY tile's two
+          // 64-column boxes are BOX_BYTES apart.
+          const uint64_t db = desc_sw128(b + kk * 2048, L::BOX_BYTES, 1024);
+          wgmma_m64n128k16_bf16<1, 1>(acc0, desc_sw128(a + kk * 2048, L::BOX_BYTES, 1024), db);
+          wgmma_m64n128k16_bf16<1, 1>(
+              acc1, desc_sw128(a + L::BOX_BYTES + kk * 2048, L::BOX_BYTES, 1024), db);
+        }
+        wgmma_commit();
+        fence_operands(acc0);
+        fence_operands(acc1);
+        wgmma_wait<1>();  // the previous stage of this tile is done: release it
+#pragma unroll
+        for (int r = 0; r < L::kCluster; ++r)
+          mbar_arrive_cluster(empty((it + L::kStages - 1) % L::kStages), r, j > 0 && (t & 31) == 0);
+      }
+      wgmma_wait<0>();
+      fence_operands(acc0);
+      fence_operands(acc1);
+#pragma unroll
+      for (int r = 0; r < L::kCluster; ++r)
+        mbar_arrive_cluster(empty((it + L::kStages - 1) % L::kStages), r, nst > 0 && (t & 31) == 0);
+
+      // Epilogue: once this consumer's previous store has left the staging
+      // buffer, stage the tile and let thread 0 store it with TMA (rows past
+      // K and columns past N are not written) without waiting for it: the
+      // producer is already filling the ring with the next tile.
+      tma_store_wait_read();
+      named_bar_sync(2 + c, 128);
+      stage_m64(acc0, stage_out, 0);
+      stage_m64(acc1, stage_out, 64);
+      fence_proxy_async();
+      named_bar_sync(2 + c, 128);
+#pragma unroll
+      for (int jm = 0; jm < 2; ++jm)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = k0 + 128 * c + 64 * jm;
+          const int col = n0 + 64 * half;
+          tma_store_3d_if(&map_dw, stage_out + half * 2 * Gmm90::HALF_BYTES + jm * 64 * 128, col,
+                          row, e, t == 0 && row < K && col < N);
+        }
+      tma_store_commit();
+    }
+    tma_store_wait_read();
+    // No CTA exits while another may still arrive on its barriers.
+    __syncwarp();
+    cluster_sync();
+  }
+}
+
+// Clusters of `kernel` that fit on the card at once (one CTA an SM).
+template <typename Kernel>
+int resident_clusters(Kernel kernel, size_t smem, int cluster, int threads) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster * 1024, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess || n <= 0) {
+    (void)cudaGetLastError();
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    n = sms / cluster;
+  }
+  return n > 0 ? n : 1;
+}
+
+// Capacity: x [E, C, K], dy [E, C, N].  Dropless: x [n_tiles * 8, K], dy
+// [n_tiles * 8, N], be [n_tiles].  -> dw [E, K, N].
+int launch_dw_wgmma(const void* x, const void* dy, const void* be, void* dw, bool dropless,
+                    int n_tiles, int E, int C, int K, int N, cudaStream_t st) {
+  using namespace repro::hopper;
+  using L = Dw90;
+  const int rows = dropless ? n_tiles * kTileRows : C;
+  if (rows == 0)  // no rows: every expert's gradient is exactly zero
+    return static_cast<int>(cudaMemsetAsync(
+        dw, 0, static_cast<size_t>(E) * K * N * sizeof(__nv_bfloat16), st));
+  const int outer = dropless ? 1 : E;
+  CUtensorMap mx, mdy, mdw;
+  int err = bf16_map_3d(&mx, x, K, rows, outer, 64, L::BR);
+  if (!err) err = bf16_map_3d(&mdy, dy, N, rows, outer, 64, L::BR);
+  if (!err) err = bf16_map_3d(&mdw, dw, N, K, E, 64, 64);
+  if (err) return err;
+  const size_t smem = L::SMEM + (dropless && E + 1 <= kTableMax ? 4u * (E + 1) : 0u);
+  const auto kernel = dropless ? &gmm_dw_wgmma_kernel<true> : &gmm_dw_wgmma_kernel<false>;
+  const cudaError_t ae = repro::allow_smem(kernel, smem);
+  if (ae != cudaSuccess) return static_cast<int>(ae);
+  const long long n_ctiles = static_cast<long long>(E) * ((K + L::BM - 1) / L::BM) *
+                             (((N + L::BN - 1) / L::BN + 1) / 2);
+  static int cached[2][2] = {{-1, 0}, {-1, 0}};  // per layout: smem, clusters
+  int* c = cached[dropless ? 1 : 0];
+  if (c[0] != static_cast<int>(smem)) {
+    c[1] = resident_clusters(kernel, smem, L::kCluster, L::kThreads);
+    c[0] = static_cast<int>(smem);
+  }
+  const int clusters = static_cast<int>(n_ctiles < c[1] ? n_ctiles : c[1]);
+  kernel<<<clusters * L::kCluster, L::kThreads, smem, st>>>(mx, mdy, mdw,
+                                                            static_cast<const int*>(be), n_tiles,
+                                                            E, C, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -740,8 +1022,7 @@ extern "C" int grouped_matmul_blocks(const void* x, const void* w, const void* b
   if (n_tiles <= 0 || N <= 0) return 0;
   if (E <= 0 || E > kMaxExperts || K <= 0) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16)
-    return launch_rows<__nv_bfloat16>(x, w, be, out, n_tiles, E, K, N, trans, st);
+  if (dtype == repro::kBF16) return launch_wgmma(x, w, be, out, true, n_tiles, E, 0, K, N, trans, st);
   if (dtype == repro::kF32) return launch_rows<float>(x, w, be, out, n_tiles, E, K, N, trans, st);
   return -2;
 }
@@ -753,8 +1034,7 @@ extern "C" int grouped_matmul_blocks_dw(const void* x, const void* dy, const voi
   if (E <= 0 || K <= 0 || N <= 0) return 0;
   if (E > kMaxExperts) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16)
-    return launch_dw<__nv_bfloat16>(x, dy, be, dw, n_tiles, E, K, N, st);
+  if (dtype == repro::kBF16) return launch_dw_wgmma(x, dy, be, dw, true, n_tiles, E, 0, K, N, st);
   if (dtype == repro::kF32) return launch_dw<float>(x, dy, be, dw, n_tiles, E, K, N, st);
   return -2;
 }
@@ -765,7 +1045,7 @@ extern "C" int grouped_matmul_capacity(const void* x, const void* w, void* out, 
   if (E <= 0 || C <= 0 || N <= 0) return 0;
   if (E > kMaxExperts || K <= 0) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16) return launch_cap_bf16(x, w, out, E, C, K, N, trans, st);
+  if (dtype == repro::kBF16) return launch_wgmma(x, w, nullptr, out, false, 0, E, C, K, N, trans, st);
   if (dtype == repro::kF32) return launch_cap_f32(x, w, out, E, C, K, N, trans, st);
   return -2;
 }
@@ -776,7 +1056,7 @@ extern "C" int grouped_matmul_capacity_dw(const void* x, const void* dy, void* d
   if (E <= 0 || K <= 0 || N <= 0) return 0;
   if (E > kMaxExperts || C < 0) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBF16) return launch_cap_dw<__nv_bfloat16>(x, dy, dw, E, C, K, N, st);
+  if (dtype == repro::kBF16) return launch_dw_wgmma(x, dy, nullptr, dw, false, 0, E, C, K, N, st);
   if (dtype == repro::kF32) return launch_cap_dw<float>(x, dy, dw, E, C, K, N, st);
   return -2;
 }

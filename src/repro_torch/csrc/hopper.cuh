@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels:
 // mbarriers (local and cluster-wide), TMA tensor-map loads (multicast too)
-// and stores, wgmma descriptors and the m64n128k16 bf16 instruction,
+// and stores, wgmma descriptors and the m64n128k16 bf16 instruction (either
+// operand K- or MN-major),
 // cluster and named barriers and register rebalancing, in
 // inline PTX; and, on the host, tensor-map encoding through the driver entry
 // point that the CUDA runtime hands out, so a library that includes this
@@ -132,6 +133,19 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
                : "memory");
 }
 
+// The same store if `pred`, predicated in PTX (no branch).
+__device__ __forceinline__ void tma_store_3d_if(const CUtensorMap* map, uint32_t src, int c0,
+                                                int c1, int c2, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      "}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(static_cast<uint32_t>(pred))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
@@ -144,6 +158,18 @@ __device__ __forceinline__ void tma_store_wait_read() {
 // Generic-proxy writes to shared memory become visible to TMA / wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// 16 zero bytes to smem `addr` if `pred`, predicated in PTX (no branch).
+__device__ __forceinline__ void st_shared_zero16_if(uint32_t addr, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "@p st.shared.v4.b32 [%0], {%2, %2, %2, %2};\n"
+      "}\n" ::"r"(addr),
+      "r"(static_cast<uint32_t>(pred)), "r"(0)
+      : "memory");
 }
 
 // --- warp specialisation --------------------------------------------------
@@ -199,23 +225,23 @@ __device__ __forceinline__ void fence_operands(float (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64] (f32, per thread of the warpgroup) += A (64 x 16, K-major) * B
-// (16 x 128; kTransB: MN-major).  Thread t of the warpgroup holds rows
-// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and columns
-// 8 (i / 4) + 2 (t % 4) + i % 2 of d[i].
-template <int kTransB>
+// d[64] (f32, per thread of the warpgroup) += A (64 x 16; K-major, or
+// kTransA: MN-major) * B (16 x 128; K-major, or kTransB: MN-major).  Thread t
+// of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2)
+// and columns 8 (i / 4) + 2 (t % 4) + i % 2 of d[i].
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a,
                                                       uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %67, 0;\n"
+      "setp.ne.b32 p, %68, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
       "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
       "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %66;\n"
+      "%64, %65, p, 1, 1, %66, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -228,7 +254,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "n"(kTransB), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "n"(kTransA), "n"(kTransB), "r"(1));
 }
 
 // --- host: tensor maps ----------------------------------------------------

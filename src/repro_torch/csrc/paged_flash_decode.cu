@@ -149,23 +149,19 @@ int launch(const void* q, const void* kp, const void* vp, const void* table, con
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* kp, const void* vp, const void* table,
+// Built at every multiple of 32 up to 256 (the wrapper zero-pads any other
+// multiple of 8 to the next one).
+template <typename T, int D = 32>
+int launch_d(int d, const void* q, const void* kp, const void* vp, const void* table,
              const void* lengths, void* out, int B, int C, int Hq, int Hkv, int page, int P,
              float scale, int window, float softcap, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, kp, vp, table, lengths, out, B, C, Hq, Hkv, page, P, scale, window,
-                           softcap, stream);
-    case 128:
-      return launch<T, 128>(q, kp, vp, table, lengths, out, B, C, Hq, Hkv, page, P, scale,
-                            window, softcap, stream);
-    case 256:
-      return launch<T, 256>(q, kp, vp, table, lengths, out, B, C, Hq, Hkv, page, P, scale,
-                            window, softcap, stream);
-    default:
-      return -1;
-  }
+  if (d == D)
+    return launch<T, D>(q, kp, vp, table, lengths, out, B, C, Hq, Hkv, page, P, scale, window,
+                        softcap, stream);
+  if constexpr (D < 256)
+    return launch_d<T, D + 32>(d, q, kp, vp, table, lengths, out, B, C, Hq, Hkv, page, P, scale,
+                               window, softcap, stream);
+  return -1;
 }
 
 }  // namespace

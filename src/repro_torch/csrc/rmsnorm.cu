@@ -11,15 +11,18 @@
 // 3.35 TB/s; at [4, 2048] the kernel is its launch.
 //
 // Design: one block of 256 threads per row; any T (the Pallas kernel needs
-// a tile that divides T).  Each thread loads up to 4 16-byte vectors of the
-// row (8 bf16 or 4 f32; D must be a multiple of that, and D <= 1024
-// vectors: 8192 bf16 or 4096 f32) into registers, all loads issued before
-// any is used, so a row costs one memory latency and not one per vector.
+// a tile that divides T); D any multiple of the 16-byte vector (8 bf16 or 4
+// f32).  Up to 1024 vectors a row (8192 bf16, 4096 f32) each thread loads
+// up to 4 of them into registers, all loads issued before any is used, so
+// a row costs one memory latency and not one per vector.  A wider row (a
+// d_model of 12288 or 16384) takes the two-pass kernel: the sum of squares
+// over the row, then a second read of the row (from L2: a block's row is at
+// most a few hundred KB and was read just before) that normalises it.
 // Squares are summed in f32, then across the warp by shuffles and across
-// the block through shared memory.  The output reuses the registers:
-// (x * r) * (1 + w) in f32 in the reference's order, rounded once.  The sum
-// runs in another order than the plain version's mean, so results agree to
-// f32 rounding before the final cast.
+// the block through shared memory.  The output is (x * r) * (1 + w) in f32
+// in the reference's order, rounded once.  The sum runs in another order
+// than the plain version's mean, so results agree to f32 rounding before
+// the final cast.
 #include "common.cuh"
 
 namespace {
@@ -71,15 +74,26 @@ __device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float* in) {
   return v;
 }
 
+// The block's sum of its threads' ss: across each warp by shuffles, then
+// across the warps through shared memory.
+__device__ __forceinline__ float block_sum(float ss) {
+  __shared__ float partial[kThreads / 32];
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(repro::kFullMask, ss, off);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int k = 0; k < kThreads / 32; ++k) total += partial[k];
+  return total;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int D,
                    float eps) {
   using V = typename Vec<T>::type;
   constexpr int kN = Vec<T>::n;
-  __shared__ float partial[kThreads / 32];
   const int row = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const V* xr = reinterpret_cast<const V*>(x + static_cast<size_t>(row) * D);
   const V* wv = reinterpret_cast<const V*>(w);
   V* yr = reinterpret_cast<V*>(y + static_cast<size_t>(row) * D);
@@ -100,13 +114,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < kN; ++k) ss = fmaf(v[k], v[k], ss);
   }
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(repro::kFullMask, ss, off);
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int k = 0; k < kThreads / 32; ++k) total += partial[k];
-  const float r = 1.0f / sqrtf(total / static_cast<float>(D) + eps);
+  const float r = 1.0f / sqrtf(block_sum(ss) / static_cast<float>(D) + eps);
 
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
@@ -121,19 +129,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Rows wider than the registers hold: two passes over the row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_wide_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+                        int D, float eps) {
+  using V = typename Vec<T>::type;
+  constexpr int kN = Vec<T>::n;
+  const V* xr = reinterpret_cast<const V*>(x + static_cast<size_t>(blockIdx.x) * D);
+  const V* wv = reinterpret_cast<const V*>(w);
+  V* yr = reinterpret_cast<V*>(y + static_cast<size_t>(blockIdx.x) * D);
+  const int nv = D / kN;
+
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < nv; i += kThreads) {
+    float v[kN];
+    unpack<T>(xr[i], v);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) ss = fmaf(v[k], v[k], ss);
+  }
+  const float r = 1.0f / sqrtf(block_sum(ss) / static_cast<float>(D) + eps);
+
+  for (int i = threadIdx.x; i < nv; i += kThreads) {
+    float v[kN], g[kN];
+    unpack<T>(xr[i], v);
+    unpack<T>(wv[i], g);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = (v[k] * r) * (1.0f + g[k]);
+    yr[i] = pack<T>(v);
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* w, void* y, int rows, int D, float eps, void* stream) {
-  if (D / Vec<T>::n > kThreads * kPer) return static_cast<int>(cudaErrorInvalidValue);
-  rmsnorm_kernel<T><<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), D, eps);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* yp = static_cast<T*>(y);
+  if (D / Vec<T>::n <= kThreads * kPer)
+    rmsnorm_kernel<T><<<rows, kThreads, 0, st>>>(xp, wp, yp, D, eps);
+  else
+    rmsnorm_wide_kernel<T><<<rows, kThreads, 0, st>>>(xp, wp, yp, D, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: repro::kF32 or repro::kBF16 (x, w and y share it).  D must be a
-// multiple of 16 bytes' worth of elements, at most 1024 such vectors, and
-// every pointer 16-byte aligned (the wrapper checks all three).
+// multiple of 16 bytes' worth of elements and every pointer 16-byte aligned
+// (the wrapper checks both).
 extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, int rows, int D, float eps,
                            int dtype, void* stream) {
   if (rows <= 0) return 0;

@@ -9,10 +9,17 @@ root, which git ignores.  The hash covers every ``csrc/*.cuh``, so an edit
 to a shared header rebuilds every library.  :func:`build_all` starts one
 ``nvcc`` per missing library, all at once.  A failed build raises with
 nvcc's stderr.
+
+    python -m repro_torch.kernels.build --ptxas [name ...]
+
+compiles the named sources (all by default) with ``-Xptxas -v`` into a
+scratch directory and prints ptxas's report: each kernel's registers,
+spills and shared memory, and any C7520 note (wgmma serialised by ptxas).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import os
@@ -102,3 +109,39 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
+
+
+def ptxas_report(names=SOURCES) -> str:
+    """nvcc's ``-Xptxas -v`` report for each source in ``names`` (compiled
+    into a temporary directory, one process each, all at once), with a count
+    of C7520 notes per source."""
+    compiler = nvcc()
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(name, subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-o",
+             str(Path(tmp) / f"lib{name}.so"), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )) for name in names]
+        for name, proc in procs:
+            text, _ = proc.communicate()
+            out.append(f"== {name}.cu: exit {proc.returncode}, "
+                       f"C7520 notes: {text.count('C7520')}\n{text}")
+    return "\n".join(out)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Build the port's CUDA kernels.")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print ptxas's register / spill / C7520 report instead of building")
+    ap.add_argument("names", nargs="*", default=list(SOURCES))
+    args = ap.parse_args(argv)
+    if args.ptxas:
+        print(ptxas_report(args.names))
+    else:
+        print("built:", build_all(args.names))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,6 +9,12 @@ attention (the JAX package differentiates its jnp reference) behind
 contiguity, allocate outputs with ``torch.empty`` and raise on anything the
 kernels do not take; they never fall back.  Paged decode has no backward:
 its wrapper raises when asked for a gradient.
+
+Head dims: the kernels are built at every multiple of 32 up to 256.  Any
+other multiple of 8 up to ``MAX_HEAD_DIM`` is zero-padded along D to the
+next of them inside the wrapper, with the softmax scale of the true D, and
+the results are sliced back: zero columns add exact zeros to every q.k and
+the padded v columns are dropped, so the padding changes no value.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention as flash_attention_plain
@@ -25,10 +32,10 @@ from repro_torch.kernels.ref import paged_flash_decode as paged_flash_decode_pla
 __all__ = [
     "flash_attention_cuda", "flash_attention_bwd_cuda", "FlashAttentionFn",
     "flash_attention_plain", "flash_attention_bwd_plain",
-    "paged_flash_decode_cuda", "paged_flash_decode_plain", "HEAD_DIMS",
+    "paged_flash_decode_cuda", "paged_flash_decode_plain", "MAX_HEAD_DIM",
 ]
 
-HEAD_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = 256  # any multiple of 8 up to this is taken
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 
@@ -68,6 +75,20 @@ def _knobs(window, softcap) -> tuple[int, float]:
     return (0 if window is None else int(window)), (0.0 if softcap is None else float(softcap))
 
 
+def _head_dim(name: str, d: int) -> int:
+    """The kernel width that takes head dim ``d``: ``d`` rounded up to a
+    multiple of 32.  Raises on a ``d`` the wrapper does not take."""
+    if d <= 0 or d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} must be a positive multiple of 8 and at most "
+                         f"{MAX_HEAD_DIM}")
+    return -(-d // 32) * 32
+
+
+def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` zero-padded along its last dim to ``dp``."""
+    return t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+
+
 def _flash_shapes(name: str, q, k, v) -> tuple[int, int, int, int, int]:
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name} takes bf16 or f32, got {q.dtype}")
@@ -78,8 +99,7 @@ def _flash_shapes(name: str, q, k, v) -> tuple[int, int, int, int, int]:
     hkv = k.shape[1]
     if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d or hq % hkv:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    _head_dim(name, d)
     return b, hq, hkv, s, d
 
 
@@ -93,25 +113,30 @@ def flash_attention_cuda(
     softcap: float | None = None,
     return_lse: bool = False,
 ):
-    """``q [B, Hq, S, D]``, ``k/v [B, Hkv, S, D]`` (bf16 or f32, D in
-    {64, 128, 256}) -> ``[B, Hq, S, D]`` in q's dtype; with ``return_lse``
+    """``q [B, Hq, S, D]``, ``k/v [B, Hkv, S, D]`` (bf16 or f32, D a multiple
+    of 8 up to 256) -> ``[B, Hq, S, D]`` in q's dtype; with ``return_lse``
     also each row's f32 log-sum-exp ``[B, Hq, S]`` (for the backward)."""
     b, hq, hkv, s, d = _flash_shapes("flash_attention_cuda", q, k, v)
     win, cap = _knobs(window, softcap)
+    dp = _head_dim("flash_attention_cuda", d)
+    q, k, v = (_pad(t, dp) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0:
+        out = out[..., :d]
         return (out, lse) if return_lse else out
     lib = build.library("flash_attention", _FLASH_SIG)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), _DTYPES[q.dtype],
-        b, hq, hkv, s, d, 1.0 / d**0.5, int(bool(causal)), win, cap,
+        b, hq, hkv, s, dp, 1.0 / d**0.5, int(bool(causal)), win, cap,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed (error {err})")
     flash_attention_cuda.launches += 1
+    if dp != d:
+        out = out[..., :d].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -138,22 +163,26 @@ def flash_attention_bwd_cuda(
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, hq, s):
         raise ValueError("flash_attention_bwd_cuda: out/dout like q, lse [B, Hq, S]")
     win, cap = _knobs(window, softcap)
+    dp = _head_dim("flash_attention_bwd_cuda", d)
+    q, k, v, out, dout = (_pad(t, dp) for t in (q, k, v, out, dout))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:
-        return dq, dk, dv
+        return dq[..., :d], dk[..., :d], dv[..., :d]
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     lib = build.library("flash_attention", _FLASH_SIG)
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPES[q.dtype], b, hq, hkv, s, d, 1.0 / d**0.5, int(bool(causal)), win, cap,
+        _DTYPES[q.dtype], b, hq, hkv, s, dp, 1.0 / d**0.5, int(bool(causal)), win, cap,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed (error {err})")
     flash_attention_bwd_cuda.launches += 1
+    if dp != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -191,9 +220,10 @@ def paged_flash_decode_cuda(
 ) -> torch.Tensor:
     """``q [B, C, Hq, D]`` against pools ``[N, page, Hkv, D]`` through
     ``page_table [B, P]`` i32 (-1 = unallocated) and ``lengths [B]`` i32
-    (row c attends positions <= t + c) -> ``[B, C, Hq, D]`` in q's dtype.
-    It has no backward: it raises when grad mode is on and an input
-    requires grad."""
+    (row c attends positions <= t + c) -> ``[B, C, Hq, D]`` in q's dtype,
+    D a multiple of 8 up to 256 (a D off the kernel widths copies the pools
+    zero-padded for the call).  It has no backward: it raises when grad
+    mode is on and an input requires grad."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k_pool, v_pool)):
         raise RuntimeError(
             "paged_flash_decode_cuda has no backward: call it under torch.no_grad() "
@@ -212,25 +242,25 @@ def paged_flash_decode_cuda(
         raise ValueError(f"paged_flash_decode_cuda: q {tuple(q.shape)} vs pool {tuple(k_pool.shape)}")
     if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_flash_decode_cuda takes page_table [B, P] and lengths [B]")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged_flash_decode_cuda: head dim {d} not in {HEAD_DIMS}")
-    if (2 * page * d + 32 * (page + 1)) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"paged_flash_decode_cuda: page {page} x D {d} exceeds shared memory")
+    dp = _head_dim("paged_flash_decode_cuda", d)
+    if (2 * page * dp + 32 * (page + 1)) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"paged_flash_decode_cuda: page {page} x D {dp} exceeds shared memory")
     win, cap = _knobs(window, softcap)
-    out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return torch.empty_like(q)
+    q, k_pool, v_pool = (_pad(t, dp) for t in (q, k_pool, v_pool))
+    out = torch.empty_like(q)
     lib = build.library("paged_flash_decode", _PAGED_SIG)
     err = lib.paged_flash_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, c, hq, hkv, page,
-        page_table.shape[1], d, 1.0 / d**0.5, win, cap,
+        page_table.shape[1], dp, 1.0 / d**0.5, win, cap,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"paged_flash_decode kernel launch failed (error {err})")
     paged_flash_decode_cuda.launches += 1
-    return out
+    return out[..., :d].contiguous() if dp != d else out
 
 
 paged_flash_decode_cuda.launches = 0

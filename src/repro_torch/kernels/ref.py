@@ -75,16 +75,19 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Attention with GQA, causal / sliding-window mask and logit softcap.
 
     q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]`` with Hq % Hkv == 0; f32
-    math, masked logits at -1e30 before the softmax (as the JAX oracle)."""
+    math, masked logits at -1e30 before the softmax (as the JAX oracle).
+    ``scale`` defaults to ``1/sqrt(D)``."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     kx = k.repeat_interleave(group, dim=1).float()
     vx = v.repeat_interleave(group, dim=1).float()
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * (1.0 / d**0.5)
+    scale = 1.0 / d**0.5 if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     qpos = torch.arange(s, device=q.device)[:, None]
@@ -108,6 +111,7 @@ def flash_attention_bwd(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``dout``, in f32 math, cast to the inputs' dtype: ``dS = P * (dP -
@@ -116,7 +120,7 @@ def flash_attention_bwd(
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
-    scale = 1.0 / d**0.5
+    scale = 1.0 / d**0.5 if scale is None else scale
     qf, do = q.float(), dout.float()
     kx = k.repeat_interleave(group, dim=1).float()
     vx = v.repeat_interleave(group, dim=1).float()

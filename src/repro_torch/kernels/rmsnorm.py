@@ -20,7 +20,9 @@ from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain
 
 __all__ = ["rmsnorm_cuda", "rmsnorm_plain", "MAX_VECTORS"]
 
-MAX_VECTORS = 1024  # 16-byte vectors a row may hold: 256 threads x 4 in registers
+# 16-byte vectors of a row that the one-pass kernel holds in registers (256
+# threads x 4); a wider row takes the two-pass kernel.
+MAX_VECTORS = 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -29,8 +31,10 @@ _SIGNATURES = {"rmsnorm_fwd": ((_P, _P, _P, _I, _I, ctypes.c_float, _I, _P), cty
 
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x [T, D]`` and ``w [D]`` on the card, both f32 or both bf16, D a
-    multiple of 16 bytes' worth of elements and at most ``MAX_VECTORS`` of
-    them (8192 bf16, 4096 f32) -> ``[T, D]`` in x's dtype."""
+    multiple of 16 bytes' worth of elements -> ``[T, D]`` in x's dtype.  Up
+    to ``MAX_VECTORS`` of them (8192 bf16, 4096 f32) the row is read once
+    into registers; a wider row is read twice (sum of squares, then the
+    normalising pass)."""
     for arg, t in (("x", x), ("w", w)):
         if t.device.type != "cuda":
             raise ValueError(f"rmsnorm_cuda: {arg} must be a CUDA tensor, got {t.device}")
@@ -43,9 +47,8 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.T
                          f"{tuple(w.shape)}")
     t, d = x.shape
     vec = 16 // x.element_size()
-    if d == 0 or d % vec or d // vec > MAX_VECTORS:
-        raise ValueError(f"rmsnorm_cuda: D={d} must be a positive multiple of {vec} and at most "
-                         f"{MAX_VECTORS * vec} for {x.dtype}")
+    if d == 0 or d % vec:
+        raise ValueError(f"rmsnorm_cuda: D={d} must be a positive multiple of {vec} for {x.dtype}")
     out = torch.empty_like(x)
     if t == 0:
         return out

@@ -4,10 +4,9 @@ expert re-placement — through the port's ``Trainer``.
 
     PYTHONPATH=src python -m repro_torch.quickstart [--steps 40] [--device cuda|cpu]
 
-The counterpart of ``examples/quickstart.py``, with the same widths and
-parameter count but 2 query / 1 kv heads of 64 in place of 4 / 2 of 32: the
-port's attention kernels take head dims 64, 128 and 256.  It runs on the
-card unless ``--device cpu`` is given.
+The counterpart of ``examples/quickstart.py``, with the same widths: 4
+query / 2 kv heads of 32.  It runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -34,8 +33,8 @@ def main(argv=None) -> dict:
         family="moe",
         num_layers=4,
         d_model=128,
-        num_heads=2,
-        num_kv_heads=1,
+        num_heads=4,
+        num_kv_heads=2,
         d_ff=0,
         vocab_size=512,
         dtype="float32",

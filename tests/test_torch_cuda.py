@@ -50,9 +50,11 @@ def test_topk_gating_kernel(dev, t, e, k):
     torch.testing.assert_close(w, rw)
 
 
+# Head dims: the kernels' widths (multiples of 32 up to 256) and dims the
+# wrappers zero-pad to them (40 -> 64, 200 -> 224).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 192, 200, 256])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=33, softcap=30.0),
                                 dict(causal=False)])
 def test_flash_attention_kernel(dev, dtype, d, kw):
@@ -84,13 +86,32 @@ def test_paged_flash_decode_kernel(dev, dtype, c, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 40, 96, 192])
+def test_paged_flash_decode_head_dims(dev, dtype, d):
+    g = torch.Generator(device=dev).manual_seed(d)
+    lengths = [37, 20, 3]
+    table = _table(lengths, 2, 8, 7, 30, seed=d).to(dev)
+    t = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((3, 2, 6, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((30, 8, 2, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((30, 8, 2, d), generator=g, device=dev).to(dtype)
+    for kw in ({}, dict(window=12, softcap=25.0)):
+        got = paged_flash_decode_cuda(q, kp, vp, table, t, **kw)
+        assert got.shape == q.shape and got.is_contiguous()
+        torch.testing.assert_close(got.float(), ref.paged_flash_decode(q, kp, vp, table, t, **kw)
+                                   .float(), **TOLS[dtype])
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((4, 8), device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         topk_gating_cuda(x, 2)
-    q = torch.zeros((1, 2, 8, 96), device=dev)
-    with pytest.raises(ValueError):
-        flash_attention_cuda(q, q, q)  # head dim 96
+    for d in (36, 264):  # not a multiple of 8; above 256
+        q = torch.zeros((1, 2, 8, d), device=dev)
+        with pytest.raises(ValueError):
+            flash_attention_cuda(q, q, q)
     q = torch.zeros((1, 2, 8, 64), device=dev)
     with pytest.raises(ValueError):
         flash_attention_cuda(q.transpose(1, 2), q, q)  # not contiguous
@@ -107,7 +128,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 from repro_torch.kernels.flash_attention import FlashAttentionFn  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
-    GroupedMatmulBlocksFn, GroupedMatmulFn, grouped_matmul_blocks_cuda, grouped_matmul_cuda,
+    GroupedMatmulBlocksFn, GroupedMatmulFn, grouped_matmul_blocks_cuda,
+    grouped_matmul_blocks_dw_cuda, grouped_matmul_blocks_dx_cuda, grouped_matmul_cuda,
     grouped_matmul_dw_cuda, grouped_matmul_dx_cuda,
 )
 from repro_torch.kernels.moe_dispatch import (  # noqa: E402
@@ -232,6 +254,111 @@ def test_grouped_matmul_blocks_kernel_and_backward(dev, dtype, k, n):
     assert torch.equal(w1.grad[1], torch.zeros_like(w1.grad[1]))  # no tiles, zero gradient
 
 
+# Dropless plans at the bf16 kernels' tile edges: experts of 300 and 257
+# rows (two 256-row runs each), every row in one expert, empty experts,
+# ragged tails, K and N multiples of 8 off the 64-deep / 128-wide tiles, and
+# the main path's K = 4096 with ~135 rows an expert.
+BLOCKS_CASES = [([300, 0, 9, 257, 1], 72, 136), ([1024], 64, 192), ([0, 0, 700, 0], 136, 40),
+                ([135, 120, 140, 128, 130, 137, 131, 123], 4096, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("counts,k,n", BLOCKS_CASES)
+def test_grouped_matmul_blocks_tile_edges(dev, dtype, counts, k, n):
+    rng = np.random.default_rng(sum(counts) + k + n)
+    x, w, be = _blocks_case(rng, dev, dtype, len(counts), k, n, counts)
+    got = grouped_matmul_blocks_cuda(x, w, be)
+    torch.testing.assert_close(got.float(), ref.grouped_matmul_blocks(x, w, be).float(),
+                               **TOLS[dtype])
+    dy = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32)).to(dev, dtype)
+    x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    GroupedMatmulBlocksFn.apply(x1, w1, be).backward(dy)
+    x2, w2 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref.grouped_matmul_blocks(x2, w2, be).backward(dy)
+    torch.testing.assert_close(x1.grad.float(), x2.grad.float(), **GRAD_TOLS[dtype])
+    torch.testing.assert_close(w1.grad.float(), w2.grad.float(), **GRAD_TOLS[dtype])
+    for e, c in enumerate(counts):
+        if c == 0:
+            assert not w1.grad[e].any()  # no rows: exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_blocks_many_experts(dev, dtype):
+    """More experts than the kernels' shared-memory table of first tiles
+    (4095): each block finds its rows by binary search instead."""
+    counts = [0] * 5000
+    for e, c in ((0, 20), (1, 300), (2345, 9), (4999, 64)):
+        counts[e] = c
+    rng = np.random.default_rng(5000)
+    x, w, be = _blocks_case(rng, dev, dtype, len(counts), 64, 128, counts)
+    got = grouped_matmul_blocks_cuda(x, w, be)
+    torch.testing.assert_close(got.float(), ref.grouped_matmul_blocks(x, w, be).float(),
+                               **TOLS[dtype])
+    dy = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32)).to(dev, dtype)
+    want_dx, want_dw = ref.grouped_matmul_blocks_bwd(x, w, be, dy)
+    torch.testing.assert_close(grouped_matmul_blocks_dx_cuda(dy, w, be).float(), want_dx.float(),
+                               **GRAD_TOLS[dtype])
+    dw = grouped_matmul_blocks_dw_cuda(x, dy, be, len(counts))
+    torch.testing.assert_close(dw.float(), want_dw.float(), **GRAD_TOLS[dtype])
+    assert not dw[3].any()
+
+
+def _blocks_in_order(blocks, order):
+    """The dropless layout of per-expert row blocks with expert ``order[i]``
+    relabelled i: each expert's rows zero-padded to whole tiles, tiles in
+    label order, ``be`` sorted."""
+    rows, be = [], []
+    for i, e in enumerate(order):
+        c, width = blocks[e].shape
+        tiles = -(-c // 8)
+        blk = np.zeros((tiles * 8, width), np.float32)
+        blk[:c] = blocks[e]
+        rows.append(blk)
+        be += [i] * tiles
+    return np.concatenate(rows), np.asarray(be, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,k,n", [BLOCKS_CASES[0], BLOCKS_CASES[3]])
+def test_grouped_matmul_blocks_bf16_bit_identical_and_expert_permutation(dev, counts, k, n):
+    """No atomics and no split of a reduction: two calls agree bit for bit,
+    and permuting the experts (their tiles moved, be relabelled in sorted
+    order) moves the forward, dX and dW results bit for bit."""
+    rng = np.random.default_rng(k * n)
+    e = len(counts)
+    xs = [rng.standard_normal((c, k)).astype(np.float32) for c in counts]
+    dys = [rng.standard_normal((c, n)).astype(np.float32) for c in counts]
+    w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(np.float32) / k**0.5).to(
+        dev, torch.bfloat16)
+
+    def run(order):
+        xa, be = _blocks_in_order(xs, order)
+        dya, _ = _blocks_in_order(dys, order)
+        x = torch.from_numpy(xa.reshape(-1, 8, k)).to(dev, torch.bfloat16)
+        dy = torch.from_numpy(dya.reshape(-1, 8, n)).to(dev, torch.bfloat16)
+        be = torch.from_numpy(be).to(dev)
+        wp = w[list(order)].contiguous()
+        return (grouped_matmul_blocks_cuda(x, wp, be), grouped_matmul_blocks_dx_cuda(dy, wp, be),
+                grouped_matmul_blocks_dw_cuda(x, dy, be, e))
+
+    ident = list(range(e))
+    first, again = run(ident), run(ident)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    order = [(3 * i + 1) % e for i in range(e)]
+    moved = run(order)
+    tiles = [-(-c // 8) for c in counts]
+    start = np.concatenate([[0], np.cumsum(tiles)])
+    at = 0
+    for i, old in enumerate(order):
+        t = tiles[old]
+        for a, b in zip(moved[:2], first[:2]):
+            assert torch.equal(a[at:at + t], b[start[old]:start[old] + t])
+        assert torch.equal(moved[2][i], first[2][old])
+        at += t
+
+
 def _capacity_case(dev, dtype, e, c, k, n, seed):
     """Capacity buffers ``x [E, C, K]`` with empty slots (zero rows) and, for
     E > 1, expert 1 wholly empty; weights ``[E, K, N]`` and a cotangent."""
@@ -300,18 +427,20 @@ def test_grouped_matmul_capacity_bf16_bit_identical(dev, e, c, k, n):
     x, w, dy = _capacity_case(dev, torch.bfloat16, e, c, k, n, c + k + n)
     assert torch.equal(grouped_matmul_cuda(x, w), grouped_matmul_cuda(x, w))
     assert torch.equal(grouped_matmul_dx_cuda(dy, w), grouped_matmul_dx_cuda(dy, w))
+    assert torch.equal(grouped_matmul_dw_cuda(x, dy), grouped_matmul_dw_cuda(x, dy))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("e,c,k,n", INVARIANCE_CASES)
 def test_grouped_matmul_capacity_bf16_expert_permutation(dev, e, c, k, n):
     """An expert's rows do not depend on its slot: permuting the experts
-    permutes the forward and dX outputs bit for bit (re-placement)."""
+    permutes the forward, dX and dW outputs bit for bit (re-placement)."""
     x, w, dy = _capacity_case(dev, torch.bfloat16, e, c, k, n, c * n + k)
     perm = torch.arange(e - 1, -1, -1, device=dev)
     xp, wp, dyp = (t[perm].contiguous() for t in (x, w, dy))
     assert torch.equal(grouped_matmul_cuda(xp, wp), grouped_matmul_cuda(x, w)[perm])
     assert torch.equal(grouped_matmul_dx_cuda(dyp, wp), grouped_matmul_dx_cuda(dy, w)[perm])
+    assert torch.equal(grouped_matmul_dw_cuda(xp, dyp), grouped_matmul_dw_cuda(x, dy)[perm])
 
 
 @pytest.mark.cuda
@@ -329,7 +458,7 @@ def test_topk_gating_backward(dev, t, e, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 192])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=33, softcap=30.0),
                                 dict(causal=False)])
 def test_flash_attention_backward(dev, dtype, d, kw):
@@ -375,7 +504,8 @@ from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda  # noqa: E402
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,d", [(1, 48), (257, 48), (256, 2048), (256, 4096), (4, 4096), (3, 8)])
+@pytest.mark.parametrize("t,d", [(1, 48), (257, 48), (256, 2048), (256, 4096), (4, 4096), (3, 8),
+                                 (4, 8192), (5, 12288), (3, 16384), (2, 40000)])
 def test_rmsnorm_kernel(dev, dtype, t, d):
     g = torch.Generator(device=dev).manual_seed(t + d)
     x = (torch.randn((t, d), generator=g, device=dev) * 3).to(dtype)
@@ -428,7 +558,7 @@ def test_ssm_ops_refuse_grad_and_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):
         rmsnorm_cuda(torch.zeros((2, 10), device=dev), torch.zeros((10,), device=dev))  # D % 4
     with pytest.raises(ValueError):
-        rmsnorm_cuda(torch.zeros((2, 4100), device=dev), torch.zeros((4100,), device=dev))
+        rmsnorm_cuda(torch.zeros((2, 0), device=dev), torch.zeros((0,), device=dev))  # D = 0
     with pytest.raises(TypeError):
         rmsnorm_cuda(torch.zeros((2, 16), device=dev), torch.zeros((16,), device=dev,
                                                                     dtype=torch.bfloat16))

@@ -86,6 +86,31 @@ def test_flash_attention_plain_matches_jax(case):
     np.testing.assert_allclose(out, pallas, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_zero_padded_head_dim_is_exact(dtype):
+    """The kernels are built at multiples of 32; their wrappers zero-pad any
+    other head dim (a multiple of 8) to the next one, with the true D's
+    softmax scale, and slice the results back.  On the plain forward and
+    backward that padding changes no bit."""
+    rng = np.random.default_rng(3)
+    for d, kw in ((40, dict(causal=True, window=9, softcap=20.0)), (8, dict(causal=False))):
+        dp = kfa._head_dim("test", d)
+        assert dp == -(-d // 32) * 32
+        q, do = (_t(rng.standard_normal((1, 4, 33, d)).astype(np.float32)).to(dtype)
+                 for _ in range(2))
+        k, v = (_t(rng.standard_normal((1, 2, 33, d)).astype(np.float32)).to(dtype)
+                for _ in range(2))
+        padded = [kfa._pad(t, dp) for t in (q, k, v, do)]
+        got = tref.flash_attention(*padded[:3], scale=d**-0.5, **kw)[..., :d]
+        assert torch.equal(got, tref.flash_attention(q, k, v, **kw))
+        grads = tref.flash_attention_bwd(*padded, scale=d**-0.5, **kw)
+        for a, b in zip(grads, tref.flash_attention_bwd(q, k, v, do, **kw)):
+            assert torch.equal(a[..., :d], b)
+    for bad in (36, 264, 0):
+        with pytest.raises(ValueError):
+            kfa._head_dim("test", bad)
+
+
 # ---------------------------------------------------------------------------
 # paged flash decode
 # ---------------------------------------------------------------------------
