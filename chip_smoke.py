@@ -9,8 +9,8 @@ Phases, one printed line (or more) each:
 2. build  — ``nvcc`` builds every kernel of the serving and training paths
    from ``src/repro_torch/csrc`` (7 sources, one process each, all at once);
 3. kernels — each kernel at the serving path's shapes and at small cases
-   with window, softcap, ragged lengths, -1 page-table entries and head
-   dims from 32 to 256 (40 zero-padded), held
+   with window, softcap, ragged lengths, -1 page-table entries, head
+   dims from 32 to 256 (40 zero-padded) and S = 300 with a group of 6, held
    against its plain PyTorch version on the card; kernel, plain and library
    times from CUDA events;
 3b. ssm kernels — kernels 8 (RMSNorm) and 9 (the SSD intra-chunk pass)
@@ -48,7 +48,8 @@ Phases, one printed line (or more) each:
    dW at the w_in and w_out shapes, its forward and dW also at a skewed
    plan, 3/8 of the choices on each of two experts) and at small edge
    cases (experts of more than 256 rows, every row in one expert, K and N
-   off the tiles, head dims 32 to 192), against its plain version (a
+   off the tiles, head dims 32 to 192, S = 300 with a group of 6), against
+   its plain version (a
    backward against ``torch.autograd`` of the plain forward); kernel, plain
    and library times from CUDA events;
 7. capacity kernels — kernel 6 (the capacity-layout grouped GEMM) and its
@@ -349,7 +350,8 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
 
 def edge_cases(torch, g, cpu_g):
     """Window, softcap, ragged S, -1 table entries and C > 1, at head dims 32
-    to 256 (40 zero-padded to the kernels' 64), in f32 and bf16."""
+    to 256 (40 zero-padded to the kernels' 64), and S = 300 at D = 128 with
+    a group of 6, in f32 and bf16."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda, paged_flash_decode_cuda
     from repro_torch.kernels.topk_gating import topk_gating_cuda
@@ -370,6 +372,15 @@ def edge_cases(torch, g, cpu_g):
                 got = flash_attention_cuda(q, k, v, **kw)
                 errs.append(check(torch, got, ref.flash_attention(q, k, v, **kw), tol,
                                   f"flash_attention edge {dt} D={d} {kw}"))
+        # Several key tiles and a ragged tail at grok-1's group of 6.
+        q = torch.randn((1, 12, 300, 128), generator=g, device=dev).to(dt)
+        k = torch.randn((1, 2, 300, 128), generator=g, device=dev).to(dt)
+        v = torch.randn((1, 2, 300, 128), generator=g, device=dev).to(dt)
+        for kw in (dict(causal=True), dict(causal=True, window=100, softcap=30.0),
+                   dict(causal=False)):
+            got = flash_attention_cuda(q, k, v, **kw)
+            errs.append(check(torch, got, ref.flash_attention(q, k, v, **kw), tol,
+                              f"flash_attention edge {dt} S=300 GQA 6 {kw}"))
         for c, hd in ((1, 128), (2, 128), (5, 128), (2, 32), (2, 40), (1, 96), (2, 192)):
             lengths = [37, 20, 3]
             table = page_table_for(torch, lengths, c, 8, 7, 30, cpu_g).to(dev)
@@ -761,7 +772,7 @@ def train_edge_cases(torch, g):
     """-1 sources, fully dropped rows, S in {1, 2}, padding tiles, empty
     experts, experts of more than 256 rows, every row in one expert, K and N
     off the tiles, ragged S with window and softcap at head dims 32, 40, 96,
-    128 and 192, in f32 and bf16."""
+    128 and 192, and S = 300 at D = 128 with a group of 6, in f32 and bf16."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import grouped_matmul as kgm
@@ -834,6 +845,17 @@ def train_edge_cases(torch, g):
                 rel = BF16_GRAD_REL if dt == torch.bfloat16 else 1e-4
                 errs += [check_rel(a, b, rel, f"flash bwd edge {dt} D={hd} {kw}")
                          for a, b in zip(got, want)]
+        # Several key and q tiles and a ragged tail at grok-1's group of 6.
+        q, do = (torch.randn((1, 12, 300, 128), generator=g, device=dev).to(dt) for _ in "qd")
+        k, v = (torch.randn((1, 2, 300, 128), generator=g, device=dev).to(dt) for _ in "kv")
+        for kw in (dict(causal=True), dict(causal=True, window=100, softcap=30.0),
+                   dict(causal=False)):
+            out, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            got = kfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+            want = _grads(torch, lambda a, b, c: ref.flash_attention(a, b, c, **kw), [q, k, v], do)
+            rel = BF16_GRAD_REL if dt == torch.bfloat16 else 1e-4
+            errs += [check_rel(a, b, rel, f"flash bwd edge {dt} S=300 GQA 6 {kw}")
+                     for a, b in zip(got, want)]
     torch.cuda.synchronize()
     print(f"train kernels edge cases: {len(errs)} comparisons within tolerance, "
           f"max_abs_err={max(errs):.3e}", flush=True)

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels:
 // mbarriers (local and cluster-wide), TMA tensor-map loads (multicast too)
-// and stores, wgmma descriptors and the m64n128k16 bf16 instruction (either
-// operand K- or MN-major),
-// cluster and named barriers and register rebalancing, in
+// and stores, wgmma descriptors, the bf16 m64n128k16 and m64n64k16
+// instructions with both operands in shared memory (either K- or MN-major)
+// and m64n64k16 with A in registers, cluster and named barriers and register
+// rebalancing, in
 // inline PTX; and, on the host, tensor-map encoding through the driver entry
 // point that the CUDA runtime hands out, so a library that includes this
 // header still links without -lcuda.
@@ -64,6 +65,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "DONE:\n"
       "}\n" ::"r"(bar),
       "r"(parity), "l"(kWatchdogNs)
+      : "memory");
+}
+
+// If `pred`, arrive once on this CTA's barrier; predicated in PTX.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"(static_cast<uint32_t>(pred))
       : "memory");
 }
 
@@ -189,6 +202,19 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// If `pred`, arrive on barrier `id` (of `threads` threads) without waiting;
+// predicated in PTX.
+__device__ __forceinline__ void named_bar_arrive_if(int id, int threads, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %2, 0;\n"
+      "@p bar.arrive %0, %1;\n"
+      "}\n" ::"r"(id),
+      "r"(threads), "r"(static_cast<uint32_t>(pred))
+      : "memory");
+}
+
 // --- wgmma ----------------------------------------------------------------
 
 // Descriptor of a 128-byte-swizzled operand tile at smem address `addr`
@@ -225,13 +251,20 @@ __device__ __forceinline__ void fence_operands(float (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int kN>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // d[64] (f32, per thread of the warpgroup) += A (64 x 16; K-major, or
 // kTransA: MN-major) * B (16 x 128; K-major, or kTransB: MN-major).  Thread t
 // of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2)
-// and columns 8 (i / 4) + 2 (t % 4) + i % 2 of d[i].
+// and columns 8 (i / 4) + 2 (t % 4) + i % 2 of d[i].  scale_d = 0 drops d's
+// old value (d = A * B).
 template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a,
-                                                      uint64_t desc_b) {
+                                                      uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -254,7 +287,57 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "n"(kTransA), "n"(kTransB), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "n"(kTransA), "n"(kTransB), "r"(scale_d));
+}
+
+// d[32] (f32) = A (64 x 16; K-major, or kTransA: MN-major) * B (16 x 64;
+// K-major, or kTransB: MN-major) + (scale_d ? d : 0), both from shared
+// memory.  d[i] sits at the row and column that m64n128k16 gives it.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t desc_a,
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d[32] (f32) += A (64 x 16, bf16 in registers) * B (16 x 64 from shared
+// memory; K-major, or kTransB: MN-major).  a[r] packs two bf16 (the lower
+// column in the low half) of A's rows 16 (t / 32) + (t % 32) / 4 + 8 (r % 2),
+// columns 8 (r / 2) + 2 (t % 4) + {0, 1}: the places where a 16-column slice
+// kk of an f32 accumulator keeps its values d[8 kk + 2 r], d[8 kk + 2 r + 1]
+// (PTX ISA, wgmma register fragments for A and D), so an accumulator converts
+// to an A operand in place.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
 }
 
 // --- host: tensor maps ----------------------------------------------------
@@ -287,10 +370,17 @@ inline EncodeTiledFn encode_tiled() {
 // {d0, d1, d2} (d0 contiguous), read and written in boxes {b0, b1, 1} with
 // the 128-byte swizzle (b0 * 2 must be 128).  Returns 0, or nonzero when the
 // driver refuses (alignment, strides, box).
+//
+// cuTensorMapEncodeTiled encodes against the calling thread's current
+// context, and a thread that has not yet used the runtime has none (PyTorch
+// runs backward functions on such a worker thread): cudaFree(nullptr) first
+// binds the runtime's primary context of the current device, the one the
+// launch uses.
 inline int bf16_map_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
                        uint32_t b0, uint32_t b1) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return -3;
+  if (cudaFree(nullptr) != cudaSuccess) return -5;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {b0, b1, 1};

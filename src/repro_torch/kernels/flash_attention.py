@@ -15,6 +15,14 @@ other multiple of 8 up to ``MAX_HEAD_DIM`` is zero-padded along D to the
 next of them inside the wrapper, with the softmax scale of the true D, and
 the results are sliced back: zero columns add exact zeros to every q.k and
 the padded v columns are dropped, so the padding changes no value.
+
+Which kernel runs is a static rule on the dtype and the padded head dim,
+decided in ``csrc/flash_attention.cu`` before the launch: bf16 goes to the
+TMA / wgmma kernels, forward at every width and backward up to D = 128;
+the bf16 backward at D = 160 .. 256 (a 64-key tile of dK and dV does not
+fit the wgmma kernel's registers) and all of f32 go to the f32-staged
+CUDA-core kernels.  bf16 inputs must start on 16-byte boundaries (the TMA
+maps; every fresh PyTorch allocation does).
 """
 
 from __future__ import annotations
@@ -156,7 +164,9 @@ def flash_attention_bwd_cuda(
     softcap: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) for the output gradient ``dout``, from the forward's
-    inputs, output and log-sum-exp (``return_lse=True``)."""
+    inputs, output and log-sum-exp (``return_lse=True``).  bf16 up to D =
+    128 runs the wgmma kernels, bf16 above it and f32 the f32-staged ones
+    (module docstring); both are deterministic (no atomics)."""
     b, hq, hkv, s, d = _flash_shapes("flash_attention_bwd_cuda", q, k, v)
     _check("flash_attention_bwd_cuda", {"out": out, "dout": dout}, q.dtype)
     _check("flash_attention_bwd_cuda", {"lse": lse}, torch.float32)

@@ -12,6 +12,8 @@ kernel accumulates in f32 and rounds once; f32 attention uses rtol 1e-5,
 atol 1e-5 (a different summation order over up to 77 keys).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -126,7 +128,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 # are held against torch.autograd of the plain forward.
 # ---------------------------------------------------------------------------
 
-from repro_torch.kernels.flash_attention import FlashAttentionFn  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttentionFn, flash_attention_bwd_cuda,
+)
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     GroupedMatmulBlocksFn, GroupedMatmulFn, grouped_matmul_blocks_cuda,
     grouped_matmul_blocks_dw_cuda, grouped_matmul_blocks_dx_cuda, grouped_matmul_cuda,
@@ -458,7 +462,7 @@ def test_topk_gating_backward(dev, t, e, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 192])
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 192, 256])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=33, softcap=30.0),
                                 dict(causal=False)])
 def test_flash_attention_backward(dev, dtype, d, kw):
@@ -474,6 +478,73 @@ def test_flash_attention_backward(dev, dtype, d, kw):
     ref.flash_attention(*b, **kw).backward(do)
     for x, y in zip(a, b):
         torch.testing.assert_close(x.grad.float(), y.grad.float(), **GRAD_TOLS[dtype])
+
+
+# Many key tiles and a ragged tail (S = 1000) at grok-1's group of 6 (48 / 8
+# heads) and Mixtral's group of 4 (32 / 8), D = 128, bf16.
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(48, 8), (32, 8)])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=300, softcap=30.0),
+                                dict(causal=False)])
+def test_flash_attention_long_sequence_bf16(dev, hq, hkv, kw):
+    g = torch.Generator(device=dev).manual_seed(hq)
+    s, d = 1000, 128
+    q = torch.randn((1, hq, s, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, hkv, s, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, hkv, s, d), generator=g, device=dev).bfloat16()
+    do = torch.randn((1, hq, s, d), generator=g, device=dev).bfloat16()
+    got = flash_attention_cuda(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, **kw).float(),
+                               **TOLS[torch.bfloat16])
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    FlashAttentionFn.apply(*a, kw.get("causal", True), kw.get("window"), kw.get("softcap")) \
+        .backward(do)
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention(*b, **kw).backward(do)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad.float(), y.grad.float(), **GRAD_TOLS[torch.bfloat16])
+
+
+# No atomics: two calls on the same inputs agree bit for bit, forward (with
+# the log-sum-exp) and backward, at three kernel widths.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_bf16_bit_identical(dev, d):
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn((2, 12, 300, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((2, 2, 300, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, 2, 300, d), generator=g, device=dev).bfloat16()
+    do = torch.randn((2, 12, 300, d), generator=g, device=dev).bfloat16()
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        runs.append((out, lse, *flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True)))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+# The TMA maps are encoded on the calling thread.  A thread that has not yet
+# used the CUDA runtime has no current context (PyTorch runs backward
+# functions on such a worker thread); the kernels must not depend on one.
+@pytest.mark.cuda
+def test_flash_attention_bf16_from_a_fresh_thread(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, do = (torch.randn((1, 4, 130, 128), generator=g, device=dev).bfloat16() for _ in "qd")
+    k, v = (torch.randn((1, 2, 130, 128), generator=g, device=dev).bfloat16() for _ in "kv")
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    want = (out, lse, *flash_attention_bwd_cuda(q, k, v, out, lse, do))
+    got = {}
+
+    def run():
+        o, l = flash_attention_cuda(q, k, v, return_lse=True)
+        got["run"] = (o, l, *flash_attention_bwd_cuda(q, k, v, o, l, do))
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and "run" in got
+    for x, y in zip(want, got["run"]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
