@@ -12,7 +12,9 @@ Phases, one printed line (or more) each:
    with window, softcap, ragged lengths, -1 page-table entries, head
    dims from 32 to 256 (40 zero-padded) and S = 300 with a group of 6, held
    against its plain PyTorch version on the card; kernel, plain and library
-   times from CUDA events;
+   times from CUDA events, and the kernel's and the library call's device
+   times under torch.profiler (for calls this small the event time is the
+   host's issue rate);
 3b. ssm kernels — kernels 8 (RMSNorm) and 9 (the SSD intra-chunk pass)
    at Mamba-2 1.3B's serving shapes (one 256-token prefill, generate's
    4 x 512 batch, norms at a prefill and a decode tick) and at edge cases
@@ -42,7 +44,9 @@ Phases, one printed line (or more) each:
    prefill step's; then a reduced f32 prefill and decode step on the card
    against the CPU;
 6. train kernels — every training-path kernel
-   (MoE dispatch and combine, the dropless grouped GEMM, and the backward
+   (MoE dispatch at the send gather, the pack and the unpack; the combine
+   in f32 and, as the send gather's backward, in bf16; the dropless
+   grouped GEMM; and the backward
    kernels of the combine, the GEMM (dX, dW), the gate and attention) at
    the Mixtral-8x7B training step's shapes (the grouped GEMM and its dX and
    dW at the w_in and w_out shapes, its forward and dW also at a skewed
@@ -50,8 +54,8 @@ Phases, one printed line (or more) each:
    cases (experts of more than 256 rows, every row in one expert, K and N
    off the tiles, head dims 32 to 192, S = 300 with a group of 6), against
    its plain version (a
-   backward against ``torch.autograd`` of the plain forward); kernel, plain
-   and library times from CUDA events;
+   backward against ``torch.autograd`` of the plain forward); event and
+   device times as in phase 3;
 7. capacity kernels — kernel 6 (the capacity-layout grouped GEMM) and its
    dX and dW at the capacity step's w_in shapes, built from a real
    two-stage capacity plan (empty send rows, empty expert slots), the same
@@ -109,9 +113,10 @@ import time
 
 REPO = pathlib.Path(__file__).resolve().parent
 SRC = REPO / "src"
+if (SRC / "repro_torch" / "csrc").is_dir():  # else main() refuses to run
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.timing import HBM_BYTES_PER_S, bound_ms, card_line, device_ms, time_ms
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # torch.testing bf16 defaults
 F32_TOL = dict(rtol=1.3e-6, atol=1e-5)  # torch.testing f32 defaults
 # f32 sums over thousands of terms in another order than the plain version.
@@ -137,6 +142,15 @@ KERNEL_ROWS = {
                            "src/repro/kernels/flash_attention.py:226"),
     "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch.py:49"),
     "moe_combine": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch.py:89"),
+    # Kernel 4 at the dropless plan's pack (with zero padding rows) and
+    # unpack, kernel 5 at the send gather's backward (unit weights, bf16 out):
+    # the same kernels at other shapes of the path (SHAPE_ROWS).
+    "moe_dispatch_pack": ("src/repro_torch/csrc/moe_dispatch.cu",
+                          "src/repro/kernels/moe_dispatch.py:49"),
+    "moe_dispatch_unpack": ("src/repro_torch/csrc/moe_dispatch.cu",
+                            "src/repro/kernels/moe_dispatch.py:49"),
+    "moe_combine_bf16": ("src/repro_torch/csrc/moe_dispatch.cu",
+                         "src/repro/kernels/moe_dispatch.py:89"),
     "grouped_matmul_blocks": ("src/repro_torch/csrc/grouped_matmul.cu",
                               "src/repro/kernels/grouped_matmul.py:116"),
     # Backward kernels: the JAX package has no VJP on its Pallas kernels (it
@@ -181,35 +195,6 @@ KERNEL_ROWS = {
 }
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def bound(bytes_moved: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def check(torch, got, want, tol, what: str) -> float:
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **tol, msg=lambda m: f"{what}: {m}")
@@ -225,26 +210,47 @@ def check_rel(got, want, rel: float, what: str) -> float:
 
 
 def library_time(torch, fn, want, rel: float, iters: int, what: str):
-    """CUDA-event time of one PyTorch library call that computes the same
-    function as a kernel, after checking it does (``check_rel`` at ``rel``).
-    A call this build refuses on these inputs is reported, with its error,
-    as no time: the library is a yardstick here, not part of the path."""
+    """(CUDA-event time, the call) of one PyTorch library call that computes
+    the same function as a kernel, after checking it does (``check_rel`` at
+    ``rel``).  A call this build refuses on these inputs is reported, with
+    its error, as (None, None): the library is a yardstick here, not part of
+    the path."""
     try:
         check_rel(fn(), want, rel, f"library {what}")
     except (RuntimeError, NotImplementedError, TypeError, AttributeError, AssertionError) as exc:
         print(f"library {what}: refused: {type(exc).__name__}: {str(exc)[:300]}", flush=True)
-        return None
-    return time_ms(torch, fn, iters)
+        return None, None
+    return time_ms(torch, fn, iters), fn
 
 
-def kernel_row(torch, name, err, ms, plain, lib, bytes_moved, flops, dtype, shape):
-    bms, by = bound(bytes_moved, flops, dtype)
-    r = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-             shape=shape)
+def kernel_row(torch, name, err, kernel, iters, plain, library, bytes_moved, flops, dtype, shape):
+    """One row of the kernels line.  ``kernel``: the wrapper's call, timed
+    by CUDA events over ``iters`` back-to-back calls; ``library``:
+    (CUDA-event time, call) of the library yardstick, or NO_LIBRARY.  Both
+    calls are also timed under the profiler: device time, which for calls
+    this small is what the card spends (the event time is the host's issue
+    rate)."""
+    lib, lib_fn = library
+    bms, by = bound_ms(bytes_moved, flops, dtype)
+    ms = time_ms(torch, kernel, iters)
+    dev, _ = device_ms(torch, kernel)
+    lib_dev = None if lib_fn is None else device_ms(torch, lib_fn)[0]
+    r = dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
+             library_ms=lib, library_device_ms=lib_dev, shape=shape)
+    fmt = lambda v: "null" if v is None else f"{v:.5f}"  # noqa: E731
     print(f"kernel {name} ({shape}): max_abs_err={err:.3e} kernel_ms={ms:.5f} "
-          f"plain_ms={plain:.5f} library_ms={'null' if lib is None else f'{lib:.5f}'} "
-          f"bound_ms={bms:.6f} ({by})", flush=True)
+          f"device_ms={dev:.5f} plain_ms={plain:.5f} library_ms={fmt(lib)} "
+          f"library_device_ms={fmt(lib_dev)} bound_ms={bms:.6f} ({by})", flush=True)
     return r
+
+
+def timed(torch, fn, iters: int):
+    """(CUDA-event time, fn): a library yardstick whose equivalence needs no
+    check (the kernel's own check covers it)."""
+    return time_ms(torch, fn, iters), fn
+
+
+NO_LIBRARY = (None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -281,13 +287,14 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
     w, i = topk_gating_cuda(logits, k)
     rw, ri = ref.topk_gating(logits, k)
     assert torch.equal(i, ri), "topk_gating ids differ from the plain version"
-    err = check(torch, w, rw, F32_TOL, "topk_gating")
-    ms = time_ms(torch, lambda: topk_gating_cuda(logits, k), 200)
-    plain = time_ms(torch, lambda: ref.topk_gating(logits, k), 200)
-    lib = time_ms(torch, lambda: torch.topk(torch.softmax(logits, -1), k, dim=-1), 200)
-    bms, by = bound(slots * e * 4 + slots * k * 8, slots * e * (5 + k), "float32")
-    rows["topk_gating"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                               bound_by=by, library_ms=lib, shape=f"logits [{slots}, {e}] f32, k={k}")
+    rows["topk_gating"] = kernel_row(
+        torch, "topk_gating", check(torch, w, rw, F32_TOL, "topk_gating"),
+        lambda: topk_gating_cuda(logits, k), 200,
+        time_ms(torch, lambda: ref.topk_gating(logits, k), 200),
+        timed(torch, lambda: torch.topk(torch.softmax(logits, -1), k, dim=-1), 200),
+        slots * e * 4 + slots * k * 8, slots * e * (5 + k), "float32",
+        f"logits [{slots}, {e}] f32, k={k}",
+    )
 
     # -- flash_attention at the longest prompt's prefill: q [1, Hq, S, D] bf16.
     s = max(prompt_lens)
@@ -298,14 +305,14 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
     err = check(torch, out, ref.flash_attention(q, kk, vv, causal=True), BF16_TOL, "flash_attention")
     kx = kk.repeat_interleave(hq // hkv, dim=1)
     vx = vv.repeat_interleave(hq // hkv, dim=1)
-    ms = time_ms(torch, lambda: flash_attention_cuda(q, kk, vv, causal=True), 50)
-    plain = time_ms(torch, lambda: ref.flash_attention(q, kk, vv, causal=True), 20)
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 50)
     pairs = s * (s + 1) / 2
-    bms, by = bound(2 * (2 * hq + 2 * hkv) * s * d, 4 * hq * d * pairs, "bfloat16")
-    rows["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                                   bound_by=by, library_ms=lib,
-                                   shape=f"q [1, {hq}, {s}, {d}] bf16 causal")
+    rows["flash_attention"] = kernel_row(
+        torch, "flash_attention", err, lambda: flash_attention_cuda(q, kk, vv, causal=True), 50,
+        time_ms(torch, lambda: ref.flash_attention(q, kk, vv, causal=True), 20),
+        timed(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 50),
+        2 * (2 * hq + 2 * hkv) * s * d, 4 * hq * d * pairs, "bfloat16",
+        f"q [1, {hq}, {s}, {d}] bf16 causal",
+    )
 
     # -- paged_flash_decode at a decode tick: q [slots, 1, Hq, D] over the pool.
     max_pages = -(-max_len // page)
@@ -319,7 +326,6 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
     out = paged_flash_decode_cuda(qd, kp, vp, table, tvec)
     err = check(torch, out, ref.paged_flash_decode(qd, kp, vp, table, tvec), BF16_TOL,
                 "paged_flash_decode")
-    ms = time_ms(torch, lambda: paged_flash_decode_cuda(qd, kp, vp, table, tvec), 200)
     plain = time_ms(torch, lambda: ref.paged_flash_decode(qd, kp, vp, table, tvec), 20)
     pos = torch.arange(max_pages * page, device=dev)
     mask = pos[None, None, None, :] <= tvec[:, None, None, None]  # [B, 1, 1, L]
@@ -329,21 +335,14 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
         vv_ = ref.paged_gather_kv(vp, table).transpose(1, 2).repeat_interleave(hq // hkv, 1)
         return F.scaled_dot_product_attention(qd.transpose(1, 2), vk, vv_, attn_mask=mask)
 
-    lib = time_ms(torch, sdpa_paged, 100)
     kv_bytes = sum((t + 1) * hkv * d * 2 * 2 for t in lengths)
-    flops = sum(4 * hq * d * (t + 1) for t in lengths)
-    bms, by = bound(2 * slots * hq * d * 2 + kv_bytes + table.numel() * 4 + slots * 4, flops,
-                    "bfloat16")
-    rows["paged_flash_decode"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-        shape=f"q [{slots}, 1, {hq}, {d}] bf16, pool [{num_pages}, {page}, {hkv}, {d}], "
-              f"t={lengths}",
+    rows["paged_flash_decode"] = kernel_row(
+        torch, "paged_flash_decode", err, lambda: paged_flash_decode_cuda(qd, kp, vp, table, tvec),
+        200, plain, timed(torch, sdpa_paged, 100),
+        2 * slots * hq * d * 2 + kv_bytes + table.numel() * 4 + slots * 4,
+        sum(4 * hq * d * (t + 1) for t in lengths), "bfloat16",
+        f"q [{slots}, 1, {hq}, {d}] bf16, pool [{num_pages}, {page}, {hkv}, {d}], t={lengths}",
     )
-    for name, r in rows.items():
-        print(f"kernel {name} ({r['shape']}): max_abs_err={r['max_abs_err']:.3e} "
-              f"kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
-              f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']})",
-              flush=True)
     edge_cases(torch, g, cpu_g)
     return rows
 
@@ -576,7 +575,7 @@ def blocks_rows(torch, rows, suffix, xb, w, dy, be, counts, what, parts=("", "_d
         want = plain() if want is None else want
         err = check_rel(got, want, BF16_GEMM_REL, name)
         rows[name] = kernel_row(
-            torch, name, err, time_ms(torch, kernel, 20), time_ms(torch, plain, 5),
+            torch, name, err, kernel, 20, time_ms(torch, plain, 5),
             library_time(torch, lib, got.reshape(lib().shape), BF16_GEMM_REL, 20,
                          f"{name} (torch._grouped_mm)"),
             bytes_moved + tiles, gemm, "bfloat16", shape + what,
@@ -628,15 +627,32 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     packed = kmd.moe_dispatch_cuda(got, plan2.src)  # the pack, with -1 padding rows
     assert torch.equal(packed, ref.moe_dispatch(got, plan2.src)), "moe_dispatch pack differs"
     assert not packed[plan2.src < 0].any(), "padding rows must be zero"
-    idx = src_tok.long()
+    unpacked = kmd.moe_dispatch_cuda(packed, plan2.slot)  # the unpack: back to send order
+    assert torch.equal(unpacked, got), "moe_dispatch unpack differs"
+    assert bool((plan2.slot >= 0).all()), "a dropless plan places every choice"
+    idx, idx_unpack = src_tok.long(), plan2.slot.long()
     distinct = int(torch.unique(src_tok[src_tok >= 0]).numel())  # each read once
+    n_pack = plan2.src.shape[0]
     rows["moe_dispatch"] = kernel_row(
-        torch, "moe_dispatch", 0.0,
-        time_ms(torch, lambda: kmd.moe_dispatch_cuda(x, src_tok), 200),
+        torch, "moe_dispatch", 0.0, lambda: kmd.moe_dispatch_cuda(x, src_tok), 200,
         time_ms(torch, lambda: ref.moe_dispatch(x, src_tok), 200),
-        time_ms(torch, lambda: torch.index_select(x, 0, idx), 200),
+        timed(torch, lambda: torch.index_select(x, 0, idx), 200),
         (distinct + n) * d * 2 + n * 4, 0.0, "bfloat16", f"x [{t}, {d}] bf16 -> [{n}, {d}]",
     )
+    # The pack has no one-call library equivalent (its padding rows are zeros).
+    rows["moe_dispatch_pack"] = kernel_row(
+        torch, "moe_dispatch_pack", 0.0, lambda: kmd.moe_dispatch_cuda(got, plan2.src), 200,
+        time_ms(torch, lambda: ref.moe_dispatch(got, plan2.src), 200), NO_LIBRARY,
+        (n + n_pack) * d * 2 + n_pack * 4, 0.0, "bfloat16",
+        f"[{n}, {d}] bf16 -> [{n_pack}, {d}], {n_pack - n} zero padding rows",
+    )
+    rows["moe_dispatch_unpack"] = kernel_row(
+        torch, "moe_dispatch_unpack", 0.0, lambda: kmd.moe_dispatch_cuda(packed, plan2.slot), 200,
+        time_ms(torch, lambda: ref.moe_dispatch(packed, plan2.slot), 200),
+        timed(torch, lambda: torch.index_select(packed, 0, idx_unpack), 200),
+        2 * n * d * 2 + n * 4, 0.0, "bfloat16", f"[{n_pack}, {d}] bf16 -> [{n}, {d}]",
+    )
+    del unpacked
 
     # -- grouped_matmul_blocks (kernel 7) and its dX and dW at the w_in
     # shapes: packed [nb, 8, D] @ w [E, D, F]; padding rows get no gradient.
@@ -685,8 +701,7 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     # slots have no -1); it takes weights in y's dtype and returns bf16.
     slot_l, wts_b = slot.long(), wts.to(bf16)
     rows["moe_combine"] = kernel_row(
-        torch, "moe_combine", err,
-        time_ms(torch, lambda: kmd.moe_combine_cuda(y, slot, wts), 200),
+        torch, "moe_combine", err, lambda: kmd.moe_combine_cuda(y, slot, wts), 200,
         time_ms(torch, lambda: ref.moe_combine(y, slot, wts), 50),
         library_time(torch, lambda: F.embedding_bag(slot_l, y, per_sample_weights=wts_b,
                                                     mode="sum"),
@@ -694,6 +709,24 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
         n * d * 2 + t * k * 8 + t * d * 4, 2.0 * n * d, "float32",
         f"y [{n}, {d}] bf16, slot/w [{t}, {k}] -> [{t}, {d}] f32",
     )
+    # -- the send gather's backward: the combine of the send rows' gradient
+    # with unit weights, bf16 out; embedding_bag's unweighted sum beside it.
+    dsend = randn(n, d, dt=bf16)
+    ones = torch.ones((t, k), device=dev)
+    got = kmd.moe_combine_cuda(dsend, slot, ones, out_dtype=bf16)
+    assert torch.equal(got, kmd.moe_combine_cuda(dsend, slot, ones).to(bf16)), \
+        "the bf16 combine differs from the f32 combine rounded once"
+    rows["moe_combine_bf16"] = kernel_row(
+        torch, "moe_combine_bf16", check(torch, got, ref.moe_combine(dsend, slot, ones), BF16_TOL,
+                                         "moe_combine bf16"),
+        lambda: kmd.moe_combine_cuda(dsend, slot, ones, out_dtype=bf16), 200,
+        time_ms(torch, lambda: ref.moe_combine(dsend, slot, ones).to(bf16), 50),
+        library_time(torch, lambda: F.embedding_bag(slot_l, dsend, mode="sum"), got,
+                     BF16_GEMM_REL, 200, "moe_combine_bf16 (F.embedding_bag)"),
+        n * d * 2 + t * k * 8 + t * d * 2, 2.0 * n * d, "float32",
+        f"dout [{n}, {d}] bf16, unit weights [{t}, {k}] -> [{t}, {d}] bf16",
+    )
+    del dsend
     # -- its backward: dy through the inverse map (plan1.src), dw as row dot products.
     dout = randn(t, d)
     want_dy, want_dw = _grads(torch, lambda a, b: ref.moe_combine(a, slot, b), [y, wts], dout)
@@ -702,8 +735,9 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
               check(torch, gw, want_dw, REDUCE_TOL, "moe_combine_bwd dw"))
     rows["moe_combine_bwd"] = kernel_row(
         torch, "moe_combine_bwd", err,
-        time_ms(torch, lambda: kmd.moe_combine_bwd_cuda(dout, y, slot, wts, plan1.src), 200),
-        time_ms(torch, lambda: ref.moe_combine_bwd(dout, y, slot, wts, plan1.src), 50), None,
+        lambda: kmd.moe_combine_bwd_cuda(dout, y, slot, wts, plan1.src), 200,
+        time_ms(torch, lambda: ref.moe_combine_bwd(dout, y, slot, wts, plan1.src), 50),
+        NO_LIBRARY,
         t * d * 4 + n * d * 2 + n * d * 2 + t * k * 12 + n * 4, 3.0 * n * d, "float32",
         f"dout [{t}, {d}] f32, y [{n}, {d}] bf16 -> dy, dw [{t}, {k}]",
     )
@@ -715,9 +749,9 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     assert torch.equal(ids, ri), "topk_gating ids differ from the plain version"
     rows["topk_gating"] = kernel_row(
         torch, "topk_gating", check(torch, wk, rw, F32_TOL, "topk_gating"),
-        time_ms(torch, lambda: ktg.topk_gating_cuda(logits, k), 200),
+        lambda: ktg.topk_gating_cuda(logits, k), 200,
         time_ms(torch, lambda: ref.topk_gating(logits, k), 200),
-        time_ms(torch, lambda: torch.topk(torch.softmax(logits, -1), k, dim=-1), 200),
+        timed(torch, lambda: torch.topk(torch.softmax(logits, -1), k, dim=-1), 200),
         t * e * 4 + t * k * 8, t * e * (5 + k), "float32", f"logits [{t}, {e}] f32, k={k}",
     )
     dwt = randn(t, k)
@@ -726,8 +760,8 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     err = check(torch, got, want, F32_TOL, "topk_gating_bwd")
     rows["topk_gating_bwd"] = kernel_row(
         torch, "topk_gating_bwd", err,
-        time_ms(torch, lambda: ktg.topk_gating_bwd_cuda(logits, dwt, ids), 200),
-        time_ms(torch, lambda: ref.topk_gating_bwd(logits, dwt, ids), 200), None,
+        lambda: ktg.topk_gating_bwd_cuda(logits, dwt, ids), 200,
+        time_ms(torch, lambda: ref.topk_gating_bwd(logits, dwt, ids), 200), NO_LIBRARY,
         t * e * 8 + t * k * 8, t * e * 10.0, "float32", f"logits [{t}, {e}] f32, k={k}",
     )
 
@@ -742,9 +776,9 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     rows["flash_attention"] = kernel_row(
         torch, "flash_attention",
         check(torch, out, ref.flash_attention(q, kk, vv, causal=True), BF16_TOL, "flash_attention"),
-        time_ms(torch, lambda: kfa.flash_attention_cuda(q, kk, vv, causal=True, return_lse=True), 50),
+        lambda: kfa.flash_attention_cuda(q, kk, vv, causal=True, return_lse=True), 50,
         time_ms(torch, lambda: ref.flash_attention(q, kk, vv, causal=True), 20),
-        time_ms(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 50),
+        timed(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 50),
         2 * (2 * batch * hq + 2 * batch * hkv) * seq * dh + batch * hq * seq * 4,
         4.0 * dh * pairs * hq * batch, "bfloat16",
         f"q [{batch}, {hq}, {seq}, {dh}] bf16 causal, with log-sum-exp",
@@ -757,9 +791,9 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
     rows["flash_attention_bwd"] = kernel_row(
         torch, "flash_attention_bwd", err,
-        time_ms(torch, lambda: kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do), 20),
+        lambda: kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do), 20,
         time_ms(torch, lambda: ref.flash_attention_bwd(q, kk, vv, do, causal=True), 5),
-        time_ms(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), 20),
+        timed(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), 20),
         (3 * batch * hq * seq * dh + 4 * batch * hkv * seq * dh + batch * hq * seq * dh) * 2
         + batch * hq * seq * 4, 10.0 * dh * pairs * hq * batch, "bfloat16",
         f"q [{batch}, {hq}, {seq}, {dh}], k/v [{batch}, {hkv}, {seq}, {dh}] bf16 causal",
@@ -923,7 +957,7 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     gemm = 2.0 * e * c * d * f
     rows["grouped_matmul"] = kernel_row(
         torch, "grouped_matmul", err,
-        time_ms(torch, lambda: kgm.grouped_matmul_cuda(x, w), 20),
+        lambda: kgm.grouped_matmul_cuda(x, w), 20,
         time_ms(torch, lambda: ref.grouped_matmul(x, w), 5),
         library_time(torch, lambda: torch.bmm(x, w), want, BF16_GEMM_REL, 20,
                      "grouped_matmul (torch.bmm)"),
@@ -935,7 +969,7 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     dx = kgm.grouped_matmul_dx_cuda(dy, w)
     rows["grouped_matmul_dx"] = kernel_row(
         torch, "grouped_matmul_dx", check_rel(dx, want_dx, BF16_GEMM_REL, "grouped_matmul dX"),
-        time_ms(torch, lambda: kgm.grouped_matmul_dx_cuda(dy, w), 20),
+        lambda: kgm.grouped_matmul_dx_cuda(dy, w), 20,
         time_ms(torch, lambda: ref.grouped_matmul(dy, wt), 5),
         library_time(torch, lambda: torch.bmm(dy, wt), want_dx, BF16_GEMM_REL, 20,
                      "grouped_matmul_dx (torch.bmm)"),
@@ -945,7 +979,7 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     dw = kgm.grouped_matmul_dw_cuda(x, dy)
     rows["grouped_matmul_dw"] = kernel_row(
         torch, "grouped_matmul_dw", check_rel(dw, want_dw, BF16_GEMM_REL, "grouped_matmul dW"),
-        time_ms(torch, lambda: kgm.grouped_matmul_dw_cuda(x, dy), 20),
+        lambda: kgm.grouped_matmul_dw_cuda(x, dy), 20,
         time_ms(torch, lambda: ref.grouped_matmul_dw(x, dy), 5),
         library_time(torch, lambda: torch.bmm(xt, dy), want_dw, BF16_GEMM_REL, 20,
                      "grouped_matmul_dw (torch.bmm)"),
@@ -964,7 +998,7 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     rows["grouped_matmul_wout"] = kernel_row(
         torch, "grouped_matmul_wout",
         check_rel(kgm.grouped_matmul_cuda(h, w_out), want, BF16_GEMM_REL, "grouped_matmul w_out"),
-        time_ms(torch, lambda: kgm.grouped_matmul_cuda(h, w_out), 20),
+        lambda: kgm.grouped_matmul_cuda(h, w_out), 20,
         time_ms(torch, lambda: ref.grouped_matmul(h, w_out), 5),
         library_time(torch, lambda: torch.bmm(h, w_out), want, BF16_GEMM_REL, 20,
                      "grouped_matmul_wout (torch.bmm)"),
@@ -977,7 +1011,7 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
         torch, "grouped_matmul_dw_wout",
         check_rel(kgm.grouped_matmul_dw_cuda(h, dy_out), want, BF16_GEMM_REL,
                   "grouped_matmul dW w_out"),
-        time_ms(torch, lambda: kgm.grouped_matmul_dw_cuda(h, dy_out), 20),
+        lambda: kgm.grouped_matmul_dw_cuda(h, dy_out), 20,
         time_ms(torch, lambda: ref.grouped_matmul_dw(h, dy_out), 5),
         library_time(torch, lambda: torch.bmm(ht, dy_out), want, BF16_GEMM_REL, 20,
                      "grouped_matmul_dw_wout (torch.bmm)"),
@@ -991,7 +1025,7 @@ def capacity_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
         torch, "grouped_matmul_dx_wout",
         check_rel(kgm.grouped_matmul_dx_cuda(dy_out, w_out), want, BF16_GEMM_REL,
                   "grouped_matmul dX w_out"),
-        time_ms(torch, lambda: kgm.grouped_matmul_dx_cuda(dy_out, w_out), 20),
+        lambda: kgm.grouped_matmul_dx_cuda(dy_out, w_out), 20,
         time_ms(torch, lambda: ref.grouped_matmul(dy_out, wt), 5),
         library_time(torch, lambda: torch.bmm(dy_out, wt), want, BF16_GEMM_REL, 20,
                      "grouped_matmul_dx_wout (torch.bmm)"),
@@ -1284,6 +1318,8 @@ TRAIN_KERNELS = (
 CAPACITY_KERNELS = TRAIN_KERNELS[:7] + ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
 # Kernel rows at a second shape of the path -> the kernel they time.
 SHAPE_ROWS = {
+    "moe_dispatch_pack": "moe_dispatch", "moe_dispatch_unpack": "moe_dispatch",
+    "moe_combine_bf16": "moe_combine",
     "grouped_matmul_wout": "grouped_matmul", "grouped_matmul_dx_wout": "grouped_matmul_dx",
     "grouped_matmul_dw_wout": "grouped_matmul_dw",
     "grouped_matmul_blocks_wout": "grouped_matmul_blocks",
@@ -1538,7 +1574,7 @@ def profile_train(torch, tr, data, tokens: int):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     classes: dict[str, float] = {}
     kernels = []
-    ours = ("topk_gating", "flash_fwd", "flash_bwd", "gather_rows", "combine", "gmm_")
+    ours = ("topk_gating", "flash_fwd", "flash_bwd", "vector_gather_kernel", "combine", "gmm_")
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -1658,9 +1694,8 @@ def ssm_kernel_phase(torch, cfg, seed: int):
                   check_rel(st, wst, SSD_REL, f"ssd_chunk state ({what})"))
         bytes_moved, flops = ssd_cost(gg, batch_chunks, l, p, n)
         row = kernel_row(
-            torch, "ssd_chunk", err,
-            time_ms(torch, lambda: ssd_chunk_cuda(x, da, bm, cm, heads), 50),
-            time_ms(torch, lambda: ssd_plain(torch, x, da, bm, cm, heads), 10), None,
+            torch, "ssd_chunk", err, lambda: ssd_chunk_cuda(x, da, bm, cm, heads), 50,
+            time_ms(torch, lambda: ssd_plain(torch, x, da, bm, cm, heads), 10), NO_LIBRARY,
             bytes_moved, flops, "float32",
             f"{what}: x [{gg}, {l}, {p}] f32, B/C [{batch_chunks}, {l}, {n}] shared by "
             f"{heads} heads",
@@ -1677,8 +1712,7 @@ def ssm_kernel_phase(torch, cfg, seed: int):
         err = check(torch, got, want, BF16_TOL, f"rmsnorm [{t}, {dd}]")
         w1 = (1.0 + w.float()).to(torch.bfloat16)  # the library's weight, formed before timing
         row = kernel_row(
-            torch, "rmsnorm", err,
-            time_ms(torch, lambda: rmsnorm_cuda(x, w, cfg.norm_eps), 200),
+            torch, "rmsnorm", err, lambda: rmsnorm_cuda(x, w, cfg.norm_eps), 200,
             time_ms(torch, lambda: ref.rmsnorm(x, w, cfg.norm_eps), 200),
             library_time(torch, lambda: F.rms_norm(x, (dd,), w1, cfg.norm_eps), want,
                          BF16_TOL["rtol"], 200, "rmsnorm (F.rms_norm)"),
@@ -2023,7 +2057,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models.transformer import init_model
@@ -2103,6 +2136,12 @@ def main(argv=None) -> int:
     rows.update(train_kernel_phase(torch, MIXTRAL_8X7B_CONFIG, 2, 256, args.seed))
     rows.update(capacity_kernel_phase(torch, capacity_config(MIXTRAL_8X7B_CONFIG), 2, 256,
                                       args.seed))
+    # What the kernel phases left for the collector goes before the training
+    # phases measure peak memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"kernel phases done: {torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated",
+          flush=True)
     step_card_vs_cpu(torch, args.seed)
     # A capacity factor of 1.0 drops choices at stage 2 (-1 rows under autograd).
     step_card_vs_cpu(torch, args.seed, dispatch="capacity", capacity_factor=1.0)
@@ -2132,7 +2171,8 @@ def main(argv=None) -> int:
             name=row_name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"],
+            library_ms=r["library_ms"], device_ms=r["device_ms"],
+            library_device_ms=r["library_device_ms"], shape=r["shape"],
             launches_by_path={"serve": counts_on[name], "train": counts_train[name],
                               "train_capacity": counts_cap[name],
                               "serve_mamba2": counts_mamba[name], "generate": counts_gen[name]},
@@ -2140,7 +2180,7 @@ def main(argv=None) -> int:
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 24, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 27, [r["name"] for r in line]
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,20 +28,20 @@ backward through autograd), the bound (bytes over 3.35 TB/s or FLOP over
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib.util
 import pathlib
-import shutil
-import subprocess
 import sys
-import tempfile
 
 REPO = pathlib.Path(__file__).resolve().parents[3]
 # Run as a file, this directory comes first on the path: its module names
 # (build, ops, ref, ...) must not shadow anything.
 if sys.path and pathlib.Path(sys.path[0] or ".").resolve() == pathlib.Path(__file__).resolve().parent:
     sys.path.pop(0)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_BF16 = 989e12  # dense
+_spec = importlib.util.spec_from_file_location(
+    "_repro_kernel_timing", pathlib.Path(__file__).with_name("timing.py"))
+timing = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(timing)
+
 # (name, B, Hq, Hkv, S, D)
 SHAPES = (
     ("mixtral train", 2, 32, 8, 256, 128),
@@ -70,65 +70,6 @@ VARIANTS = {
 }
 
 
-def variant_library(build, kfa, name: str) -> ctypes.CDLL:
-    tmp = pathlib.Path(tempfile.mkdtemp())
-    for f in build.CSRC.iterdir():
-        if f.suffix in (".cu", ".cuh"):
-            shutil.copy(f, tmp / f.name)
-    for fname, old, new in VARIANTS[name]:
-        text = (tmp / fname).read_text()
-        assert old in text, f"variant {name}: {old!r} not in {fname}"
-        (tmp / fname).write_text(text.replace(old, new))
-    out = tmp / "libflash_attention.so"
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(tmp), "-o", str(out),
-                    str(tmp / "flash_attention.cu")], check=True)
-    lib = ctypes.CDLL(str(out))
-    for fn, (argtypes, restype) in kfa._FLASH_SIG.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
-
-
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def device_ms(torch, fn, iters: int = 10) -> tuple[float, dict]:
-    """Device milliseconds a call of ``fn`` keeps the card busy (its kernels'
-    time under torch.profiler, mean of ``iters`` calls), and per kernel name.
-    Back-to-back CUDA-event times of a call that the host issues slower than
-    the card runs it measure the host; this does not."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            per[ev.key] = per.get(ev.key, 0.0) + ev.self_device_time_total / 1e3 / iters
-    return sum(per.values()), per
-
-
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(REPO / "src"))
@@ -146,9 +87,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as kfa
 
     if args.variant:
-        build._loaded["flash_attention"] = variant_library(build, kfa, args.variant)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+        build._loaded["flash_attention"] = timing.variant_library(
+            build, "flash_attention", kfa._FLASH_SIG, VARIANTS[args.variant])
+    card = timing.card_line()
     tag = args.tag + (f" [{args.variant}]" if args.variant else "")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -189,11 +130,11 @@ def main(argv=None) -> int:
              lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)),
         )
         for kname, nbytes, flops, kernel, library in calls:
-            ms = time_ms(torch, kernel, iters)
-            dev, per = device_ms(torch, kernel)
-            lib = time_ms(torch, library, iters)
-            lib_dev, _ = device_ms(torch, library)
-            bms, by = bound_ms(nbytes, flops)
+            ms = timing.time_ms(torch, kernel, iters)
+            dev, per = timing.device_ms(torch, kernel)
+            lib = timing.time_ms(torch, library, iters)
+            lib_dev, _ = timing.device_ms(torch, library)
+            bms, by = timing.bound_ms(nbytes, flops)
             parts = " ".join(f"{n[:40]}={t:.5f}" for n, t in sorted(per.items()))
             print(f"bench [{tag}] {kname} {shape}: ms={ms:.5f} device_ms={dev:.5f} "
                   f"sdpa_ms={lib:.5f} sdpa_device_ms={lib_dev:.5f} bound_ms={bms:.5f} ({by}) "

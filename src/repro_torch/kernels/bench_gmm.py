@@ -21,18 +21,20 @@ the library call's beside it, and the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib.util
 import pathlib
-import shutil
-import subprocess
 import sys
-import tempfile
 
 REPO = pathlib.Path(__file__).resolve().parents[3]
 # Run as a file, this directory comes first on the path: its module names
 # (build, ops, ref, ...) must not shadow anything.
 if sys.path and pathlib.Path(sys.path[0] or ".").resolve() == pathlib.Path(__file__).resolve().parent:
     sys.path.pop(0)
+_spec = importlib.util.spec_from_file_location(
+    "_repro_kernel_timing", pathlib.Path(__file__).with_name("timing.py"))
+timing = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(timing)
+
 D, F, E, TOP_K, TOKENS, CAPACITY = 4096, 14336, 8, 2, 512, 200
 REL = 1e-2
 
@@ -60,38 +62,6 @@ VARIANTS = {
         "const int clusters = static_cast<int>(n_ctiles);",
     )],
 }
-
-
-def variant_library(build, kgm, name: str) -> ctypes.CDLL:
-    tmp = pathlib.Path(tempfile.mkdtemp())
-    for f in build.CSRC.iterdir():
-        if f.suffix in (".cu", ".cuh"):
-            shutil.copy(f, tmp / f.name)
-    for fname, old, new in VARIANTS[name]:
-        text = (tmp / fname).read_text()
-        assert old in text, f"variant {name}: {old!r} not in {fname}"
-        (tmp / fname).write_text(text.replace(old, new))
-    out = tmp / "libgrouped_matmul.so"
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(tmp), "-o", str(out),
-                    str(tmp / "grouped_matmul.cu")], check=True)
-    lib = ctypes.CDLL(str(out))
-    for fn, (argtypes, restype) in kgm._SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
-
-
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def plans(np):
@@ -149,10 +119,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import grouped_matmul as kgm
 
     if args.variant:
-        lib = variant_library(build, kgm, args.variant)
+        lib = timing.variant_library(build, "grouped_matmul", kgm._SIGNATURES,
+                                     VARIANTS[args.variant])
         kgm._lib = lambda: lib
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = timing.card_line()
     tag = args.tag + (f" [{args.variant}]" if args.variant else "")
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -160,8 +130,8 @@ def main(argv=None) -> int:
     def row(name, shape, kernel, library):
         want = library()
         check(kernel(), want, f"{name} {shape}")
-        ms = time_ms(torch, kernel)
-        lib_ms = f" library_ms={time_ms(torch, library):.5f}" if args.library else ""
+        ms = timing.time_ms(torch, kernel, 20)
+        lib_ms = f" library_ms={timing.time_ms(torch, library, 20):.5f}" if args.library else ""
         print(f"bench [{tag}] {name} {shape}: ms={ms:.5f}{lib_ms}", flush=True)
 
     for layer, (kd, nd) in (("w_in", (D, F)), ("w_out", (F, D))):
@@ -194,7 +164,7 @@ def main(argv=None) -> int:
             # What writing a dW costs the card alone: a fill of [E, K, N] bf16.
             out = torch.empty((E, kd, nd), device="cuda", dtype=bf)
             print(f"bench [{tag}] write ceiling: fill_ of [{E}, {kd}, {nd}] bf16: "
-                  f"ms={time_ms(torch, lambda: out.fill_(1.0)):.5f}", flush=True)
+                  f"ms={timing.time_ms(torch, lambda: out.fill_(1.0), 20):.5f}", flush=True)
             del out
         del w, w_t, xc, dyc
         torch.cuda.empty_cache()

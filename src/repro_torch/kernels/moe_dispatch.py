@@ -16,8 +16,11 @@ inverse views of one permutation), so no gradient needs atomics:
 * a many-to-one gather (the send buffer, where each token row feeds its
   top-k choices) is differentiated by the combine with unit weights
   through ``[T, S]``;
-* the combine's own backward (``moe_combine_bwd``) gathers ``dy`` through
-  the inverse ``src [P]`` and reduces ``dw`` row by row.
+* the combine's own backward (``moe_combine_bwd``) works from each token's
+  side: it reads ``dout[t]`` once, writes ``dy[slot[t, s]]`` for each of the
+  token's terms and reduces ``dw[t, s]`` in a fixed order.  It relies on
+  ``slot`` and ``src`` being exact inverses, as a plan's are, and zeros the
+  rows whose ``src`` is -1.
 """
 
 from __future__ import annotations
@@ -135,7 +138,13 @@ def moe_combine_bwd_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(dy ``[P, D]`` in y's dtype, dw ``[T, S]`` f32 or None) for the
     combine's output gradient ``dout [T, D]`` f32; ``src [P]`` is the flat
-    ``t * S + s`` term reading each row, -1 for none."""
+    ``t * S + s`` term reading each row, -1 for none.
+
+    Precondition: ``slot`` and ``src`` are exact inverses (``slot[t, s] = p
+    >= 0`` exactly when ``src[p] = t * S + s``), as a ``DispatchPlan``'s
+    ``slot`` and ``src`` are.  The kernel writes ``dy[slot[t, s]]`` from
+    token t's side and zeros the rows whose ``src`` is -1; a row that
+    ``src`` names but no ``slot`` entry points back to is left unwritten."""
     _check("moe_combine_bwd_cuda", {
         "dout": (dout, _F32), "y": (y, _DATA), "slot": (slot, _I32),
         "weights": (weights, _F32), "src": (src, _I32),
@@ -189,14 +198,15 @@ class MoEDispatchFn(torch.autograd.Function):
 
 class MoECombineFn(torch.autograd.Function):
     """``moe_combine`` with its backward kernel; ``inverse [P]`` is the
-    flat ``t * S + s`` term reading each packed row (-1 for none)."""
+    flat ``t * S + s`` term reading each packed row (-1 for none), the exact
+    inverse of ``slot``; the result is rounded once to ``out_dtype``."""
 
     @staticmethod
-    def forward(ctx, y, slot, weights, inverse):
+    def forward(ctx, y, slot, weights, inverse, out_dtype=torch.float32):
         if inverse.shape != (y.shape[0],):
             raise ValueError(f"moe_combine: inverse map {tuple(inverse.shape)} for {y.shape[0]} rows")
         ctx.save_for_backward(y, slot, weights, inverse)
-        return moe_combine_cuda(y, slot, weights)
+        return moe_combine_cuda(y, slot, weights, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, dout):
@@ -205,4 +215,4 @@ class MoECombineFn(torch.autograd.Function):
             dout.float().contiguous(), y, slot, weights, inverse,
             need_dw=ctx.needs_input_grad[2],
         )
-        return (dy if ctx.needs_input_grad[0] else None), None, dw, None
+        return (dy if ctx.needs_input_grad[0] else None), None, dw, None, None

@@ -130,19 +130,20 @@ def moe_dispatch(x, src, *, inverse=None):
     return moe_dispatch_cuda(x, src)
 
 
-def moe_combine(y, slot, weights, *, inverse=None):
+def moe_combine(y, slot, weights, *, inverse=None, out_dtype=torch.float32):
     """Weighted combine of packed rows ``y [P, D]`` back to token order via
-    ``slot``/``weights [T, S]`` (f32 result; ``slot < 0`` terms skipped).
+    ``slot``/``weights [T, S]`` (``slot < 0`` terms skipped), summed in f32
+    and rounded once to ``out_dtype`` (f32, or bf16 for bf16 rows).
     ``inverse [P]``: the flat ``t * S + s`` term reading each row, which the
     backward gathers through on the card."""
     if _on_cpu(y):
-        return ref.moe_combine(y, slot, weights)
+        return ref.moe_combine(y, slot, weights).to(out_dtype)
     weights = weights.float().contiguous()
     if _wants_grad(y, weights):
         if inverse is None:
             raise ValueError("moe_combine on the card needs its inverse map for the backward")
-        return MoECombineFn.apply(y, slot, weights, inverse)
-    return moe_combine_cuda(y, slot, weights)
+        return MoECombineFn.apply(y, slot, weights, inverse, out_dtype)
+    return moe_combine_cuda(y, slot, weights, out_dtype=out_dtype)
 
 
 def grouped_matmul(x, w, *, block_experts=None):

@@ -236,8 +236,9 @@ def _moe_mixnet_local(
     ret = a2a(back.reshape(p_axis, cp, d))
     out = ops.moe_combine(
         ret.reshape(p_axis * cp, d), plan1.slot.reshape(tl, sc), info.wfull, inverse=plan1.src,
+        out_dtype=xl.dtype,
     )
-    out = out.reshape(bl, sl, d).to(xl.dtype)
+    out = out.reshape(bl, sl, d)
 
     balance, z = router_losses(logits, info.idx, e.num_experts)
     load = routing.expert_load(info.idx, e.num_experts, weights=gate_weights)

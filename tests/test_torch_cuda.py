@@ -137,7 +137,7 @@ from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul_dw_cuda, grouped_matmul_dx_cuda,
 )
 from repro_torch.kernels.moe_dispatch import (  # noqa: E402
-    MoECombineFn, MoEDispatchFn, moe_combine_cuda, moe_dispatch_cuda,
+    MoECombineFn, MoEDispatchFn, moe_combine_bwd_cuda, moe_combine_cuda, moe_dispatch_cuda,
 )
 from repro_torch.kernels.topk_gating import TopkGatingFn  # noqa: E402
 
@@ -219,6 +219,255 @@ def test_moe_dispatch_backward(dev, many_to_one):
     x2 = x.clone().requires_grad_()
     ref.moe_dispatch(x2, src).backward(g)
     torch.testing.assert_close(x1.grad.float(), x2.grad.float(), **GRAD_TOLS[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# kernels 4 and 5 at every shape of Mixtral-8x7B's dropless step, and across
+# widths, term counts, alignments and sizes.  The gathers only move bits;
+# the combine sums its terms in order in f32 with one rounding per product
+# and per sum, so it is bit-identical to the in-order loop below (each torch
+# op rounds once); dy is one product rounded once.  Only dw, a dot product
+# summed in another order than the plain version's, has a tolerance
+# (f32: 1e-4 relative and absolute, as GRAD_TOLS).  Every output is equal bit
+# for bit across two calls: no atomics.
+# ---------------------------------------------------------------------------
+
+MOE_WIDTHS = [5, 33, 96, 4096, 4100, 14336]
+
+
+def _combine_in_order(y, slot, w, out_dtype=torch.float32):
+    acc = torch.zeros((slot.shape[0], y.shape[1]), device=y.device)
+    for s in range(slot.shape[1]):
+        ok = ((slot[:, s] >= 0) & (slot[:, s] < y.shape[0]))[:, None]
+        term = w[:, s, None] * y[slot[:, s].clamp(0, y.shape[0] - 1).long()].float()
+        acc = torch.where(ok, acc + term, acc)
+    return acc.to(out_dtype)
+
+
+def _inverse(slot, p):
+    """src [p]: the flat t * S + s term reading each row, -1 for none."""
+    inv = torch.full((p,), -1, dtype=torch.int32, device=slot.device)
+    flat = slot.reshape(-1).long()
+    keep = flat >= 0
+    inv[flat[keep]] = torch.arange(flat.numel(), device=slot.device, dtype=torch.int32)[keep]
+    return inv
+
+
+def _dy_want(dout, w, src, dtype):
+    s = w.shape[1]
+    f = src.clamp(min=0).long()
+    dy = w.reshape(-1)[f][:, None] * dout[f // s]
+    return torch.where((src >= 0)[:, None], dy, torch.zeros((), device=dout.device)).to(dtype)
+
+
+def _check_combine_and_backward(y, slot, w, dtype):
+    """The combine (f32 out, and bf16 out for bf16 rows) and its backward
+    against their definitions, each twice."""
+    p = y.shape[0]
+    src = _inverse(slot, p)
+    got = moe_combine_cuda(y, slot, w)
+    assert torch.equal(got, _combine_in_order(y, slot, w))
+    assert torch.equal(moe_combine_cuda(y, slot, w), got)
+    dropped = (slot < 0).all(1)
+    assert not got[dropped].any() and not got[dropped].signbit().any()
+    if dtype == torch.bfloat16:
+        got_b = moe_combine_cuda(y, slot, w, out_dtype=torch.bfloat16)
+        assert torch.equal(got_b, got.to(torch.bfloat16))
+        assert torch.equal(got_b, _combine_in_order(y, slot, w, torch.bfloat16))
+    g = torch.randn(got.shape, device=y.device)
+    dy, dw = moe_combine_bwd_cuda(g, y, slot, w, src)
+    assert torch.equal(dy, _dy_want(g, w, src, dtype))
+    assert not dy[src < 0].any()
+    _, want_dw = ref.moe_combine_bwd(g, y, slot, w, src)
+    torch.testing.assert_close(dw, want_dw, **GRAD_TOLS[torch.float32])
+    assert not dw[slot < 0].any()
+    dy2, dw2 = moe_combine_bwd_cuda(g, y, slot, w, src)
+    assert torch.equal(dy2, dy) and torch.equal(dw2, dw)
+    dy3, none = moe_combine_bwd_cuda(g, y, slot, w, src, need_dw=False)
+    assert none is None and torch.equal(dy3, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", MOE_WIDTHS)
+def test_moe_dispatch_kernel_widths(dev, dtype, d):
+    rng = np.random.default_rng(d + 1)
+    x = torch.from_numpy(rng.standard_normal((300, d)).astype(np.float32)).to(dev, dtype)
+    src = _src(rng, 300, 700, 0.2).to(dev)  # many-to-one, with -1 rows
+    got = moe_dispatch_cuda(x, src)
+    assert torch.equal(got, ref.moe_dispatch(x, src))
+    assert torch.equal(moe_dispatch_cuda(x, src), got)
+    assert not got[src < 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("d", MOE_WIDTHS)
+def test_moe_combine_in_order_and_backward(dev, dtype, s, d):
+    rng = np.random.default_rng(100 * s + d)
+    t = 97
+    p = t * s + 19  # 19 rows no term reads
+    y = torch.from_numpy(rng.standard_normal((p, d)).astype(np.float32)).to(dev, dtype)
+    slot = rng.permutation(p)[: t * s].reshape(t, s)
+    slot = np.where(rng.random((t, s)) < 0.25, -1, slot)
+    slot[0] = -1  # a fully dropped row
+    w = torch.from_numpy(rng.standard_normal((t, s)).astype(np.float32)).to(dev)
+    _check_combine_and_backward(y, torch.from_numpy(slot.astype(np.int32)).to(dev), w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernels_many_rows(dev, dtype):
+    """8192 tokens top-2 at D = 4096: the gathers' CTAs loop over many rows,
+    the combine runs several waves."""
+    g = torch.Generator(device=dev).manual_seed(8192)
+    t, s, d = 8192, 2, 4096
+    p = t * s + 100
+    x = torch.randn((t, d), generator=g, device=dev).to(dtype)
+    src = torch.randint(-1, t, (p,), generator=g, device=dev, dtype=torch.int32)
+    assert torch.equal(moe_dispatch_cuda(x, src), ref.moe_dispatch(x, src))
+    y = torch.randn((p, d), generator=g, device=dev).to(dtype)
+    slot = torch.randperm(p, generator=g, device=dev)[: t * s].reshape(t, s).to(torch.int32)
+    slot[torch.rand((t, s), generator=g, device=dev) < 0.1] = -1
+    w = torch.rand((t, s), generator=g, device=dev)
+    _check_combine_and_backward(y, slot, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernels_off_alignment(dev, dtype):
+    """Contiguous views one element past a 16-byte boundary: the gather's
+    narrower vector paths and the one-element combine and backward."""
+    rng = np.random.default_rng(17)
+    t, s, d = 61, 2, 4096
+    p = t * s + 7
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        return view
+
+    x = shifted(torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32)).to(dev, dtype))
+    src = _src(rng, t, p, 0.2).to(dev)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    assert torch.equal(moe_dispatch_cuda(x, src), ref.moe_dispatch(x, src))
+    y = shifted(torch.from_numpy(rng.standard_normal((p, d)).astype(np.float32)).to(dev, dtype))
+    slot = rng.permutation(p)[: t * s].reshape(t, s)
+    slot = np.where(rng.random((t, s)) < 0.25, -1, slot)
+    w = torch.from_numpy(rng.random((t, s)).astype(np.float32)).to(dev)
+    _check_combine_and_backward(y, torch.from_numpy(slot.astype(np.int32)).to(dev), w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gather", "combine"])
+def test_moe_kernels_past_2_31_accesses(dev, kernel):
+    """Outputs of more than 2^31 accesses, where the gather and the combine
+    index with 64-bit integers: the gather's 2-byte path (rows of 3 bf16)
+    and the one-element combine (D = 33), checked in slices against their
+    definitions."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    if kernel == "gather":
+        rows = 1 << 26
+        t, d = 64, 3
+        p = (1 << 31) // d + 4096
+        x = torch.randn((t, d), generator=g, device=dev).bfloat16()
+        src = torch.randint(-1, t, (p,), generator=g, device=dev, dtype=torch.int32)
+        got = moe_dispatch_cuda(x, src)
+        assert got.numel() > 1 << 31
+        for a in range(0, p, rows):
+            assert torch.equal(got[a:a + rows], ref.moe_dispatch(x, src[a:a + rows]))
+    else:
+        rows = 1 << 24
+        p, d = 64, 33
+        t = (1 << 31) // d + 4096
+        y = torch.randn((p, d), generator=g, device=dev).bfloat16()
+        slot = torch.randint(-1, p, (t, 1), generator=g, device=dev, dtype=torch.int32)
+        w = torch.rand((t, 1), generator=g, device=dev)
+        got = moe_combine_cuda(y, slot, w)
+        assert got.numel() > 1 << 31
+        for a in range(0, t, rows):
+            assert torch.equal(got[a:a + rows], _combine_in_order(y, slot[a:a + rows],
+                                                                    w[a:a + rows]))
+
+
+def _mixtral_plans(dev, cf=None):
+    """The send gather's sources and the two dispatch plans of Mixtral's
+    step at P = 1 (T = 512 top-2 over 8 experts), as _moe_mixnet_local
+    builds them; ``cf``: a stage-1 capacity factor that drops choices."""
+    from repro_torch.models import routing
+
+    t, e, k = 512, 8, 2
+    n = t * k
+    g = torch.Generator(device=dev).manual_seed(11)
+    info = routing.compute_routing(torch.randn((t, e), generator=g, device=dev), top_k=k,
+                                   num_virtual=e, replication=1)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    rank1, _ = routing.bucket_ranks(zeros, 1)
+    cp = n if cf is None else routing.capacity(t, k, 1, cf)
+    plan1 = routing.capacity_plan(zeros, rank1, None if cf is None else rank1 < cp, 1, cp)
+    src_tok = torch.where(plan1.src >= 0, plan1.src // k, torch.full_like(plan1.src, -1))
+    local_e = torch.where(plan1.src >= 0, info.vdest.reshape(n)[plan1.src.clamp(0, n - 1).long()],
+                          torch.full_like(plan1.src, -1)).to(torch.int32)
+    valid = local_e >= 0
+    rank2, counts2 = routing.bucket_ranks(local_e, e, valid=valid)
+    plan2 = routing.dropless_plan(local_e, rank2, counts2, valid, e, 8)
+    return info.wfull.float().contiguous(), plan1, src_tok, plan2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["send", "pack", "unpack", "combine_f32", "combine_bf16",
+                                  "combine_bwd"])
+def test_moe_kernels_main_path_shapes(dev, call):
+    w, plan1, src_tok, plan2 = _mixtral_plans(dev)
+    t, k = w.shape
+    d = 4096
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((t, d), generator=g, device=dev).bfloat16()
+    sent = moe_dispatch_cuda(x, src_tok)
+    packed = moe_dispatch_cuda(sent, plan2.src)
+    slot = plan1.slot.reshape(t, k)
+    if call == "send":
+        got, want = sent, ref.moe_dispatch(x, src_tok)
+        assert got.shape == (t * k, d)
+    elif call == "pack":
+        got, want = packed, ref.moe_dispatch(sent, plan2.src)
+        assert got.shape[0] > t * k and not got[plan2.src < 0].any()
+    elif call == "unpack":
+        got, want = moe_dispatch_cuda(packed, plan2.slot), sent
+    elif call == "combine_f32":
+        got = moe_combine_cuda(sent, slot, w)
+        want = _combine_in_order(sent, slot, w)
+    elif call == "combine_bf16":  # the send gather's backward: unit weights, bf16 out
+        ones = torch.ones_like(w)
+        got = moe_combine_cuda(sent, slot, ones, out_dtype=torch.bfloat16)
+        want = _combine_in_order(sent, slot, ones, torch.bfloat16)
+    else:
+        _check_combine_and_backward(sent, slot, w, torch.bfloat16)
+        return
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_moe_combine_backward_on_a_dropping_plan(dev):
+    """A stage-1 capacity that drops choices (slot -1) and leaves no send row
+    empty, then the dropless stage 2 with its padding rows: the backward's
+    precondition (slot and src exact inverses) holds for both plans."""
+    w, plan1, src_tok, plan2 = _mixtral_plans(dev, cf=0.75)
+    t, k = w.shape
+    slot = plan1.slot.reshape(t, k)
+    assert (slot < 0).any() and (plan2.src < 0).any()
+    assert torch.equal(_inverse(slot, plan1.src.shape[0]), plan1.src)
+    g = torch.Generator(device=dev).manual_seed(13)
+    y = torch.randn((plan1.src.shape[0], 256), generator=g, device=dev).bfloat16()
+    _check_combine_and_backward(y, slot, w, torch.bfloat16)
+    # stage 2 read as a combine over S = 1: packed rows by choice, padding unread
+    yp = torch.randn((plan2.src.shape[0], 256), generator=g, device=dev).bfloat16()
+    slot2 = plan2.slot.reshape(-1, 1)
+    assert torch.equal(_inverse(slot2, yp.shape[0]), plan2.src)
+    _check_combine_and_backward(yp, slot2, torch.rand(slot2.shape, generator=g, device=dev),
+                                torch.bfloat16)
 
 
 def _blocks_case(rng, dev, dtype, e, k, n, counts):

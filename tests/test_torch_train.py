@@ -682,3 +682,14 @@ def test_ops_training_path_on_cpu_is_plain():
     assert torch.equal(ops.grouped_matmul(_t(xb[:3]), _t(wb)),
                        tref.grouped_matmul(_t(xb[:3]), _t(wb)))
     assert not any(ops.launch_counts().values())
+
+
+def test_ops_moe_combine_out_dtype_on_cpu():
+    """``out_dtype`` rounds the f32 combine once: what the MoE layer's cast
+    to its activations' dtype did before it passed ``out_dtype``."""
+    _, _, y, slot, w, _, _, _ = _moe_inputs()
+    yb = _t(y).bfloat16()
+    want = tref.moe_combine(yb, _t(slot), _t(w))
+    got = ops.moe_combine(yb, _t(slot), _t(w), out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want.to(torch.bfloat16))
+    assert torch.equal(ops.moe_combine(yb, _t(slot), _t(w)), want)
