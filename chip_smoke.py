@@ -115,7 +115,9 @@ REPO = pathlib.Path(__file__).resolve().parent
 SRC = REPO / "src"
 if (SRC / "repro_torch" / "csrc").is_dir():  # else main() refuses to run
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.timing import HBM_BYTES_PER_S, bound_ms, card_line, device_ms, time_ms
+    from repro_torch.kernels.timing import (
+        HBM_BYTES_PER_S, bound_ms, card_line, device_ms, graph_ms, time_ms,
+    )
 
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # torch.testing bf16 defaults
 F32_TOL = dict(rtol=1.3e-6, atol=1e-5)  # torch.testing f32 defaults
@@ -192,7 +194,22 @@ KERNEL_ROWS = {
                                "src/repro/kernels/grouped_matmul.py:62"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:50"),
+    # Kernel 3 at a long context; kernel 9 at a 256-token prefill and at
+    # generate's batch; kernel 8 at its other shapes of the Mamba-2 serve
+    # (SHAPE_ROWS; "rmsnorm" is the prefills' gated norm).
+    "paged_flash_decode_long": ("src/repro_torch/csrc/paged_flash_decode.cu",
+                                "src/repro/kernels/flash_attention.py:226"),
+    "ssd_chunk_prefill_256": ("src/repro_torch/csrc/ssd_chunk.cu",
+                              "src/repro/kernels/ssd_chunk.py:50"),
+    "ssd_chunk_generate": ("src/repro_torch/csrc/ssd_chunk.cu",
+                           "src/repro/kernels/ssd_chunk.py:50"),
+    "rmsnorm_prefill_d": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "rmsnorm_decode_inner": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "rmsnorm_decode_d": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
 }
+# End-to-end numbers the serve phases leave for the summary line (measured,
+# not claimed: they move with the host).
+E2E: dict = {}
 
 
 def check(torch, got, want, tol, what: str) -> float:
@@ -223,13 +240,16 @@ def library_time(torch, fn, want, rel: float, iters: int, what: str):
     return time_ms(torch, fn, iters), fn
 
 
-def kernel_row(torch, name, err, kernel, iters, plain, library, bytes_moved, flops, dtype, shape):
+def kernel_row(torch, name, err, kernel, iters, plain, library, bytes_moved, flops, dtype, shape,
+               graph: bool = False):
     """One row of the kernels line.  ``kernel``: the wrapper's call, timed
     by CUDA events over ``iters`` back-to-back calls; ``library``:
     (CUDA-event time, call) of the library yardstick, or NO_LIBRARY.  Both
     calls are also timed under the profiler: device time, which for calls
     this small is what the card spends (the event time is the host's issue
-    rate)."""
+    rate).  ``graph``: also the wall time per call in a CUDA graph of 20
+    calls (``graph_ms``: for a call of two kernels that overlap, whose
+    profiler times sum the overlap twice)."""
     lib, lib_fn = library
     bms, by = bound_ms(bytes_moved, flops, dtype)
     ms = time_ms(torch, kernel, iters)
@@ -237,10 +257,13 @@ def kernel_row(torch, name, err, kernel, iters, plain, library, bytes_moved, flo
     lib_dev = None if lib_fn is None else device_ms(torch, lib_fn)[0]
     r = dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
              library_ms=lib, library_device_ms=lib_dev, shape=shape)
+    if graph:
+        r["graph_ms"] = graph_ms(torch, kernel)
     fmt = lambda v: "null" if v is None else f"{v:.5f}"  # noqa: E731
     print(f"kernel {name} ({shape}): max_abs_err={err:.3e} kernel_ms={ms:.5f} "
           f"device_ms={dev:.5f} plain_ms={plain:.5f} library_ms={fmt(lib)} "
-          f"library_device_ms={fmt(lib_dev)} bound_ms={bms:.6f} ({by})", flush=True)
+          f"library_device_ms={fmt(lib_dev)} bound_ms={bms:.6f} ({by})"
+          + (f" graph_ms={r['graph_ms']:.5f}" if graph else ""), flush=True)
     return r
 
 
@@ -331,9 +354,10 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
     mask = pos[None, None, None, :] <= tvec[:, None, None, None]  # [B, 1, 1, L]
 
     def sdpa_paged():
-        vk = ref.paged_gather_kv(kp, table).transpose(1, 2).repeat_interleave(hq // hkv, 1)
-        vv_ = ref.paged_gather_kv(vp, table).transpose(1, 2).repeat_interleave(hq // hkv, 1)
-        return F.scaled_dot_product_attention(qd.transpose(1, 2), vk, vv_, attn_mask=mask)
+        vk = ref.paged_gather_kv(kp, table).transpose(1, 2)
+        vv_ = ref.paged_gather_kv(vp, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(qd.transpose(1, 2), vk, vv_, attn_mask=mask,
+                                              enable_gqa=True)
 
     kv_bytes = sum((t + 1) * hkv * d * 2 * 2 for t in lengths)
     rows["paged_flash_decode"] = kernel_row(
@@ -343,6 +367,39 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
         sum(4 * hq * d * (t + 1) for t in lengths), "bfloat16",
         f"q [{slots}, 1, {hq}, {d}] bf16, pool [{num_pages}, {page}, {hkv}, {d}], t={lengths}",
     )
+
+    # -- paged_flash_decode at a long context: every slot at t = 4095, a pool
+    # of 1024 pages (67 MB of K/V read).
+    long_t, long_pages = 4095, 1024
+    width = -(-(long_t + 1) // page)
+    lengths = [long_t] * slots
+    table = page_table_for(torch, lengths, 1, page, width, long_pages, cpu_g).to(dev)
+    tvec = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kp = torch.randn((long_pages, page, hkv, d), generator=g, device=dev).to(bf16)
+    vp = torch.randn((long_pages, page, hkv, d), generator=g, device=dev).to(bf16)
+    out = paged_flash_decode_cuda(qd, kp, vp, table, tvec)
+    err = check(torch, out, ref.paged_flash_decode(qd, kp, vp, table, tvec), BF16_TOL,
+                "paged_flash_decode long context")
+    pos = torch.arange(width * page, device=dev)
+    long_mask = pos[None, None, None, :] <= tvec[:, None, None, None]
+
+    def sdpa_long():
+        vk = ref.paged_gather_kv(kp, table).transpose(1, 2)
+        vv_ = ref.paged_gather_kv(vp, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(qd.transpose(1, 2), vk, vv_, attn_mask=long_mask,
+                                              enable_gqa=True)
+
+    rows["paged_flash_decode_long"] = kernel_row(
+        torch, "paged_flash_decode_long", err,
+        lambda: paged_flash_decode_cuda(qd, kp, vp, table, tvec), 50,
+        time_ms(torch, lambda: ref.paged_flash_decode(qd, kp, vp, table, tvec), 3),
+        timed(torch, sdpa_long, 20),
+        2 * slots * hq * d * 2 + slots * (long_t + 1) * hkv * d * 2 * 2 + table.numel() * 4
+        + slots * 4,
+        4.0 * hq * d * (long_t + 1) * slots, "bfloat16",
+        f"q [{slots}, 1, {hq}, {d}] bf16, pool [{long_pages}, {page}, {hkv}, {d}], t={lengths}",
+    )
+    del kp, vp
     edge_cases(torch, g, cpu_g)
     return rows
 
@@ -476,6 +533,7 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
           f"decode_tick_ms median={med(decode):.3f} (n={len(decode)}) "
           f"admit_tick_ms median={med(admit):.3f} (n={len(admit)}) "
           f"reconfig_count={rep.reconfig_count} launches={counts}", flush=True)
+    E2E[f"grok decode tick ms, reconfig_every={reconfig_every}"] = med(decode)
     return rep, toks, counts
 
 
@@ -1327,6 +1385,10 @@ SHAPE_ROWS = {
     "grouped_matmul_blocks_dw_wout": "grouped_matmul_blocks_dw",
     "grouped_matmul_blocks_skew": "grouped_matmul_blocks",
     "grouped_matmul_blocks_dw_skew": "grouped_matmul_blocks_dw",
+    "paged_flash_decode_long": "paged_flash_decode",
+    "rmsnorm_prefill_d": "rmsnorm", "rmsnorm_decode_inner": "rmsnorm",
+    "rmsnorm_decode_d": "rmsnorm",
+    "ssd_chunk_prefill_256": "ssd_chunk", "ssd_chunk_generate": "ssd_chunk",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
@@ -1667,9 +1729,22 @@ def ssd_cost(g: int, bc: int, l: int, p: int, n: int) -> tuple[float, float]:
     return bytes_moved, flops
 
 
-def ssm_kernel_phase(torch, cfg, seed: int):
+def chunk_len(s_len: int, chunk: int) -> int:
+    """Kernel 9's L for a prefill of ``s_len`` tokens: the largest divisor
+    of S not above the chunk (``models/ssm.py``'s ``_ssd_chunked``)."""
+    l = min(chunk, s_len)
+    while s_len % l:
+        l -= 1
+    return l
+
+
+def ssm_kernel_phase(torch, cfg, seed: int, serve_lens, slots: int):
     """Kernels 8 and 9 at Mamba-2 1.3B's shapes on the serving path, against
-    their plain versions on the card, then edge cases."""
+    their plain versions on the card, then edge cases.  ``serve_lens``: the
+    prompt lengths the Mamba-2 serve prefills, ``slots`` its decode batch.
+    -> {row name: {launch shape: row}}: each kernels-line row is timed at
+    every shape it stands for, and takes those shapes' launches from the run
+    that launches them (``shape_row``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1680,12 +1755,19 @@ def ssm_kernel_phase(torch, cfg, seed: int):
     g = torch.Generator(device=dev).manual_seed(seed + 21)
     s = cfg.ssm
     d, inner = cfg.d_model, s.expand * cfg.d_model
-    heads, p, n, l = inner // s.head_dim, s.head_dim, s.state_dim, s.chunk
-    rows = {}
+    heads, p, n = inner // s.head_dim, s.head_dim, s.state_dim
+    rows = {"ssd_chunk": {}, "ssd_chunk_prefill_256": {}, "ssd_chunk_generate": {},
+            "rmsnorm": {}, "rmsnorm_prefill_d": {}, "rmsnorm_decode_inner": {},
+            "rmsnorm_decode_d": {}}
 
-    # -- kernel 9 at one 256-token prefill (G = 64) and at generate's batch
-    # of 4 x 512 tokens (2 chunks each, G = 512); the first is the row.
-    for batch_chunks, what in ((1, "prefill of 256 tokens"), (8, "generate, 4 x 512 tokens")):
+    # -- kernel 9 at each prefill of the serve (one row, batch 1), at one
+    # 256-token prefill (G = 64) and at generate's batch of 4 x 512 tokens
+    # (2 chunks each, G = 512).
+    shapes = [("ssd_chunk", f"serve prefill of {t} tokens", t // chunk_len(t, s.chunk),
+               chunk_len(t, s.chunk)) for t in sorted(set(serve_lens))]
+    shapes += [("ssd_chunk_prefill_256", "prefill of 256 tokens", 1, s.chunk),
+               ("ssd_chunk_generate", "generate, 4 x 512 tokens", 8, s.chunk)]
+    for row_name, what, batch_chunks, l in shapes:
         gg = batch_chunks * heads
         x, da, bm, cm = ssd_inputs(torch, g, gg, heads, l, p, n)
         y, st = ssd_chunk_cuda(x, da, bm, cm, heads)
@@ -1693,34 +1775,64 @@ def ssm_kernel_phase(torch, cfg, seed: int):
         err = max(check_rel(y, wy, SSD_REL, f"ssd_chunk y ({what})"),
                   check_rel(st, wst, SSD_REL, f"ssd_chunk state ({what})"))
         bytes_moved, flops = ssd_cost(gg, batch_chunks, l, p, n)
-        row = kernel_row(
-            torch, "ssd_chunk", err, lambda: ssd_chunk_cuda(x, da, bm, cm, heads), 50,
+        # The kernel runs each f32 product as three TF32 products (3xTF32):
+        # its bound is three times the least FLOP at the TF32 rate.
+        rows[row_name][(gg, l)] = kernel_row(
+            torch, row_name, err, lambda: ssd_chunk_cuda(x, da, bm, cm, heads), 50,
             time_ms(torch, lambda: ssd_plain(torch, x, da, bm, cm, heads), 10), NO_LIBRARY,
-            bytes_moved, flops, "float32",
+            bytes_moved, 3 * flops, "tfloat32",
             f"{what}: x [{gg}, {l}, {p}] f32, B/C [{batch_chunks}, {l}, {n}] shared by "
-            f"{heads} heads",
+            f"{heads} heads; {flops / 1e9:.4f} GFLOP x 3 TF32", graph=True,
         )
-        rows.setdefault("ssd_chunk", row)
 
-    # -- kernel 8: norm1 (D = d_model) and the gated norm (D = inner) at a
-    # 256-token prefill and at a decode tick of 4 slots; [256, inner] is the row.
-    for t, dd in ((256, inner), (256, d), (4, inner), (4, d)):
+    # -- kernel 8: norm1 (D = d_model) and the gated norm (D = inner) at each
+    # prefill of the serve and at its decode ticks of ``slots`` rows.
+    shapes = [(name, t, dd) for t in sorted(set(serve_lens))
+              for name, dd in (("rmsnorm", inner), ("rmsnorm_prefill_d", d))]
+    shapes += [("rmsnorm_decode_inner", slots, inner), ("rmsnorm_decode_d", slots, d)]
+    for row_name, t, dd in shapes:
         x = torch.randn((t, dd), generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn((dd,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
         got = rmsnorm_cuda(x, w, cfg.norm_eps)
         want = ref.rmsnorm(x, w, cfg.norm_eps)
         err = check(torch, got, want, BF16_TOL, f"rmsnorm [{t}, {dd}]")
         w1 = (1.0 + w.float()).to(torch.bfloat16)  # the library's weight, formed before timing
-        row = kernel_row(
-            torch, "rmsnorm", err, lambda: rmsnorm_cuda(x, w, cfg.norm_eps), 200,
-            time_ms(torch, lambda: ref.rmsnorm(x, w, cfg.norm_eps), 200),
+        rows[row_name][(t, dd)] = kernel_row(
+            torch, row_name, err, lambda: rmsnorm_cuda(x, w, cfg.norm_eps), 200,
+            time_ms(torch, lambda: ref.rmsnorm(x, w, cfg.norm_eps), 100),
             library_time(torch, lambda: F.rms_norm(x, (dd,), w1, cfg.norm_eps), want,
                          BF16_TOL["rtol"], 200, "rmsnorm (F.rms_norm)"),
             (2 * t * dd + dd) * 2, 4.0 * t * dd, "bfloat16", f"x [{t}, {dd}] bf16, w [{dd}]",
         )
-        rows.setdefault("rmsnorm", row)
     ssm_edge_cases(torch, g)
     return rows
+
+
+def shape_row(rows: dict, counts: dict, what: str, key: str) -> dict:
+    """One kernels-line row over the shapes ``rows`` (launch shape -> the row
+    timed there), with ``counts`` (launch shape -> launches, as the wrapper
+    counted them in one run): launches their sum, every time and the bound
+    their launch-weighted mean (so launches x (time - bound) is the sum of
+    the shapes' own), the error the largest.  Every shape must have been
+    launched in that run."""
+    n = {k: counts.get(k, 0) for k in rows}
+    assert all(n.values()), f"{what}: shapes timed but never launched: {n}"
+    total = sum(n.values())
+    first = next(iter(rows.values()))
+    out = {"max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+    for field in first:
+        if field.endswith("ms"):
+            vals = [r[field] for r in rows.values()]
+            out[field] = (None if any(v is None for v in vals)
+                          else sum(n[k] * r[field] for k, r in rows.items()) / total)
+    by = {}
+    for k, r in rows.items():
+        by[r["bound_by"]] = by.get(r["bound_by"], 0) + n[k]
+    out["bound_by"] = max(by, key=by.get)
+    out["shape"] = (first["shape"] if len(rows) == 1 else
+                    f"{what}; times and bound launch-weighted over launches by {key} {n}")
+    out["launches"] = total
+    return out
 
 
 def ssm_edge_cases(torch, g):
@@ -1880,6 +1992,17 @@ def reduced_card_vs_cpu(torch, seed: int):
           f"(rtol {REDUCED_FEAT_TOL['rtol']}, atol {REDUCED_FEAT_TOL['atol']})", flush=True)
 
 
+MAMBA_SLOTS, MAMBA_MAX_LEN = 4, 256  # the Mamba-2 serve's engine
+# Kernels-line rows of kernels 8 and 9 -> what a row over several shapes
+# stands for (SHAPE_ROWS names their kernel).
+SSM_ROWS = {
+    "ssd_chunk": "the Mamba-2 serve's prefills", "ssd_chunk_prefill_256": None,
+    "ssd_chunk_generate": None, "rmsnorm": "the Mamba-2 serve's prefills, the gated norm",
+    "rmsnorm_prefill_d": "the Mamba-2 serve's prefills, norm1",
+    "rmsnorm_decode_inner": None, "rmsnorm_decode_d": None,
+}
+
+
 def mamba_requests(gen, max_len: int):
     out_cap = max(1, min(12, max_len // 4))
     return [
@@ -1896,7 +2019,8 @@ def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int
     prefill).  Prefills are clocked one by one (each ends in a host read of
     its token); decode ticks are those that admitted nothing.  Kernel 8
     launches twice per layer per prefill and per decode tick, kernel 9 once
-    per layer per prefill: the counts must equal that prediction."""
+    per layer per prefill: the counts must equal that prediction.  Returns
+    the launches by shape as the two wrappers counted them, too."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -1925,7 +2049,7 @@ def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int
     ops.reset_launch_counts()
     rep = eng.run(reqs, gen)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
     peak = torch.cuda.max_memory_allocated() / 1e9
     prefills = sum(st.admitted for st in eng.tick_log)
     decode_ticks = sum(1 for st in eng.tick_log if st.live > 0)
@@ -1947,8 +2071,12 @@ def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int
           f"{tick_bound:.3f}) peak_gb={peak:.3f}; prefill ms "
           f"by prompt length {{{per_prompt}}}; launches rmsnorm={counts['rmsnorm']} "
           f"ssd_chunk={counts['ssd_chunk']} as predicted ({prefills} prefills, {decode_ticks} "
-          f"decode ticks)", flush=True)
-    return rep, toks, counts
+          f"decode ticks); by shape, rmsnorm (T, D) {shapes['rmsnorm']}, ssd_chunk (G, L) "
+          f"{shapes['ssd_chunk']}", flush=True)
+    E2E["mamba2 prefill ms by prompt length"] = [[n, round(ms, 3)] for n, ms in prefill_ms]
+    E2E["mamba2 prefill ms, mean"] = sum(ms for _, ms in prefill_ms) / max(1, len(prefill_ms))
+    E2E["mamba2 decode tick ms"] = med
+    return rep, toks, counts, shapes
 
 
 def generate_phase(torch, params, cfg, plan, seed: int, batch: int = 4, prompt: int = 512,
@@ -1969,7 +2097,7 @@ def generate_phase(torch, params, cfg, plan, seed: int, batch: int = 4, prompt: 
     out = generate(params, cfg, plan, prompts, max_new_tokens=new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
     want = {"rmsnorm": 2 * cfg.num_layers * new, "ssd_chunk": cfg.num_layers}
     assert {k: counts[k] for k in want} == want, f"generate launches {counts} != {want}"
     assert out.shape == (batch, new) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
@@ -1977,17 +2105,23 @@ def generate_phase(torch, params, cfg, plan, seed: int, batch: int = 4, prompt: 
     assert torch.equal(out[:, :1], first), "generate's first tokens are not the prefill step's"
     print(f"generate: {batch} prompts x {prompt} tokens, {new} new tokens greedy in "
           f"{1e3 * wall:.1f} ms ({batch * new / wall:.1f} tokens/s, prefill included); "
-          f"launches rmsnorm={counts['rmsnorm']} ssd_chunk={counts['ssd_chunk']}", flush=True)
-    return counts
+          f"launches rmsnorm={counts['rmsnorm']} ssd_chunk={counts['ssd_chunk']} (by (G, L) "
+          f"{shapes['ssd_chunk']})", flush=True)
+    return counts, shapes
 
 
-def mamba_phases(torch, seed: int, profile: bool, slots: int = 4, max_len: int = 256):
+def mamba_phases(torch, seed: int, profile: bool, slots: int = MAMBA_SLOTS,
+                 max_len: int = MAMBA_MAX_LEN):
     """Mamba-2 1.3B at full width, random weights from ``seed``: the
     prefill-then-decode and batch-vs-row checks in f32 at all 48 layers and
     the first in bf16 at 2; then, in bf16 at all 48 layers, the
     prefill-then-decode distance measured, two serves (tokens
-    bit-identical) and generate; then the reduced card-vs-CPU forward."""
+    bit-identical) and generate; then the reduced card-vs-CPU forward.
+    -> (the serve's launch counts, generate's, and launches by shape: of
+    the serve, of generate and of the full-depth bf16 prefill-then-decode
+    check)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_model
     from repro_torch.parallel.sharding import make_plan
     from repro_torch.serve.workload import WorkloadGenerator
@@ -2016,13 +2150,16 @@ def mamba_phases(torch, seed: int, profile: bool, slots: int = 4, max_len: int =
           f"layers={cfg.num_layers}/48 {cfg.dtype}: {nparams / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
           f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    ops.reset_launch_counts()
     mamba_decode_check(torch, params, cfg, plan, seed, None)
+    torch.cuda.synchronize()
+    shapes = {"decode_check": ops.launch_shapes()}
 
     gen = WorkloadGenerator("chat", seed=seed, vocab_size=cfg.vocab_size)
     reqs = mamba_requests(gen, max_len)
     runs = [serve_mamba(torch, params, cfg, plan, reqs, gen, slots=slots, max_len=max_len)
             for _ in range(2)]
-    (rep_a, toks_a, _), (rep_b, toks_b, counts) = runs
+    (rep_a, toks_a, _, _), (rep_b, toks_b, counts, shapes["serve"]) = runs
     assert rep_a.completed == rep_b.completed == len(reqs), "not every request completed"
     assert toks_a == toks_b, "two serves of the same requests gave different tokens"
     assert all(0 <= t < cfg.vocab_size for out in toks_b.values() for t in out)
@@ -2033,11 +2170,42 @@ def mamba_phases(torch, seed: int, profile: bool, slots: int = 4, max_len: int =
 
         profile_serve(torch, params, cfg, plan, reqs, gen,
                       ServeConfig(slots=slots, max_len=max_len), label="profile mamba2")
-    counts_gen = generate_phase(torch, params, cfg, plan, seed)
+    counts_gen, shapes["generate"] = generate_phase(torch, params, cfg, plan, seed)
     del params
     torch.cuda.empty_cache()
     reduced_card_vs_cpu(torch, seed)
-    return counts, counts_gen
+    return counts, counts_gen, shapes
+
+
+def mamba_part(torch, seed: int, profile: bool):
+    """Kernels 8 and 9 timed at every shape the Mamba-2 paths give them,
+    then those paths (``mamba_phases``) -> (the kernels-line rows of kernels
+    8 and 9, the serve's launch counts, generate's).  Each row's launches
+    are the wrapper's counts at the shapes the row was timed at, from the
+    run that launches them: the serve (its second run), every launch shape
+    of which a row covers; the full-depth prefill-then-decode check for the
+    256-token prefill; generate for its batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.workload import WorkloadGenerator
+
+    cfg = get_config("mamba2-1.3b")
+    lens = [r.prompt_len for r in mamba_requests(
+        WorkloadGenerator("chat", seed=seed, vocab_size=cfg.vocab_size), MAMBA_MAX_LEN)]
+    timed = ssm_kernel_phase(torch, cfg, seed, lens, MAMBA_SLOTS)
+    counts, counts_gen, shapes = mamba_phases(torch, seed, profile)
+    other_runs = {"ssd_chunk_prefill_256": shapes["decode_check"],
+                  "ssd_chunk_generate": shapes["generate"]}
+    for kernel in SSM_KERNELS:
+        keys = [k for nm in SSM_ROWS if SHAPE_ROWS.get(nm, nm) == kernel and nm not in other_runs
+                for k in timed[nm]]
+        assert sorted(keys) == sorted(shapes["serve"][kernel]), \
+            f"{kernel}: timed at {sorted(keys)}, served at {shapes['serve'][kernel]}"
+    rows = {}
+    for nm, what in SSM_ROWS.items():
+        kernel = SHAPE_ROWS.get(nm, nm)
+        rows[nm] = shape_row(timed[nm], other_runs.get(nm, shapes["serve"])[kernel], what,
+                             "(G, L)" if kernel == "ssd_chunk" else "(T, D)")
+    return rows, counts, counts_gen
 
 
 def main(argv=None) -> int:
@@ -2088,7 +2256,6 @@ def main(argv=None) -> int:
     ]
     prompt_lens = [r.prompt_len for r in reqs]
     rows = kernel_phase(torch, cfg, prompt_lens, slots, page, max_len, args.seed)
-    rows.update(ssm_kernel_phase(torch, get_config("mamba2-1.3b"), args.seed))
 
     t0 = time.perf_counter()
     params = init_model(args.seed, cfg, plan, device="cuda")
@@ -2130,7 +2297,8 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    counts_mamba, counts_gen = mamba_phases(torch, args.seed, args.profile)
+    mamba_rows, counts_mamba, counts_gen = mamba_part(torch, args.seed, args.profile)
+    rows.update(mamba_rows)
     from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
 
     rows.update(train_kernel_phase(torch, MIXTRAL_8X7B_CONFIG, 2, 256, args.seed))
@@ -2155,18 +2323,19 @@ def main(argv=None) -> int:
 
     # launches: each kernel's count from the path it belongs to — the
     # capacity training run for kernel 6 and its backward, the dropless run
-    # for every other kernel it launches, the Mamba-2 serve (its second run)
-    # for kernels 8 and 9, the grok serve (reconfiguration on) for the
-    # decode kernel, which only serving runs.  A row at a second shape
-    # (SHAPE_ROWS) reports its kernel's count.  The times of the training
-    # kernels are at the training steps' shapes.
+    # for every other kernel it launches, the grok serve (reconfiguration
+    # on) for the decode kernel, which only serving runs.  A row at a second
+    # shape (SHAPE_ROWS) reports its kernel's count, except the rows of
+    # kernels 8 and 9: each carries the launches at its own shapes
+    # (``mamba_part``).  The times of the training kernels are at the
+    # training steps' shapes.
     line = []
     for row_name, (source, replaces) in KERNEL_ROWS.items():
         r = rows[row_name]
         name = SHAPE_ROWS.get(row_name, row_name)
-        launches = (counts_train[name] if name in TRAIN_KERNELS
-                    else counts_cap[name] if name in CAPACITY_KERNELS
-                    else counts_mamba[name] if name in SSM_KERNELS else counts_on[name])
+        launches = (r["launches"] if "launches" in r
+                    else counts_train[name] if name in TRAIN_KERNELS
+                    else counts_cap[name] if name in CAPACITY_KERNELS else counts_on[name])
         line.append(dict(
             name=row_name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -2180,7 +2349,8 @@ def main(argv=None) -> int:
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 27, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 33, [r["name"] for r in line]
+    print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

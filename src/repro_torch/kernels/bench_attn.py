@@ -7,6 +7,7 @@ grok-1's prefill (q [1, 48, 256, 128], k/v 8 heads) and Mixtral's heads at
 S = 1024 and 4096, B = 1; all causal.
 
     python3 src/repro_torch/kernels/bench_attn.py [--src DIR] [--tag NAME] [--variant NAME]
+    python3 src/repro_torch/kernels/bench_attn.py --paged [--src DIR] [--tag NAME] [--variant NAME]
 
 Run it as a file, not as a module: ``--src`` is the ``src`` directory whose
 ``repro_torch`` is timed (default: this checkout's), so one call can time
@@ -23,6 +24,18 @@ the host's issue rate), the device time under torch.profiler (the kernels'
 own, each named), the same two for SDPA in bf16 (``enable_gqa``; its
 backward through autograd), the bound (bytes over 3.35 TB/s or FLOP over
 989 TFLOP/s, the larger) and the card's name and power limit.
+
+``--paged`` times paged decode instead (kernel 3,
+``csrc/paged_flash_decode.cu``; its variants are ``PAGED_VARIANTS``) at
+grok-1's decode shapes, q [4, 1, 48, 128] against bf16 pools of 8 kv heads
+and pages of 16: ``chip_smoke.py``'s serve row (contexts of 10, 44, 20 and 8
+tokens, pool [64, 16, 8, 128]) and a long context (4 slots at t = 4095,
+pool [1024, 16, 8, 128], 67.1 MB of K/V), through a permuted page table.
+Each result is first held against the plain version in bf16's tolerance.
+Per shape: CUDA-event ms, device ms warm and cold (a 128 MiB fill before
+each call), the wall ms per call in a CUDA graph of 20 calls, host µs per
+call, the same for a gather of the pages plus SDPA,
+and the bound (the K/V, q, output and table bytes over 3.35 TB/s).
 """
 
 from __future__ import annotations
@@ -70,11 +83,99 @@ VARIANTS = {
 }
 
 
+# Paged-decode variants of csrc/paged_flash_decode.cu.
+PAGED_VARIANTS = {
+    # Eight warps a CTA instead of four.
+    "warps8": [("paged_flash_decode.cu", "constexpr int kWarps = 4;", "constexpr int kWarps = 8;")],
+    # No split of the context: one CTA a (b, kv head, row block).
+    "splits1": [("paged_flash_decode.cu", "constexpr int kMaxSplits = 8;",
+                 "constexpr int kMaxSplits = 1;")],
+    # bf16 on CUDA cores, as f32 is.
+    "bf16_cuda_cores": [("paged_flash_decode.cu",
+                         "constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;",
+                         "constexpr bool kMma = false;")],
+    # At most 4 splits.
+    "splits4": [("paged_flash_decode.cu", "constexpr int kMaxSplits = 8;",
+                 "constexpr int kMaxSplits = 4;")],
+}
+# (name, context lengths t, pages in the pool, table width P); page 16,
+# grok-1's q [4, 1, 48, 128] and 8 kv heads.
+PAGED_SHAPES = (
+    ("serve row", (10, 44, 20, 8), 64, 16),
+    ("long context", (4095, 4095, 4095, 4095), 1024, 256),
+)
+PAGE, HQ, HKV, HD = 16, 48, 8, 128
+
+
+def paged(torch, F, args) -> int:
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as kfa
+
+    if args.variant:
+        build._loaded["paged_flash_decode"] = timing.variant_library(
+            build, "paged_flash_decode", kfa._PAGED_SIG, PAGED_VARIANTS[args.variant])
+    card = timing.card_line()
+    tag = args.tag + (f" [{args.variant}]" if args.variant else "")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cpu = torch.Generator().manual_seed(0)
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.fill_(1)  # noqa: E731
+    for name, lengths, pages, width in PAGED_SHAPES:
+        b = len(lengths)
+        perm = torch.randperm(pages, generator=cpu)[: b * width].reshape(b, width)
+        used = torch.tensor([-(-(t + 1) // PAGE) for t in lengths])
+        table = torch.where(torch.arange(width)[None, :] < used[:, None], perm, -1)
+        table = table.to(torch.int32).cuda()
+        tvec = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q = torch.randn((b, 1, HQ, HD), generator=gen, device="cuda").bfloat16()
+        kp = torch.randn((pages, PAGE, HKV, HD), generator=gen, device="cuda").bfloat16()
+        vp = torch.randn((pages, PAGE, HKV, HD), generator=gen, device="cuda").bfloat16()
+        out = kfa.paged_flash_decode_cuda(q, kp, vp, table, tvec)
+        want = ref.paged_flash_decode(q, kp, vp, table, tvec)
+        torch.testing.assert_close(out.float(), want.float(), **OUT_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+        assert torch.equal(out, kfa.paged_flash_decode_cuda(q, kp, vp, table, tvec)), \
+            f"{name}: two calls differ"
+        mask = (torch.arange(width * PAGE, device="cuda")[None, None, None, :]
+                <= tvec[:, None, None, None])
+
+        def library():
+            vk = ref.paged_gather_kv(kp, table).transpose(1, 2)
+            vv = ref.paged_gather_kv(vp, table).transpose(1, 2)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), vk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        kernel = lambda: kfa.paged_flash_decode_cuda(q, kp, vp, table, tvec)  # noqa: E731
+        nbytes = (sum((t + 1) * HKV * HD * 2 * 2 for t in lengths) + 2 * b * HQ * HD * 2
+                  + table.numel() * 4 + b * 4)
+        bms, by = timing.bound_ms(nbytes, sum(4.0 * HQ * HD * (t + 1) for t in lengths))
+        iters = 50 if max(lengths) > 1000 else 200
+        ms = timing.time_ms(torch, kernel, iters)
+        dev, per = timing.device_ms(torch, kernel)
+        cold, _ = timing.device_ms(torch, kernel, before=flush)
+        host = timing.host_us(torch, kernel, 1000)
+        graph = timing.graph_ms(torch, kernel)
+        ldev, _ = timing.device_ms(torch, library)
+        lcold, _ = timing.device_ms(torch, library, before=flush)
+        parts = " ".join(f"{k[:40]}={v:.5f}" for k, v in sorted(per.items()))
+        print(f"bench [{tag}] paged_flash_decode {name}: q [{b}, 1, {HQ}, {HD}] bf16, pool "
+              f"[{pages}, {PAGE}, {HKV}, {HD}], t={list(lengths)}: ms={ms:.5f} "
+              f"device_ms={dev:.5f} cold_device_ms={cold:.5f} graph_ms={graph:.5f} "
+              f"host_us={host:.2f} bound_ms={bms:.6f} ({by}; {nbytes / 1e6:.2f} MB, "
+              f"{nbytes / cold / 1e9:.2f} TB/s cold) gather+sdpa: ms={timing.time_ms(torch, library, 20):.5f} "
+              f"device_ms={ldev:.5f} cold_device_ms={lcold:.5f} [{parts}]", flush=True)
+        del q, kp, vp, out, want
+        torch.cuda.empty_cache()
+    print(f"bench [{tag}] card: {card}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(REPO / "src"))
     ap.add_argument("--tag", default="this tree")
-    ap.add_argument("--variant", choices=sorted(VARIANTS))
+    ap.add_argument("--paged", action="store_true", help="time paged decode (kernel 3)")
+    ap.add_argument("--variant", choices=sorted(set(VARIANTS) | set(PAGED_VARIANTS)))
     args = ap.parse_args(argv)
     import torch
     import torch.nn.functional as F
@@ -83,6 +184,8 @@ def main(argv=None) -> int:
         print("bench_attn.py: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, args.src)
+    if args.paged:
+        return paged(torch, F, args)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kfa
 

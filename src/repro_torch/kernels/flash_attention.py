@@ -229,7 +229,8 @@ def paged_flash_decode_cuda(
     softcap: float | None = None,
 ) -> torch.Tensor:
     """``q [B, C, Hq, D]`` against pools ``[N, page, Hkv, D]`` through
-    ``page_table [B, P]`` i32 (-1 = unallocated) and ``lengths [B]`` i32
+    ``page_table [B, P]`` i32 (-1 = unallocated, read as page 0 as the plain
+    version reads it) and ``lengths [B]`` i32
     (row c attends positions <= t + c) -> ``[B, C, Hq, D]`` in q's dtype,
     D a multiple of 8 up to 256 (a D off the kernel widths copies the pools
     zero-padded for the call).  It has no backward: it raises when grad
@@ -253,12 +254,19 @@ def paged_flash_decode_cuda(
     if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_flash_decode_cuda takes page_table [B, P] and lengths [B]")
     dp = _head_dim("paged_flash_decode_cuda", d)
-    if (2 * page * dp + 32 * (page + 1)) * 4 > _SMEM_LIMIT:
+    # Four warps, each with one page of K and V (bf16 rows padded by 8) and
+    # its scores, and their partials.
+    rs = dp + 8 if q.dtype == torch.bfloat16 else dp
+    if 4 * (2 * page * rs * q.element_size() + 32 * page) + 32 * (2 + rs) * 4 > _SMEM_LIMIT:
         raise ValueError(f"paged_flash_decode_cuda: page {page} x D {dp} exceeds shared memory")
     win, cap = _knobs(window, softcap)
     if q.numel() == 0:
         return torch.empty_like(q)
     q, k_pool, v_pool = (_pad(t, dp) for t in (q, k_pool, v_pool))
+    if q.data_ptr() % 16:
+        q = q.clone()  # the kernel reads q in 16-byte chunks
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_flash_decode_cuda: the pools must start on 16-byte boundaries")
     out = torch.empty_like(q)
     lib = build.library("paged_flash_decode", _PAGED_SIG)
     err = lib.paged_flash_decode(

@@ -42,7 +42,7 @@ from repro_torch.kernels.topk_gating import TopkGatingFn, topk_gating_bwd_cuda, 
 
 __all__ = [
     "topk_gating", "flash_attention", "paged_flash_decode", "moe_dispatch", "moe_combine",
-    "grouped_matmul", "rmsnorm", "ssd_chunk", "KERNELS", "launch_counts",
+    "grouped_matmul", "rmsnorm", "ssd_chunk", "KERNELS", "launch_counts", "launch_shapes",
     "reset_launch_counts",
 ]
 
@@ -72,9 +72,17 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def launch_shapes() -> dict[str, dict[tuple, int]]:
+    """Launches by shape since the last :func:`reset_launch_counts`, of the
+    kernels whose wrapper also counts them by shape (``shapes``)."""
+    return {name: dict(fn.shapes) for name, fn in KERNELS.items() if hasattr(fn, "shapes")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes = {}
 
 
 def _on_cpu(x: torch.Tensor) -> bool:

@@ -60,7 +60,9 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.T
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed (CUDA error {err})")
     rmsnorm_cuda.launches += 1
+    rmsnorm_cuda.shapes[(t, d)] = rmsnorm_cuda.shapes.get((t, d), 0) + 1
     return out
 
 
 rmsnorm_cuda.launches = 0
+rmsnorm_cuda.shapes = {}  # (T, D) -> launches

@@ -6,8 +6,10 @@ Port of :mod:`repro.kernels.ssd_chunk` (``ssd_chunk_pallas``).  Groups are
 kernel's contract, ``bmat``/``cmat [G, L, N]``; the kernel takes them as
 ``[G / heads, L, N]`` — one row per (batch, chunk), shared by its heads, as
 the model computes them — plus the head count, so the per-head copy is
-never made.  The wrapper checks what the kernel takes and raises on
-anything else; it never falls back.  There is no backward kernel yet:
+never made.  The kernel computes C B^T once per (batch, chunk) into a
+workspace this wrapper allocates, then the pass (two launches, counted as
+one call).  The wrapper checks what the kernel takes and raises on anything
+else; it never falls back.  There is no backward kernel yet:
 :func:`repro_torch.kernels.ops.ssd_chunk` raises on the card when a
 gradient is wanted.
 """
@@ -23,10 +25,11 @@ from repro_torch.kernels.ref import ssd_chunk as ssd_chunk_plain
 
 __all__ = ["ssd_chunk_cuda", "ssd_chunk_plain", "MAX_STATE"]
 
-MAX_STATE = 128  # N: the kernel keeps a [N, 64] tile of C in shared memory
+MAX_STATE = 128  # N: the kernel stages [64, N] tiles of B and C in shared memory
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ssd_chunk_f32": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "ssd_chunk_f32": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "ssd_chunk_workspace_floats": ((_I, _I), ctypes.c_longlong),
 }
 
 
@@ -60,14 +63,19 @@ def ssd_chunk_cuda(
     if g == 0 or l == 0 or p == 0:
         return y, state.zero_()
     lib = build.library("ssd_chunk", _SIGNATURES)
+    work = torch.empty(lib.ssd_chunk_workspace_floats(l, g // heads), dtype=torch.float32,
+                       device=x.device)
     err = lib.ssd_chunk_f32(
         x.data_ptr(), da.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
-        state.data_ptr(), g, l, p, n, heads, torch.cuda.current_stream(x.device).cuda_stream,
+        state.data_ptr(), work.data_ptr(), g, l, p, n, heads,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"ssd_chunk kernel launch failed (CUDA error {err})")
     ssd_chunk_cuda.launches += 1
+    ssd_chunk_cuda.shapes[(g, l)] = ssd_chunk_cuda.shapes.get((g, l), 0) + 1
     return y, state
 
 
 ssd_chunk_cuda.launches = 0
+ssd_chunk_cuda.shapes = {}  # (G, L) -> launches

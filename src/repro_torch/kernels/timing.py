@@ -1,5 +1,5 @@
 """Timing helpers shared by ``chip_smoke.py`` and the kernel benchmarks
-(``bench_attn.py``, ``bench_gmm.py``, ``bench_moe.py``).
+(``bench_attn.py``, ``bench_gmm.py``, ``bench_moe.py``, ``bench_ssd.py``).
 
 Three clocks, because for small calls they disagree:
 
@@ -7,7 +7,11 @@ Three clocks, because for small calls they disagree:
   when the card is the slower side, the host's issue rate when the host is;
 * :func:`device_ms` — the kernels' own time under ``torch.profiler``;
 * :func:`host_us` — a host clock over calls with no synchronise inside: what
-  the wrapper costs the host per call.
+  the wrapper costs the host per call;
+* :func:`graph_ms` — CUDA events around a CUDA graph of back-to-back calls:
+  the card's wall time per call with no host in the way, and with the
+  overlap of kernels launched with programmatic stream serialization that
+  the profiler's per-kernel sum counts twice.
 
 Nothing here imports ``torch`` at module level: every function takes the
 module as its first argument, so the benchmarks can load this file by path
@@ -25,11 +29,11 @@ import time
 
 __all__ = [
     "HBM_BYTES_PER_S", "PEAK_FLOPS", "card_line", "time_ms", "device_ms", "host_us",
-    "bound_ms", "variant_library",
+    "graph_ms", "bound_ms", "variant_library",
 ]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 494.7e12}  # dense, no sparsity
 
 
 def card_line() -> str:
@@ -108,6 +112,34 @@ def host_us(torch, fn, iters: int = 1000) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / iters * 1e6
+
+
+def graph_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` over a CUDA graph of ``iters``
+    back-to-back calls, replayed ``replays`` times (after one warm-up
+    replay), by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # allocations of the capture's pool
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (replays * iters)
 
 
 def bound_ms(bytes_moved: float, flops: float, dtype: str = "bfloat16") -> tuple[float, str]:

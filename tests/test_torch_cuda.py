@@ -890,3 +890,121 @@ def test_ssm_ops_refuse_grad_and_wrappers_refuse_bad_inputs(dev):
         ssd_chunk_cuda(z, torch.zeros((2, 8), device=dev), z[:1], z[:1], 3)  # G % heads
     with pytest.raises(TypeError):
         ssd_chunk_cuda(z.bfloat16(), torch.zeros((2, 8), device=dev), z[:1], z[:1], 2)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 9 at the serving path's shapes and its edges: the prefill (one
+# chunk of 64 heads) and generate (8 chunks) shapes, the Mamba-2 serve's
+# short prefills (L = 8, 20, 44 at 64 heads), L from 1 to two passes
+# of 256 rows, G = 1, odd G and odd head counts, N and P off the tiles,
+# da = -40 a step, and two calls bit-identical.  Tolerance as above.
+# ---------------------------------------------------------------------------
+
+_SSD_SHAPES = (
+    [(64, 64, 256, 64, 128, None), (512, 64, 256, 64, 128, None)]
+    + [(64, 64, l, 64, 128, None) for l in (8, 20, 44)]
+    + [(gr, h, l, 64, 128, None) for l in (1, 3, 100, 256) for gr, h in ((1, 1), (5, 5), (9, 3))]
+    + [(6, 3, 100, p, n, None) for n in (16, 100, 128) for p in (16, 64, 80)]
+    + [(3, 3, 256, 64, 128, -40.0), (3, 3, 100, 80, 100, -40.0),
+       (2, 1, 300, 64, 128, None), (3, 3, 513, 16, 16, -40.0)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,heads,l,p,n,fill", _SSD_SHAPES)
+def test_ssd_chunk_kernel_shapes(dev, groups, heads, l, p, n, fill):
+    x, da, bm, cm = _ssd_case(dev, groups, heads, l, p, n, fill, seed=7 * l + n + p)
+    y, st = ssd_chunk_cuda(x, da, bm, cm, heads)
+    wy, wst = ref.ssd_chunk(x, da, bm.repeat_interleave(heads, 0), cm.repeat_interleave(heads, 0))
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    for got, want in ((y, wy), (st, wst)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,heads,l,p,n", [(64, 64, 256, 64, 128), (9, 3, 100, 80, 100)])
+def test_ssd_chunk_kernel_bit_identical(dev, groups, heads, l, p, n):
+    x, da, bm, cm = _ssd_case(dev, groups, heads, l, p, n, None, seed=l)
+    y1, st1 = ssd_chunk_cuda(x, da, bm, cm, heads)
+    y2, st2 = ssd_chunk_cuda(x, da, bm, cm, heads)
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
+
+
+@pytest.mark.cuda
+def test_launch_shapes_count_each_launch_by_shape(dev):
+    """Kernels 8 and 9 count their launches by shape, (T, D) and (G, L),
+    and a reset clears those counts with the others."""
+    ops.reset_launch_counts()
+    x = torch.randn((3, 64), device=dev)
+    for t in (3, 3, 5):
+        rmsnorm_cuda(x.new_ones((t, 64)), x[0])
+    xs, da, bm, cm = _ssd_case(dev, 4, 2, 8, 16, 16, None, seed=1)
+    ssd_chunk_cuda(xs, da, bm, cm, 2)
+    assert ops.launch_shapes() == {"rmsnorm": {(3, 64): 2, (5, 64): 1},
+                                   "ssd_chunk": {(4, 8): 1}}
+    assert ops.launch_counts()["rmsnorm"] == 3
+    ops.reset_launch_counts()
+    assert ops.launch_shapes() == {"rmsnorm": {}, "ssd_chunk": {}}
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3 split across CTAs: lengths at t = 0, on and just past a page
+# boundary (15, 16) and a split boundary (127, 128: 8 pages of 16 a split
+# at a table of 64 pages), a window that crosses a split, softcap, C in
+# {1, 3}, head dims 64, 72 (zero-padded to 96), 128 and 256 in bf16 and f32;
+# -1 entries inside the context (read as page 0, as the plain version does)
+# and past it; more splits than live pages; grok-1's long-context shape;
+# two calls bit-identical.  Tolerances as above.
+# ---------------------------------------------------------------------------
+
+
+def _paged_case(dev, lengths, c, page, width, hq, hkv, d, dtype, seed, pages=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pages = pages or len(lengths) * width
+    table = _table(lengths, c, page, width, pages, seed).to(dev)
+    t = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((len(lengths), c, hq, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((pages, page, hkv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((pages, page, hkv, d), generator=g, device=dev).to(dtype)
+    return q, kp, vp, table, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 72, 128, 256])
+@pytest.mark.parametrize("c", [1, 3])
+def test_paged_flash_decode_split_edges(dev, dtype, d, c):
+    q, kp, vp, table, t = _paged_case(dev, [0, 15, 16, 127, 128, 200], c, 16, 64, 12, 2, d,
+                                      dtype, seed=d + c)
+    for kw in ({}, dict(softcap=30.0), dict(window=100, softcap=30.0), dict(window=1)):
+        got = paged_flash_decode_cuda(q, kp, vp, table, t, **kw)
+        torch.testing.assert_close(got.float(), ref.paged_flash_decode(q, kp, vp, table, t, **kw)
+                                   .float(), **TOLS[dtype], msg=lambda m, kw=kw: f"{kw}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_decode_holes_and_idle_splits(dev, dtype):
+    # -1 inside the context and past it; a length of 5 in a table of 64 pages.
+    q, kp, vp, table, t = _paged_case(dev, [300, 5, 47, 160], 2, 16, 64, 6, 1, 128, dtype,
+                                      seed=3)
+    table[0, 3] = -1
+    table[2, 1] = -1
+    table[3, 40] = -1
+    table[1, 30] = 7  # a live entry far past the context: never read
+    for kw in ({}, dict(window=64)):
+        got = paged_flash_decode_cuda(q, kp, vp, table, t, **kw)
+        torch.testing.assert_close(got.float(), ref.paged_flash_decode(q, kp, vp, table, t, **kw)
+                                   .float(), **TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_paged_flash_decode_long_context_bit_identical(dev):
+    # grok-1's decode heads at t = 4095: pool [1024, 16, 8, 128], 67 MB of K/V.
+    q, kp, vp, table, t = _paged_case(dev, [4095] * 4, 1, 16, 256, 48, 8, 128, torch.bfloat16,
+                                      seed=11, pages=1024)
+    got = paged_flash_decode_cuda(q, kp, vp, table, t)
+    torch.testing.assert_close(got.float(), ref.paged_flash_decode(q, kp, vp, table, t).float(),
+                               **TOLS[torch.bfloat16])
+    assert torch.equal(got, paged_flash_decode_cuda(q, kp, vp, table, t))
