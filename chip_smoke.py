@@ -15,12 +15,13 @@ Phases, one printed line (or more) each:
    times from CUDA events, and the kernel's and the library call's device
    times under torch.profiler (for calls this small the event time is the
    host's issue rate);
-3b. ssm kernels — kernels 8 (RMSNorm) and 9 (the SSD intra-chunk pass)
-   at Mamba-2 1.3B's serving shapes (one 256-token prefill, generate's
-   4 x 512 batch, norms at a prefill and a decode tick) and at edge cases
-   (L from 1 to 256, odd G, zero, underflowing and masked-overflowing
-   decays; T in {1, 257}, D = 48, 12288 and 16384), against their plain
-   versions;
+3b. ssm kernels — kernels 8 (RMSNorm; the gated norm with z fused in,
+   bit for bit the kernel on PyTorch's y * silu(z)) and 9 (the SSD
+   intra-chunk pass) at Mamba-2 1.3B's serving shapes (one 256-token
+   prefill, generate's 4 x 512 batch, norms at a prefill and a decode tick)
+   and at edge cases (L from 1 to 256, odd G, zero, underflowing and
+   masked-overflowing decays; T in {1, 257}, D = 48, 12288 and 16384, z of
+   +-100), against their plain versions;
 4. check  — prefill-then-paged-decode logits against one full-sequence
    prefill of the same tokens;
 5. serve  — grok-1-314b at its published widths (depth cut to 4 of 64
@@ -28,7 +29,10 @@ Phases, one printed line (or more) each:
    through ``ServeEngine`` twice: reconfiguration off, then on
    (the on-run permutes the expert weights in place).  Tokens must be
    bit-identical, the control plane must reconfigure, and every kernel's
-   launch count must grow during the serve;
+   launch count must grow during the serve (kernel 8 runs every norm); the
+   first pure decode tick of each serve runs under the profiler, which
+   counts its kernels; then kernel 8 at every (T, D) the serve launched it
+   at;
 5b. mamba2 — the grok model is freed; Mamba-2 1.3B at full width,
    random weights from ``--seed``: prefill 200 tokens and decode 56 one at
    a time against one 256-token prefill (every decoded position's logits),
@@ -47,7 +51,8 @@ Phases, one printed line (or more) each:
    (MoE dispatch at the send gather, the pack and the unpack; the combine
    in f32 and, as the send gather's backward, in bf16; the dropless
    grouped GEMM; and the backward
-   kernels of the combine, the GEMM (dX, dW), the gate and attention) at
+   kernels of the combine, the GEMM (dX, dW), the gate, the norm and
+   attention; kernel 8 forward) at
    the Mixtral-8x7B training step's shapes (the grouped GEMM and its dX and
    dW at the w_in and w_out shapes, its forward and dW also at a skewed
    plan, 3/8 of the choices on each of two experts) and at small edge
@@ -92,8 +97,9 @@ Phases, one printed line (or more) each:
    is removed;
 13. serve checkpoint — reduced grok-1 saved mid-reconfiguration and
    restored into a fresh engine gives bit-identical next tokens;
-14. the kernels line (JSON), the card line, and the result line
-   ``{"ok": true, "device": {...}}``.
+14. the kernels of one decode tick of each serve, the sha256 of each
+   serve's tokens (to set beside another tree's), the kernels line (JSON),
+   the card line, and the result line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA card or outside a
 checkout of the repository.  Every failure propagates.
@@ -116,7 +122,7 @@ SRC = REPO / "src"
 if (SRC / "repro_torch" / "csrc").is_dir():  # else main() refuses to run
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels.timing import (
-        HBM_BYTES_PER_S, bound_ms, card_line, device_ms, graph_ms, time_ms,
+        HBM_BYTES_PER_S, bound_ms, card_line, device_ms, graph_ms, time_ms, trace_decode_tick,
     )
 
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # torch.testing bf16 defaults
@@ -130,11 +136,14 @@ BF16_GRAD_REL = 2e-2
 # in another order, rounded once to bf16, where results near 0 come from
 # cancellation; 1e-2 of the largest magnitude (a bf16 ulp there is 0.4%).
 BF16_GEMM_REL = 1e-2
+# Kernel 8's dw: f32 sums over the step's 512 rows in another order than
+# autograd's, rounded once to bf16: 1e-2 of the largest magnitude.
+NORM_DW_REL = 1e-2
 LAYERS = 4  # of grok-1's 64: 42.6 GB of weights on an 80 GB card
 REQUESTS = 8
 TRAIN_LAYERS = 2  # of Mixtral-8x7B's 32: 3.17 B parameters, 38 GB with grads and f32 moments
 TRAIN_STEPS = 8
-SERVE_KERNELS = ("topk_gating", "flash_attention", "paged_flash_decode")
+SERVE_KERNELS = ("topk_gating", "flash_attention", "paged_flash_decode", "rmsnorm")
 
 KERNEL_ROWS = {
     "topk_gating": ("src/repro_torch/csrc/topk_gating.cu", "src/repro/kernels/topk_gating.py:44"),
@@ -206,10 +215,25 @@ KERNEL_ROWS = {
     "rmsnorm_prefill_d": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
     "rmsnorm_decode_inner": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
     "rmsnorm_decode_d": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    # Kernel 8 at the grok-1 serve's shapes and at Mixtral's training step
+    # (SHAPE_ROWS), and its backward (the JAX package differentiates its jnp
+    # reference; "replaces" names the forward).
+    "rmsnorm_grok": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "rmsnorm_mixtral": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
 }
 # End-to-end numbers the serve phases leave for the summary line (measured,
 # not claimed: they move with the host).
 E2E: dict = {}
+# sha256 of each serve's tokens (request id -> tokens), to set beside another
+# tree's.
+TOKENS_SHA256: dict = {}
+
+
+def tokens_sha256(toks: dict) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(sorted(toks.items())).encode()).hexdigest()
 
 
 def check(torch, got, want, tol, what: str) -> float:
@@ -453,6 +477,37 @@ def edge_cases(torch, g, cpu_g):
           f"max_abs_err={max(errs):.3e}", flush=True)
 
 
+def grok_norm_row(torch, cfg, shapes: dict, seed: int) -> dict:
+    """Kernel 8 at every (T, D) the grok-1 serve launched it at (norm1, norm2
+    and the final norm of its prefills and decode ticks), against the plain
+    version, ``F.rms_norm`` beside it -> one kernels-line row over those
+    shapes, with their launches (``shape_row``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    dt, eps = getattr(torch, cfg.dtype), cfg.norm_eps
+    timed = {}
+    for t, d in sorted(shapes):
+        x = torch.randn((t, d), generator=g, device=dev).to(dt)
+        w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dt)
+        want = ref.rmsnorm(x, w, eps)
+        err = check(torch, rmsnorm_cuda(x, w, eps), want, BF16_TOL, f"rmsnorm grok-1 [{t}, {d}]")
+        w1 = (1.0 + w.float()).to(dt)  # the library's weight, formed before timing
+        timed[(t, d)] = kernel_row(
+            torch, "rmsnorm_grok", err, lambda: rmsnorm_cuda(x, w, eps), 200,
+            time_ms(torch, lambda: ref.rmsnorm(x, w, eps), 100),
+            library_time(torch, lambda: F.rms_norm(x, (d,), w1, eps), want, BF16_TOL["rtol"], 200,
+                         "rmsnorm grok-1 (F.rms_norm)"),
+            (2 * t * d + d) * x.element_size(), 4.0 * t * d, "bfloat16",
+            f"x [{t}, {d}] {cfg.dtype}, w [{d}]", graph=True,
+        )
+    return shape_row(timed, shapes, "the grok-1 serve's norms", "(T, D)")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: decode through the paged cache vs one full prefill
 # ---------------------------------------------------------------------------
@@ -510,20 +565,26 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
     scfg = ServeConfig(slots=slots, max_len=max_len, page_size=page,
                        reconfig_every=reconfig_every, reconfig_min_gain=0.0, num_devices=4)
     eng = ServeEngine(params, cfg, plan, scfg, device=device)
+    # The first pure decode tick runs under the profiler (its kernels
+    # counted) and is left out of the tick clocks.
+    traced = trace_decode_tick(torch, eng)
     # Host clock per tick: every tick ends in a host read of its tokens.
     tick_ms, tick_step = [], eng.step
 
     def timed_step():
+        untraced = traced["launches"] is not None
         t0 = time.perf_counter()
         st = tick_step()
-        tick_ms.append((1e3 * (time.perf_counter() - t0), st.admitted == 0 and st.live > 0))
+        tick_ms.append((1e3 * (time.perf_counter() - t0),
+                        untraced and st.admitted == 0 and st.live > 0))
         return st
 
     eng.step = timed_step
     ops.reset_launch_counts()
     rep = eng.run(reqs, gen)
-    counts = ops.launch_counts()
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
     toks = {r.rid: list(r.out) for r in eng.batcher.finished}
+    TOKENS_SHA256[f"grok-1 serve, reconfig_every={reconfig_every}"] = tokens_sha256(toks)
     decode = sorted(ms for ms, pure in tick_ms if pure)
     admit = sorted(ms for ms, pure in tick_ms if not pure)
     med = lambda xs: xs[len(xs) // 2] if xs else float("nan")
@@ -532,9 +593,12 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
           f"tokens_per_s={rep.tokens_per_s:.2f} mean_tick_ms={1e3 * rep.wall_s / rep.ticks:.3f} "
           f"decode_tick_ms median={med(decode):.3f} (n={len(decode)}) "
           f"admit_tick_ms median={med(admit):.3f} (n={len(admit)}) "
-          f"reconfig_count={rep.reconfig_count} launches={counts}", flush=True)
+          f"reconfig_count={rep.reconfig_count} launches={counts} rmsnorm by (T, D) "
+          f"{shapes['rmsnorm']}; one decode tick launched {traced['launches']} kernels",
+          flush=True)
     E2E[f"grok decode tick ms, reconfig_every={reconfig_every}"] = med(decode)
-    return rep, toks, counts
+    E2E[f"grok decode tick kernel launches, reconfig_every={reconfig_every}"] = traced["launches"]
+    return rep, toks, counts, shapes
 
 
 def profile_serve(torch, params, cfg, plan, reqs, gen, scfg, label: str = "profile"):
@@ -650,6 +714,7 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import grouped_matmul as kgm
     from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.kernels import rmsnorm as krms
     from repro_torch.kernels import topk_gating as ktg
     from repro_torch.models import routing
 
@@ -822,6 +887,40 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
         time_ms(torch, lambda: ref.topk_gating_bwd(logits, dwt, ids), 200), NO_LIBRARY,
         t * e * 8 + t * k * 8, t * e * 10.0, "float32", f"logits [{t}, {e}] f32, k={k}",
     )
+
+    # -- rmsnorm (kernel 8) forward and backward at the step's [T, D]: every
+    # norm of the step (norm1, norm2, the final norm) has this shape.
+    eps = cfg.norm_eps
+    xn, dyn = randn(t, d, dt=bf16), randn(t, d, dt=bf16)
+    wn = (randn(d) * 0.1).to(bf16)
+    want = ref.rmsnorm(xn, wn, eps)
+    w1 = (1.0 + wn.float()).to(bf16)  # the library's weight, formed before timing
+    rows["rmsnorm_mixtral"] = kernel_row(
+        torch, "rmsnorm_mixtral",
+        check(torch, krms.rmsnorm_cuda(xn, wn, eps), want, BF16_TOL, "rmsnorm_mixtral"),
+        lambda: krms.rmsnorm_cuda(xn, wn, eps), 200,
+        time_ms(torch, lambda: ref.rmsnorm(xn, wn, eps), 100),
+        library_time(torch, lambda: F.rms_norm(xn, (d,), w1, eps), want, BF16_TOL["rtol"], 200,
+                     "rmsnorm_mixtral (F.rms_norm)"),
+        (2 * t * d + d) * 2, 4.0 * t * d, "bfloat16", f"x [{t}, {d}] bf16, w [{d}]", graph=True,
+    )
+    want_dx, want_dw = _grads(torch, lambda a, b: ref.rmsnorm(a, b, eps), [xn, wn], dyn)
+    gdx, gdw = krms.rmsnorm_bwd_cuda(xn, wn, dyn, eps)
+    err = max(check(torch, gdx, want_dx, BF16_TOL, "rmsnorm_bwd dx"),
+              check_rel(gdw, want_dw, NORM_DW_REL, "rmsnorm_bwd dw"))
+    xp, wp = xn.detach().clone().requires_grad_(), wn.detach().clone().requires_grad_()
+    plain_out = ref.rmsnorm(xp, wp, eps)
+    xl, wl = xn.detach().clone().requires_grad_(), w1.detach().clone().requires_grad_()
+    lib_out = F.rms_norm(xl, (d,), wl, eps)
+    rows["rmsnorm_bwd"] = kernel_row(
+        torch, "rmsnorm_bwd", err, lambda: krms.rmsnorm_bwd_cuda(xn, wn, dyn, eps), 200,
+        time_ms(torch, lambda: torch.autograd.grad(plain_out, (xp, wp), dyn, retain_graph=True),
+                50),
+        timed(torch, lambda: torch.autograd.grad(lib_out, (xl, wl), dyn, retain_graph=True), 100),
+        (3 * t * d + 2 * d) * 2, 8.0 * t * d, "bfloat16",
+        f"x, dy [{t}, {d}] bf16 -> dx, dw [{d}]", graph=True,
+    )
+    del xn, dyn, gdx, want_dx, plain_out, lib_out
 
     # -- flash_attention backward at the step's attention: q [B, Hq, S, D].
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -1371,9 +1470,10 @@ def replacement_check(torch, tr, cfg, plan, perms, moves, seq: int, batch: int, 
 TRAIN_KERNELS = (
     "topk_gating", "topk_gating_bwd", "flash_attention", "flash_attention_bwd", "moe_dispatch",
     "moe_combine", "moe_combine_bwd", "grouped_matmul_blocks", "grouped_matmul_blocks_dx",
-    "grouped_matmul_blocks_dw",
+    "grouped_matmul_blocks_dw", "rmsnorm", "rmsnorm_bwd",
 )
-CAPACITY_KERNELS = TRAIN_KERNELS[:7] + ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
+CAPACITY_KERNELS = TRAIN_KERNELS[:7] + ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw",
+                                        "rmsnorm", "rmsnorm_bwd")
 # Kernel rows at a second shape of the path -> the kernel they time.
 SHAPE_ROWS = {
     "moe_dispatch_pack": "moe_dispatch", "moe_dispatch_unpack": "moe_dispatch",
@@ -1387,7 +1487,7 @@ SHAPE_ROWS = {
     "grouped_matmul_blocks_dw_skew": "grouped_matmul_blocks_dw",
     "paged_flash_decode_long": "paged_flash_decode",
     "rmsnorm_prefill_d": "rmsnorm", "rmsnorm_decode_inner": "rmsnorm",
-    "rmsnorm_decode_d": "rmsnorm",
+    "rmsnorm_decode_d": "rmsnorm", "rmsnorm_grok": "rmsnorm", "rmsnorm_mixtral": "rmsnorm",
     "ssd_chunk_prefill_256": "ssd_chunk", "ssd_chunk_generate": "ssd_chunk",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
@@ -1400,7 +1500,8 @@ def remat_phase(torch, seed: int):
     dropless) with remat "none", "full" and "dots" on the same weights and
     batch: loss and every gradient bit-identical; the forward's launches
     equal, and under remat the backward launches the forward again (each
-    kernel's total = "none"'s total + its forward launches).  Peak memory
+    kernel's total = "none"'s total + its forward launches, but for the
+    final norm, which no remat covers).  Peak memory
     and the host clock of each (after one untimed warm-up)."""
     from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
     from repro_torch.data.pipeline import SyntheticLM
@@ -1448,8 +1549,11 @@ def remat_phase(torch, seed: int):
             assert torch.equal(a, g), f"remat {remat}: gradient of {name} differs"
         for nm, v in fwd.items():
             assert v == base[2][nm], f"remat {remat}: {nm} forward launches {v} != {base[2][nm]}"
-            assert total[nm] == base[3][nm] + v, \
-                f"remat {remat}: {nm} launched {total[nm]}, want {base[3][nm]} + {v} recomputed"
+            # The final norm runs outside the rematerialised layers: the
+            # backward recomputes every forward launch but that one.
+            again = v - (nm == "rmsnorm")
+            assert total[nm] == base[3][nm] + again, \
+                f"remat {remat}: {nm} launched {total[nm]}, want {base[3][nm]} + {again} recomputed"
         for nm in FORWARD_KERNELS:
             assert total[nm] == 2 * base[3][nm] > 0, f"remat {remat}: {nm} did not double"
         del grads
@@ -1785,24 +1889,38 @@ def ssm_kernel_phase(torch, cfg, seed: int, serve_lens, slots: int):
             f"{heads} heads; {flops / 1e9:.4f} GFLOP x 3 TF32", graph=True,
         )
 
-    # -- kernel 8: norm1 (D = d_model) and the gated norm (D = inner) at each
-    # prefill of the serve and at its decode ticks of ``slots`` rows.
+    # -- kernel 8: norm1 and the final norm (D = d_model) and the gated norm
+    # (D = inner, the gate z fused in: bit for bit the kernel on PyTorch's
+    # y * silu(z), the sequence it replaces, which is the library yardstick
+    # with F.rms_norm) at each prefill of the serve and at its decode ticks
+    # of ``slots`` rows.
     shapes = [(name, t, dd) for t in sorted(set(serve_lens))
               for name, dd in (("rmsnorm", inner), ("rmsnorm_prefill_d", d))]
     shapes += [("rmsnorm_decode_inner", slots, inner), ("rmsnorm_decode_d", slots, d)]
+    eps = cfg.norm_eps
     for row_name, t, dd in shapes:
         x = torch.randn((t, dd), generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn((dd,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
-        got = rmsnorm_cuda(x, w, cfg.norm_eps)
-        want = ref.rmsnorm(x, w, cfg.norm_eps)
+        z = None
+        if dd == inner:
+            z = (torch.randn((t, dd), generator=g, device=dev) * 3).to(torch.bfloat16)
+        got = rmsnorm_cuda(x, w, eps, gate=z)
+        want = ref.rmsnorm(x, w, eps, z)
         err = check(torch, got, want, BF16_TOL, f"rmsnorm [{t}, {dd}]")
+        if z is not None:
+            assert torch.equal(got, rmsnorm_cuda(x * F.silu(z), w, eps)), \
+                f"the gated rmsnorm [{t}, {dd}] differs from the unfused sequence"
         w1 = (1.0 + w.float()).to(torch.bfloat16)  # the library's weight, formed before timing
+        lib = ((lambda: F.rms_norm(x, (dd,), w1, eps)) if z is None
+               else (lambda: F.rms_norm(x * F.silu(z), (dd,), w1, eps)))
         rows[row_name][(t, dd)] = kernel_row(
-            torch, row_name, err, lambda: rmsnorm_cuda(x, w, cfg.norm_eps), 200,
-            time_ms(torch, lambda: ref.rmsnorm(x, w, cfg.norm_eps), 100),
-            library_time(torch, lambda: F.rms_norm(x, (dd,), w1, cfg.norm_eps), want,
-                         BF16_TOL["rtol"], 200, "rmsnorm (F.rms_norm)"),
-            (2 * t * dd + dd) * 2, 4.0 * t * dd, "bfloat16", f"x [{t}, {dd}] bf16, w [{dd}]",
+            torch, row_name, err, lambda: rmsnorm_cuda(x, w, eps, gate=z), 200,
+            time_ms(torch, lambda: ref.rmsnorm(x, w, eps, z), 100),
+            library_time(torch, lib, want, BF16_TOL["rtol"], 200,
+                         "rmsnorm (F.rms_norm" + (")" if z is None else ", silu, multiply)")),
+            ((2 if z is None else 3) * t * dd + dd) * 2, 4.0 * t * dd, "bfloat16",
+            f"x [{t}, {dd}] bf16, w [{dd}]" + ("" if z is None else ", gate z fused"),
+            graph=True,
         )
     ssm_edge_cases(torch, g)
     return rows
@@ -1839,7 +1957,9 @@ def ssm_edge_cases(torch, g):
     """Kernel 9: L in {1, 3, 16, 100, 256}, G = 1 and odd G, P and N off the
     tiles, da = 0, da = -30 a step (every decay underflows), da = -40 a step
     (above the diagonal exp(cum[l] - cum[s]) overflows; only the mask hides
-    it: no NaN may come out).  Kernel 8: T in {1, 257}, D = 48, f32 and bf16."""
+    it: no NaN may come out).  Kernel 8, plain and gated (z of +-100): T in
+    {1, 3, 257}, D from 48 to 16384 (the two-pass kernel above 8192 bf16 /
+    4096 f32), f32 and bf16."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
@@ -1864,6 +1984,15 @@ def ssm_edge_cases(torch, g):
             w = (torch.randn((dd,), generator=g, device=dev) * 0.1).to(dt)
             errs.append(check(torch, rmsnorm_cuda(x, w), ref.rmsnorm(x, w), tol,
                               f"rmsnorm edge {dt} [{t}, {dd}]"))
+            # The gate, with z of +-100 (silu saturates): bit for bit the
+            # kernel on PyTorch's x * silu(z).
+            z = (torch.randn((t, dd), generator=g, device=dev) * 3).to(dt)
+            z[0, :2] = torch.tensor([100.0, -100.0])
+            got = rmsnorm_cuda(x, w, gate=z)
+            assert torch.equal(got, rmsnorm_cuda(x * torch.nn.functional.silu(z), w)), \
+                f"gated rmsnorm edge {dt} [{t}, {dd}] differs from the unfused sequence"
+            errs.append(check(torch, got, ref.rmsnorm(x, w, 1e-6, z), tol,
+                              f"gated rmsnorm edge {dt} [{t}, {dd}]"))
     torch.cuda.synchronize()
     print(f"ssm kernels edge cases: {len(errs)} comparisons within tolerance, "
           f"max_abs_err={max(errs):.3e}", flush=True)
@@ -1953,7 +2082,8 @@ def generate_prompts(torch, cfg, seed: int, batch: int, prompt: int):
 def reduced_card_vs_cpu(torch, seed: int):
     """Reduced Mamba-2 (f32, d_model 64, 8 heads of 16, N 16, chunk 16): one
     prefill of [2, 24] tokens (two chunks of 12) and one decode step, on the
-    card (kernels 8 and 9) and on the CPU (plain versions)."""
+    card (kernels 8, the gated norm fused, and 9) and on the CPU (plain
+    versions)."""
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
@@ -1981,7 +2111,9 @@ def reduced_card_vs_cpu(torch, seed: int):
     ops.reset_launch_counts()
     got = run("cuda")
     counts = ops.launch_counts()
-    assert counts["ssd_chunk"] == cfg.num_layers and counts["rmsnorm"] == 4 * cfg.num_layers, \
+    # Kernel 8: norm1 and the gated norm of every layer and the final norm,
+    # in the prefill and in the decode step.
+    assert counts["ssd_chunk"] == cfg.num_layers and counts["rmsnorm"] == 4 * cfg.num_layers + 2, \
         counts
     errs = [check(torch, got[0], want[0], REDUCED_FEAT_TOL, "reduced prefill features"),
             check(torch, got[1], want[1], REDUCED_FEAT_TOL, "reduced decode features")]
@@ -2018,15 +2150,18 @@ def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int
     """Serve ``reqs`` through ``ServeEngine`` (dense slot caches, whole-prompt
     prefill).  Prefills are clocked one by one (each ends in a host read of
     its token); decode ticks are those that admitted nothing.  Kernel 8
-    launches twice per layer per prefill and per decode tick, kernel 9 once
-    per layer per prefill: the counts must equal that prediction.  Returns
-    the launches by shape as the two wrappers counted them, too."""
+    launches twice per layer (norm1, the gated norm) and once more (the
+    final norm) per prefill and per decode tick, kernel 9 once per layer per
+    prefill: the counts must equal that prediction.  Returns the launches by
+    shape as the two wrappers counted them, too.  The first pure decode tick
+    runs under the profiler (its kernels counted) and is left out of the
+    tick clocks."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     eng = ServeEngine(params, cfg, plan, ServeConfig(slots=slots, max_len=max_len), device="cuda")
     prefill_ms, tick_ms = [], []
-    prefill, step = eng.batcher._prefill_fn, eng.step
+    prefill = eng.batcher._prefill_fn
 
     def timed_prefill(params_, batch, *a):
         torch.cuda.synchronize()
@@ -2037,12 +2172,17 @@ def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int
         return out
 
     def timed_step():
+        untraced = traced["launches"] is not None
         t0 = time.perf_counter()
         st = step()
-        tick_ms.append((1e3 * (time.perf_counter() - t0), st.admitted == 0 and st.live > 0))
+        tick_ms.append((1e3 * (time.perf_counter() - t0),
+                        untraced and st.admitted == 0 and st.live > 0))
         return st
 
-    eng.batcher._prefill_fn, eng.step = timed_prefill, timed_step
+    eng.batcher._prefill_fn = timed_prefill
+    traced = trace_decode_tick(torch, eng)
+    step = eng.step
+    eng.step = timed_step
     gc.collect()  # an earlier engine, held only by its clock wrapper's cycle
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2054,10 +2194,12 @@ def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int
     prefills = sum(st.admitted for st in eng.tick_log)
     decode_ticks = sum(1 for st in eng.tick_log if st.live > 0)
     layers = cfg.num_layers
-    want = {"rmsnorm": 2 * layers * (prefills + decode_ticks), "ssd_chunk": layers * prefills}
+    want = {"rmsnorm": (2 * layers + 1) * (prefills + decode_ticks),
+            "ssd_chunk": layers * prefills}
     assert {k: counts[k] for k in want} == want, f"launches {counts} != predicted {want}"
     assert len(prefill_ms) == prefills and all(st.gate_load is None for st in eng.tick_log)
     toks = {r.rid: list(r.out) for r in eng.batcher.finished}
+    TOKENS_SHA256.setdefault("mamba2 serves", []).append(tokens_sha256(toks))
     decode = sorted(ms for ms, pure in tick_ms if pure)
     med = decode[len(decode) // 2] if decode else float("nan")
     per_prompt = ", ".join(f"{n}: {ms:.2f}" for n, ms in prefill_ms)
@@ -2072,7 +2214,9 @@ def serve_mamba(torch, params, cfg, plan, reqs, gen, *, slots: int, max_len: int
           f"by prompt length {{{per_prompt}}}; launches rmsnorm={counts['rmsnorm']} "
           f"ssd_chunk={counts['ssd_chunk']} as predicted ({prefills} prefills, {decode_ticks} "
           f"decode ticks); by shape, rmsnorm (T, D) {shapes['rmsnorm']}, ssd_chunk (G, L) "
-          f"{shapes['ssd_chunk']}", flush=True)
+          f"{shapes['ssd_chunk']}; one decode tick launched {traced['launches']} kernels",
+          flush=True)
+    E2E["mamba2 decode tick kernel launches"] = traced["launches"]
     E2E["mamba2 prefill ms by prompt length"] = [[n, round(ms, 3)] for n, ms in prefill_ms]
     E2E["mamba2 prefill ms, mean"] = sum(ms for _, ms in prefill_ms) / max(1, len(prefill_ms))
     E2E["mamba2 decode tick ms"] = med
@@ -2098,7 +2242,7 @@ def generate_phase(torch, params, cfg, plan, seed: int, batch: int = 4, prompt: 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, shapes = ops.launch_counts(), ops.launch_shapes()
-    want = {"rmsnorm": 2 * cfg.num_layers * new, "ssd_chunk": cfg.num_layers}
+    want = {"rmsnorm": (2 * cfg.num_layers + 1) * new, "ssd_chunk": cfg.num_layers}
     assert {k: counts[k] for k in want} == want, f"generate launches {counts} != {want}"
     assert out.shape == (batch, new) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
     first, _ = make_prefill_step(cfg, plan)(params, {"tokens": prompts})
@@ -2272,10 +2416,12 @@ def main(argv=None) -> int:
     print(f"check: paged decode vs full prefill logits, max |diff| / max |logit| = {rel:.3e}",
           flush=True)
 
-    rep_off, toks_off, counts_off = serve(torch, params, cfg, plan, reqs, gen, reconfig_every=0,
-                                          slots=slots, max_len=max_len, page=page)
-    rep_on, toks_on, counts_on = serve(torch, params, cfg, plan, reqs, gen, reconfig_every=4,
-                                       slots=slots, max_len=max_len, page=page)
+    rep_off, toks_off, counts_off, _ = serve(torch, params, cfg, plan, reqs, gen,
+                                             reconfig_every=0, slots=slots, max_len=max_len,
+                                             page=page)
+    rep_on, toks_on, counts_on, shapes_on = serve(torch, params, cfg, plan, reqs, gen,
+                                                  reconfig_every=4, slots=slots, max_len=max_len,
+                                                  page=page)
     assert rep_off.completed == len(reqs) == rep_on.completed, "not every request completed"
     assert rep_on.reconfig_count > 0, "the control plane never reconfigured"
     assert toks_on == toks_off, "reconfiguration changed the generated tokens"
@@ -2285,6 +2431,7 @@ def main(argv=None) -> int:
         assert not missing, f"kernels never launched while serving: {missing}"
     print(f"serve: tokens bit-identical with reconfiguration off and on "
           f"({rep_on.reconfig_count} reconfigurations)", flush=True)
+    rows["rmsnorm_grok"] = grok_norm_row(torch, cfg, shapes_on["rmsnorm"], args.seed)
     if args.profile:
         from repro_torch.serve.engine import ServeConfig
 
@@ -2326,8 +2473,9 @@ def main(argv=None) -> int:
     # for every other kernel it launches, the grok serve (reconfiguration
     # on) for the decode kernel, which only serving runs.  A row at a second
     # shape (SHAPE_ROWS) reports its kernel's count, except the rows of
-    # kernels 8 and 9: each carries the launches at its own shapes
-    # (``mamba_part``).  The times of the training kernels are at the
+    # kernels 8 and 9 on the serving paths: each carries the launches at its
+    # own shapes (``mamba_part``, ``grok_norm_row``); kernel 8's Mixtral row
+    # and its backward take the dropless run's.  The times of the training kernels are at the
     # training steps' shapes.
     line = []
     for row_name, (source, replaces) in KERNEL_ROWS.items():
@@ -2340,7 +2488,7 @@ def main(argv=None) -> int:
             name=row_name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], device_ms=r["device_ms"],
+            library_ms=r["library_ms"], device_ms=r["device_ms"], graph_ms=r.get("graph_ms"),
             library_device_ms=r["library_device_ms"], shape=r["shape"],
             launches_by_path={"serve": counts_on[name], "train": counts_train[name],
                               "train_capacity": counts_cap[name],
@@ -2349,8 +2497,13 @@ def main(argv=None) -> int:
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 33, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 36, [r["name"] for r in line]
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
+    print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "
+          f"{E2E['grok decode tick kernel launches, reconfig_every=0']} (reconfiguration off), "
+          f"{E2E['grok decode tick kernel launches, reconfig_every=4']} (on); mamba2 "
+          f"{E2E['mamba2 decode tick kernel launches']}", flush=True)
+    print(f"tokens sha256: {json.dumps(TOKENS_SHA256)}", flush=True)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
 namespace repro {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -54,6 +56,32 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Programmatic dependent launch, device side: wait until the kernel before
+// this one in the stream has finished and its writes are visible.  A no-op
+// for a kernel launched without the attribute.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launch `kernel` on `st` with programmatic stream serialization: the grid
+// may be scheduled while the preceding kernel drains, and must call
+// grid_dependency_wait() before it reads what that kernel writes or writes
+// anything.
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block, cudaStream_t st,
+                              Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.

@@ -36,7 +36,7 @@ from repro_torch.kernels.moe_dispatch import (
     moe_combine_cuda,
     moe_dispatch_cuda,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 from repro_torch.kernels.topk_gating import TopkGatingFn, topk_gating_bwd_cuda, topk_gating_cuda
 
@@ -63,6 +63,7 @@ KERNELS = {
     "grouped_matmul_dx": grouped_matmul_dx_cuda,
     "grouped_matmul_dw": grouped_matmul_dw_cuda,
     "rmsnorm": rmsnorm_cuda,
+    "rmsnorm_bwd": rmsnorm_bwd_cuda,
     "ssd_chunk": ssd_chunk_cuda,
 }
 
@@ -180,13 +181,20 @@ def _no_backward(name: str, *tensors) -> None:
         )
 
 
-def rmsnorm(x, w, *, eps: float = 1e-6):
+def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
     """Fused RMSNorm over ``x [T, D]`` with weight ``w [D]`` (the norm is
-    ``1 + w``), rounded once to x's dtype."""
+    ``1 + w``), rounded once to x's dtype.  ``gate``: z ``[T, D]``; the norm
+    is then of ``x * silu(z)`` (Mamba-2's gated norm, fused into the kernel
+    on the card)."""
     if _on_cpu(x):
-        return ref.rmsnorm(x, w, eps)
-    _no_backward("rmsnorm", x, w)
-    return rmsnorm_cuda(x.contiguous(), w.contiguous(), eps)
+        return ref.rmsnorm(x, w, eps, gate)
+    if gate is not None:
+        _no_backward("the gated rmsnorm", x, w, gate)
+        return rmsnorm_cuda(x.contiguous(), w.contiguous(), eps, gate=gate.contiguous())
+    x, w = x.contiguous(), w.contiguous()
+    if _wants_grad(x, w):
+        return RMSNormFn.apply(x, w, eps)
+    return rmsnorm_cuda(x, w, eps)
 
 
 def ssd_chunk(x, da, bmat, cmat, *, heads: int):

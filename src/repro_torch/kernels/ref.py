@@ -340,10 +340,15 @@ def grouped_matmul_blocks_bwd(
     return dx, grouped_matmul_blocks_dw(x, dy, block_experts, w.shape[0]).to(w.dtype)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            gate: torch.Tensor | None = None) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last dim, f32 math,
     rounded once to x's dtype: the JAX package's ``layers.rms_norm`` (and
-    ``ops.rmsnorm``'s plain branch, ``x [T, D]``, ``w [D]``)."""
+    ``ops.rmsnorm``'s plain branch, ``x [T, D]``, ``w [D]``).  ``gate``: z
+    of x's shape; the norm is then of ``x * silu(z)`` in x's dtype, as the
+    JAX package's Mamba-2 block forms it before its norm."""
+    if gate is not None:
+        x = x * torch.nn.functional.silu(gate)
     dtype = x.dtype
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -1,5 +1,6 @@
 """Timing helpers shared by ``chip_smoke.py`` and the kernel benchmarks
-(``bench_attn.py``, ``bench_gmm.py``, ``bench_moe.py``, ``bench_ssd.py``).
+(``bench_attn.py``, ``bench_gmm.py``, ``bench_moe.py``, ``bench_norm.py``,
+``bench_ssd.py``).
 
 Three clocks, because for small calls they disagree:
 
@@ -29,7 +30,7 @@ import time
 
 __all__ = [
     "HBM_BYTES_PER_S", "PEAK_FLOPS", "card_line", "time_ms", "device_ms", "host_us",
-    "graph_ms", "bound_ms", "variant_library",
+    "graph_ms", "bound_ms", "variant_library", "empty_kernel", "trace_decode_tick",
 ]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -172,3 +173,64 @@ def variant_library(build, source: str, signatures: dict, substitutions) -> ctyp
         getattr(lib, fn).restype = restype
     return lib
 
+
+_EMPTY_SRC = """
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_kernel(torch, build):
+    """A call that launches an empty kernel (one CTA of 32 threads) on the
+    current stream: the launch floor a small kernel's device, event and
+    graph times sit on.  Built with ``build.NVCC_FLAGS`` in a scratch
+    directory."""
+    tmp = pathlib.Path(tempfile.mkdtemp())
+    (tmp / "empty.cu").write_text(_EMPTY_SRC)
+    out = tmp / "libempty.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(tmp / "empty.cu")],
+                   check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.empty_launch.argtypes = (ctypes.c_void_p,)
+    lib.empty_launch.restype = ctypes.c_int
+
+    def call():
+        err = lib.empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel launch failed (CUDA error {err})")
+
+    return call
+
+
+def trace_decode_tick(torch, eng) -> dict:
+    """Wrap ``eng.step`` (a ``ServeEngine``'s) so that its ticks run under
+    torch.profiler until the first pure decode tick (one that admits
+    nothing and decodes); ``out["launches"]`` is then the number of kernels
+    that tick launched on the card (copies and fills not counted).  While
+    ``out["launches"]`` is None the next tick is traced: its host clock
+    carries the profiler's cost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"launches": None}
+    step = eng.step
+
+    def traced_step():
+        if out["launches"] is not None:
+            return step()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            st = step()
+            torch.cuda.synchronize()
+        n = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and not any(w in ev.key.lower() for w in ("memcpy", "memset")))
+        if st.admitted == 0 and st.live > 0 and n > 0:
+            out["launches"] = n
+        return st
+
+    eng.step = traced_step
+    return out

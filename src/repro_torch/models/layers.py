@@ -39,8 +39,10 @@ def normal(gen: torch.Generator, shape, dtype, device, scale: float) -> torch.Te
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim in plain PyTorch (:func:`kref.rmsnorm`)."""
-    return kref.rmsnorm(x, w, eps)
+    """RMSNorm over the last dim, ``[..., D]`` as ``[T, D]`` through
+    :func:`ops.rmsnorm`: kernel 8 on the card (its backward kernel when a
+    gradient is wanted), the plain version on the CPU."""
+    return ops.rmsnorm(x.reshape(-1, x.shape[-1]), w, eps=eps).reshape(x.shape)
 
 
 def init_rms_norm(d: int, dtype, device, reps: int | None = None) -> torch.Tensor:

@@ -167,8 +167,8 @@ def ssm_apply(params, x: torch.Tensor, cfg, *, mode: str = "train", cache=None, 
                 "bsn,bsh,bshp->bhpn", bm.float(), decay_to_end, (xh * dt[..., None]).float()
             )
             cache = {"state": state, "conv": new_conv}
-    y = y * F.silu(z)
-    y = ops.rmsnorm(y.reshape(b * seq, inner), params["norm"], eps=cfg.norm_eps)
+    y = ops.rmsnorm(y.reshape(b * seq, inner), params["norm"], eps=cfg.norm_eps,
+                    gate=z.reshape(b * seq, inner))
     return y.reshape(b, seq, inner) @ params["w_out"], cache
 
 

@@ -868,10 +868,11 @@ def test_ssd_chunk_kernel(dev, groups, heads, l, p, n, fill):
 def test_ssm_ops_refuse_grad_and_wrappers_refuse_bad_inputs(dev):
     x = torch.randn((4, 64), device=dev, requires_grad=True)
     w = torch.zeros((64,), device=dev)
+    assert ops.rmsnorm(x, w).requires_grad  # the ungated norm has its backward kernel
     with pytest.raises(RuntimeError, match="no backward"):
-        ops.rmsnorm(x, w)
+        ops.rmsnorm(x, w, gate=torch.zeros_like(x))
     with torch.no_grad():
-        ops.rmsnorm(x, w)
+        ops.rmsnorm(x, w, gate=torch.zeros_like(x))
     xs, da, bm, cm = _ssd_case(dev, 2, 2, 8, 16, 16, None, seed=0)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.ssd_chunk(xs.requires_grad_(), da, bm, cm, heads=2)
@@ -882,6 +883,9 @@ def test_ssm_ops_refuse_grad_and_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(TypeError):
         rmsnorm_cuda(torch.zeros((2, 16), device=dev), torch.zeros((16,), device=dev,
                                                                     dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # a gate of another shape
+        rmsnorm_cuda(torch.zeros((2, 16), device=dev), torch.zeros((16,), device=dev),
+                     gate=torch.zeros((2, 8), device=dev))
     z = torch.zeros((2, 8, 16), device=dev)
     with pytest.raises(ValueError):
         ssd_chunk_cuda(z, torch.zeros((2, 8), device=dev), torch.zeros((1, 8, 129), device=dev),
@@ -1008,3 +1012,136 @@ def test_paged_flash_decode_long_context_bit_identical(dev):
     torch.testing.assert_close(got.float(), ref.paged_flash_decode(q, kp, vp, table, t).float(),
                                **TOLS[torch.bfloat16])
     assert torch.equal(got, paged_flash_decode_cuda(q, kp, vp, table, t))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 8's gate and backward.  The gated kernel must equal the ungated
+# kernel on PyTorch's own ``x * F.silu(z)`` bit for bit (the path it
+# replaces), at the Mamba-2 serve's shapes, the wide two-pass widths and z of
+# +-100 (silu saturates).  The backward against torch.autograd of the plain
+# version: dx within torch.testing's dtype defaults (f32 math rounded once,
+# another order), dw within GRAD_TOLS (a sum over up to 512 rows in another
+# order, rounded once), and two runs bit-identical (no atomics).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_bwd_cuda  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+
+_NORM_SHAPES = [(8, 4096), (20, 4096), (44, 4096), (4, 4096), (4, 2048), (1, 48), (257, 2048),
+                (3, 12288), (2, 16384), (2, 40000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", _NORM_SHAPES)
+def test_rmsnorm_gate_bit_identical_to_unfused(dev, dtype, t, d):
+    g = torch.Generator(device=dev).manual_seed(t * d)
+    x = (torch.randn((t, d), generator=g, device=dev) * 3).to(dtype)
+    z = (torch.randn((t, d), generator=g, device=dev) * 3).to(dtype)
+    z[0, :4] = torch.tensor([100.0, -100.0, 30.0, -30.0])
+    z[-1, : d // 2] = -100.0
+    w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dtype)
+    got = rmsnorm_cuda(x, w, 1e-5, gate=z)
+    assert torch.equal(got, rmsnorm_cuda(x * torch.nn.functional.silu(z), w, 1e-5))
+    torch.testing.assert_close(got, ref.rmsnorm(x, w, 1e-5, z))
+    assert torch.equal(ops.rmsnorm(x, w, eps=1e-5, gate=z), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(512, 4096), (44, 6144), (4, 6144), (300, 2048), (1, 48),
+                                 (5, 12288), (3, 16384), (130, 512)])
+def test_rmsnorm_backward_against_autograd(dev, dtype, t, d):
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    x = (torch.randn((t, d), generator=g, device=dev) * 3).to(dtype)
+    w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dtype)
+    dy = torch.randn((t, d), generator=g, device=dev).to(dtype)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want_dx, want_dw = torch.autograd.grad(ref.rmsnorm(xg, wg, 1e-6), (xg, wg), dy)
+    dx, dw = rmsnorm_bwd_cuda(x, w, dy, 1e-6)
+    assert dx.dtype == dw.dtype == dtype
+    torch.testing.assert_close(dx, want_dx)
+    torch.testing.assert_close(dw.float(), want_dw.float(), **GRAD_TOLS[dtype])
+    dx2, dw2 = rmsnorm_bwd_cuda(x, w, dy, 1e-6)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    xf, wf = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = RMSNormFn.apply(xf, wf, 1e-6)
+    assert torch.equal(out, rmsnorm_cuda(x, w, 1e-6))
+    out.backward(dy)
+    assert torch.equal(xf.grad, dx) and torch.equal(wf.grad, dw)
+
+
+@pytest.mark.cuda
+def test_rms_norm_on_the_card_counts_kernel_launches(dev):
+    """``layers.rms_norm`` on a CUDA tensor runs kernel 8 (``[B, S, D]`` as
+    ``[B * S, D]``), its backward kernel when a gradient is wanted."""
+    x = torch.randn((2, 3, 64), device=dev)
+    w = torch.randn((64,), device=dev) * 0.1
+    ops.reset_launch_counts()
+    out = L.rms_norm(x, w, 1e-6)
+    assert out.shape == x.shape and ops.launch_shapes()["rmsnorm"] == {(6, 64): 1}
+    torch.testing.assert_close(out, ref.rmsnorm(x, w, 1e-6))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    L.rms_norm(xg, wg, 1e-6).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["rmsnorm"] == 2 and counts["rmsnorm_bwd"] == 1, counts
+    assert xg.grad is not None and wg.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1 on both layouts (a thread a row up to E = 32, a warp a row above):
+# ids exactly the plain version's, with tied rows, -inf logits and T off a
+# multiple of the CTA; weights within torch.testing's f32 defaults (another
+# summation order); its backward against torch.autograd.
+# ---------------------------------------------------------------------------
+
+
+def _gate_logits(dev, t, e, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((t, e), generator=g, device=dev) * 2
+    logits[0] = 0.5  # every expert tied: ids 0..k-1
+    logits[1, ::2] = 1.25  # ties among the best
+    logits[2, : e // 2] = float("-inf")  # half the row masked
+    logits[3, 1:] = float("-inf")  # one expert left: the rest tie at probability 0
+    return logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [8, 160, 1024])
+@pytest.mark.parametrize("k", [1, 2, 6])
+@pytest.mark.parametrize("t", [37, 300])
+def test_topk_gating_layouts(dev, e, k, t):
+    logits = _gate_logits(dev, t, e, seed=t + e + k)
+    w, i = topk_gating_cuda(logits, k)
+    rw, ri = ref.topk_gating(logits, k)
+    assert torch.equal(i, ri)
+    assert i[0].tolist() == list(range(k))
+    torch.testing.assert_close(w, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k", [(8, 2), (5, 3), (32, 6), (160, 6)])
+def test_topk_gating_nan_rows_and_odd_widths(dev, e, k):
+    """E off the 16-byte vector (5) and at the thread layout's edge (32); a
+    row of -inf logits has NaN probabilities, ordered as torch.argmax orders
+    NaNs (the lowest id first)."""
+    logits = _gate_logits(dev, 70, e, seed=e)
+    logits[4] = float("-inf")
+    w, i = topk_gating_cuda(logits, k)
+    rw, ri = ref.topk_gating(logits, k)
+    assert torch.equal(i, ri)
+    torch.testing.assert_close(w, rw, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k", [(8, 2), (8, 1), (5, 3), (32, 6), (160, 6), (1024, 2)])
+def test_topk_gating_backward_layouts(dev, e, k):
+    g = torch.Generator(device=dev).manual_seed(e + k)
+    logits = torch.randn((67, e), generator=g, device=dev)
+    logits[1, : e // 2] = float("-inf")
+    dw = torch.randn((67, k), generator=g, device=dev)
+    l1 = logits.clone().requires_grad_()
+    TopkGatingFn.apply(l1, k)[0].backward(dw)
+    l2 = logits.clone().requires_grad_()
+    ref.topk_gating(l2, k)[0].backward(dw)
+    torch.testing.assert_close(l1.grad, l2.grad, rtol=1e-5, atol=1e-6)

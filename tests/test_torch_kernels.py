@@ -151,6 +151,36 @@ def test_paged_gather_kv_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# rmsnorm with its gate (Mamba-2's gated norm)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_rmsnorm_plain_matches_jax(dtype):
+    """``ops.rmsnorm(x, w, gate=z)`` on the CPU against the JAX package's
+    Mamba-2 block (``src/repro/models/ssm.py:189-190``): ``y * silu(z)``,
+    then ``rms_norm``.  z spans +-100 (silu saturates to 0 and to z).
+    Tolerance: f32 rtol and atol 1e-5; bf16 torch.testing's bf16 defaults
+    (rtol 1.6e-2, atol 1e-5): the product rounds to bf16 in both, and silu's
+    rounding may differ by an ulp."""
+    from repro.models import layers as jL
+
+    rng = np.random.default_rng(11)
+    yn = (rng.standard_normal((6, 64)) * 3).astype(np.float32)
+    zn = (rng.standard_normal((6, 64)) * 3).astype(np.float32)
+    zn[0, :4] = [100.0, -100.0, 30.0, -30.0]
+    wn = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    y, z, w = (jnp.asarray(a, jd) for a in (yn, zn, wn))
+    want = np.asarray(jL.rms_norm(y * jax.nn.silu(z), w, 1e-6).astype(jnp.float32))
+    got = ops.rmsnorm(*(_t(np.asarray(a.astype(jnp.float32))).to(td) for a in (y, w)), eps=1e-6,
+                      gate=_t(np.asarray(z.astype(jnp.float32))).to(td))
+    assert got.dtype == td
+    rtol = 1e-5 if dtype == "float32" else 1.6e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # ops dispatch and the wrappers' refusals
 # ---------------------------------------------------------------------------
 

@@ -49,6 +49,7 @@ from repro_torch.kernels import grouped_matmul as kgm
 from repro_torch.kernels import moe_dispatch as kmd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels import topk_gating as ktg
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import routing
@@ -614,10 +615,18 @@ def test_remat_through_the_kernel_functions(monkeypatch, remat):
     fake(kgm, "grouped_matmul_cuda", tref.grouped_matmul)
     fake(kgm, "grouped_matmul_dx_cuda", lambda dy, w: tref.grouped_matmul(dy, w.transpose(1, 2)))
     fake(kgm, "grouped_matmul_dw_cuda", tref.grouped_matmul_dw)
+
+    def rmsnorm_bwd(x, w, dy, eps=1e-6):
+        xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+        with torch.enable_grad():
+            return torch.autograd.grad(tref.rmsnorm(xg, wg, eps), (xg, wg), dy)
+
+    fake(krms, "rmsnorm_cuda", tref.rmsnorm)
+    fake(krms, "rmsnorm_bwd_cuda", rmsnorm_bwd)
     for name in ("topk_gating_cuda", "flash_attention_cuda", "moe_dispatch_cuda",
-                 "moe_combine_cuda", "grouped_matmul_cuda"):
-        monkeypatch.setattr(ops, name, getattr({"t": ktg, "f": kfa, "m": kmd, "g": kgm}[name[0]],
-                                               name))
+                 "moe_combine_cuda", "grouped_matmul_cuda", "rmsnorm_cuda"):
+        monkeypatch.setattr(ops, name, getattr({"t": ktg, "f": kfa, "m": kmd, "g": kgm,
+                                                "r": krms}[name[0]], name))
     monkeypatch.setattr(ops, "_on_cpu", lambda x: False)
     cfg = _tiny(ModelConfig, MoEConfig, "capacity", capacity_factor=1.0)
     params, _, _ = init_all(0, cfg, PLAN, adamw.AdamWConfig(), device="cpu")
@@ -632,8 +641,10 @@ def test_remat_through_the_kernel_functions(monkeypatch, remat):
     assert none["grouped_matmul_cuda"] == 6 and none["grouped_matmul_dw_cuda"] == 6
     for name in ("topk_gating_cuda", "flash_attention_cuda", "grouped_matmul_cuda"):
         assert counts[name] == 2 * none[name], (name, counts, none)
+    # The final norm lies outside the rematerialised layers.
+    assert counts["rmsnorm_cuda"] == 2 * none["rmsnorm_cuda"] - 1, (counts, none)
     for name in ("topk_gating_bwd_cuda", "flash_attention_bwd_cuda", "grouped_matmul_dx_cuda",
-                 "grouped_matmul_dw_cuda", "moe_combine_bwd_cuda"):
+                 "grouped_matmul_dw_cuda", "moe_combine_bwd_cuda", "rmsnorm_bwd_cuda"):
         assert counts[name] == none[name], (name, counts, none)
 
 
