@@ -8,7 +8,9 @@ Phases, one printed line (or more) each:
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build  — ``nvcc`` builds every kernel of the serving and training paths
    from ``src/repro_torch/csrc`` (7 sources, one process each, all at once);
-3. kernels — each kernel at the serving path's shapes and at small cases
+3. kernels — each kernel at the serving path's shapes (kernel 3 also at a
+   speculative verify pass, q [4, 5, 48, 128], each of whose rows must
+   equal the one-row launch's bit for bit) and at small cases
    with window, softcap, ragged lengths, -1 page-table entries, head
    dims from 32 to 256 (40 zero-padded) and S = 300 with a group of 6, held
    against its plain PyTorch version on the card; kernel, plain and library
@@ -32,7 +34,14 @@ Phases, one printed line (or more) each:
    launch count must grow during the serve (kernel 8 runs every norm); the
    first pure decode tick of each serve runs under the profiler, which
    counts its kernels; then kernel 8 at every (T, D) the serve launched it
-   at;
+   at.  Three more serves, reconfiguration on: sampled (``sample=True,
+   sample_seed=1``), speculative (``spec_k=4``, the topk1 draft) greedy,
+   whose tokens must equal the first two serves' bit for bit, and
+   speculative sampled, whose tokens must equal the sampled serve's; each
+   prints tokens/s, its median decode tick, and for the speculative ones
+   the acceptance, the median draft and verify times and the kernels one
+   round's draft and verify launch (under the profiler); after each
+   reconfiguring serve the experts are moved back to their own slots;
 5b. mamba2 — the grok model is freed; Mamba-2 1.3B at full width,
    random weights from ``--seed``: prefill 200 tokens and decode 56 one at
    a time against one 256-token prefill (every decoded position's logits),
@@ -45,8 +54,9 @@ Phases, one printed line (or more) each:
    bit-identical and kernel launches exactly as predicted from the prompts
    and ticks, decode tick against its bytes bound; greedy ``generate`` of
    16 tokens for 4 prompts of 512 (two chunks), its first tokens the
-   prefill step's; then a reduced f32 prefill and decode step on the card
-   against the CPU;
+   prefill step's; sampled ``generate`` of the same, twice with seed 1
+   (bit-identical) and once with seed 2 (different); then a reduced f32
+   prefill and decode step on the card against the CPU;
 6. train kernels — every training-path kernel
    (MoE dispatch at the send gather, the pack and the unpack; the combine
    in f32 and, as the send gather's backward, in bf16; the dropless
@@ -140,6 +150,7 @@ BF16_GEMM_REL = 1e-2
 # autograd's, rounded once to bf16: 1e-2 of the largest magnitude.
 NORM_DW_REL = 1e-2
 LAYERS = 4  # of grok-1's 64: 42.6 GB of weights on an 80 GB card
+SPEC_K = 4  # draft tokens a speculative round (the verify pass scores k + 1)
 REQUESTS = 8
 TRAIN_LAYERS = 2  # of Mixtral-8x7B's 32: 3.17 B parameters, 38 GB with grads and f32 moments
 TRAIN_STEPS = 8
@@ -208,6 +219,10 @@ KERNEL_ROWS = {
     # (SHAPE_ROWS; "rmsnorm" is the prefills' gated norm).
     "paged_flash_decode_long": ("src/repro_torch/csrc/paged_flash_decode.cu",
                                 "src/repro/kernels/flash_attention.py:226"),
+    # Kernel 3 at a speculative verify pass (C = k + 1), with the launches
+    # at that shape of the greedy speculative serve.
+    "paged_flash_decode_verify": ("src/repro_torch/csrc/paged_flash_decode.cu",
+                                  "src/repro/kernels/flash_attention.py:226"),
     "ssd_chunk_prefill_256": ("src/repro_torch/csrc/ssd_chunk.cu",
                               "src/repro/kernels/ssd_chunk.py:50"),
     "ssd_chunk_generate": ("src/repro_torch/csrc/ssd_chunk.cu",
@@ -392,6 +407,39 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
         f"q [{slots}, 1, {hq}, {d}] bf16, pool [{num_pages}, {page}, {hkv}, {d}], t={lengths}",
     )
 
+    # -- paged_flash_decode at a speculative verify pass: q [slots, k + 1, Hq,
+    # D] over the same pool, row c attending positions <= t + c.
+    c = SPEC_K + 1
+    lengths = [min(n, max_len - c) for n in prompt_lens[:slots]]
+    table = page_table_for(torch, lengths, c, page, max_pages, num_pages, cpu_g).to(dev)
+    tvec = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    qv = torch.randn((slots, c, hq, d), generator=g, device=dev).to(bf16)
+    out = paged_flash_decode_cuda(qv, kp, vp, table, tvec)
+    err = check(torch, out, ref.paged_flash_decode(qv, kp, vp, table, tvec), BF16_TOL,
+                "paged_flash_decode verify")
+    for j in range(c):  # each row is the one-row launch's, bit for bit
+        one = paged_flash_decode_cuda(qv[:, j : j + 1].contiguous(), kp, vp, table, tvec + j)
+        assert torch.equal(one[:, 0], out[:, j]), f"kernel 3: verify row {j} != its C = 1 launch"
+    verify_mask = (pos[None, None, None, :]
+                   <= (tvec[:, None] + torch.arange(c, device=dev)[None, :])[:, None, :, None])
+
+    def sdpa_verify():
+        vk = ref.paged_gather_kv(kp, table).transpose(1, 2)
+        vv_ = ref.paged_gather_kv(vp, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(qv.transpose(1, 2), vk, vv_, attn_mask=verify_mask,
+                                              enable_gqa=True)
+
+    rows["paged_flash_decode_verify"] = kernel_row(
+        torch, "paged_flash_decode_verify", err,
+        lambda: paged_flash_decode_cuda(qv, kp, vp, table, tvec), 200,
+        time_ms(torch, lambda: ref.paged_flash_decode(qv, kp, vp, table, tvec), 20),
+        timed(torch, sdpa_verify, 100),
+        2 * slots * c * hq * d * 2 + sum((t + c) * hkv * d * 2 * 2 for t in lengths)
+        + table.numel() * 4 + slots * 4,
+        sum(4 * hq * d * (t + j + 1) for t in lengths for j in range(c)), "bfloat16",
+        f"q [{slots}, {c}, {hq}, {d}] bf16, pool [{num_pages}, {page}, {hkv}, {d}], t={lengths}",
+    )
+
     # -- paged_flash_decode at a long context: every slot at t = 4095, a pool
     # of 1024 pages (67 MB of K/V read).
     long_t, long_pages = 4095, 1024
@@ -557,17 +605,81 @@ def decode_vs_prefill(torch, params, cfg, plan, tokens, page: int, device="cuda"
 # ---------------------------------------------------------------------------
 
 
+def spec_probe(torch, eng, ready) -> dict:
+    """Wrap a speculative engine's draft loop (span ``spec_k``) and verify
+    step.  Once ``ready()`` (the tick tracer is done: profilers do not
+    nest), the first call of each runs under the profiler, which counts the
+    kernels it launched on the card (``draft_kernels``, ``verify_kernels``;
+    copies and fills not counted, as ``trace_decode_tick`` counts a tick's),
+    and every later call is clocked between two synchronizes (``draft_ms``,
+    ``verify_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.train_step import make_draft_loop_step
+
+    b = eng.batcher
+    out = {"draft_ms": [], "verify_ms": [], "draft_kernels": None, "verify_kernels": None}
+
+    def wrap(fn, what):
+        def call(*a):
+            if not ready():
+                return fn(*a)
+            if out[f"{what}_kernels"] is None:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    r = fn(*a)
+                    torch.cuda.synchronize()
+                out[f"{what}_kernels"] = sum(
+                    ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+                    and not any(w in ev.key.lower() for w in ("memcpy", "memset")))
+                return r
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            out[f"{what}_ms"].append(1e3 * (time.perf_counter() - t0))
+            return r
+
+        return call
+
+    b._verify_fn = wrap(b._verify_fn, "verify")
+    b._draft_fns[b.spec_k] = wrap(
+        make_draft_loop_step(b._draft_cfg, b.plan, k=b.spec_k, sample=b.sample), "draft")
+    return out
+
+
+def undo_placement(eng) -> None:
+    """Move every expert of a reconfigured engine back to its own slot: the
+    weights the engine was given are then as they were, for the next serve."""
+    import numpy as np
+
+    from repro_torch.core.controlplane import LayerPlan
+
+    stack = eng.controlplane.perm_stack()
+    eng.apply_plans([LayerPlan(layer, True, perm=np.argsort(row))
+                     for layer, row in enumerate(stack)])
+    assert (eng.controlplane.perm_stack() == np.arange(stack.shape[1])).all()
+
+
 def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: int,
-          max_len: int, page: int, device="cuda"):
+          max_len: int, page: int, device="cuda", **scfg_kw):
+    """Serve ``reqs`` through ``ServeEngine``; ``scfg_kw``: more
+    ``ServeConfig`` switches (``sample``, ``sample_seed``, ``spec_k``).  A
+    speculative serve's rounds are probed (``spec_probe``)."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     scfg = ServeConfig(slots=slots, max_len=max_len, page_size=page,
-                       reconfig_every=reconfig_every, reconfig_min_gain=0.0, num_devices=4)
+                       reconfig_every=reconfig_every, reconfig_min_gain=0.0, num_devices=4,
+                       **scfg_kw)
+    label = ", ".join(f"{k}={v}" for k, v in {"reconfig_every": reconfig_every, **scfg_kw}.items())
     eng = ServeEngine(params, cfg, plan, scfg, device=device)
-    # The first pure decode tick runs under the profiler (its kernels
-    # counted) and is left out of the tick clocks.
+    # The first pure decode tick (a speculative round, when spec_k > 0) runs
+    # under the profiler (its kernels counted) and is left out of the tick
+    # clocks.
     traced = trace_decode_tick(torch, eng)
+    probe = (spec_probe(torch, eng, lambda: traced["launches"] is not None) if scfg.spec_k
+             else None)
     # Host clock per tick: every tick ends in a host read of its tokens.
     tick_ms, tick_step = [], eng.step
 
@@ -584,20 +696,39 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
     rep = eng.run(reqs, gen)
     counts, shapes = ops.launch_counts(), ops.launch_shapes()
     toks = {r.rid: list(r.out) for r in eng.batcher.finished}
-    TOKENS_SHA256[f"grok-1 serve, reconfig_every={reconfig_every}"] = tokens_sha256(toks)
+    TOKENS_SHA256[f"grok-1 serve, {label}"] = tokens_sha256(toks)
     decode = sorted(ms for ms, pure in tick_ms if pure)
     admit = sorted(ms for ms, pure in tick_ms if not pure)
-    med = lambda xs: xs[len(xs) // 2] if xs else float("nan")
-    print(f"serve reconfig_every={reconfig_every}: completed={rep.completed}/{rep.requests} "
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")  # noqa: E731
+    spec = ""
+    if probe is not None:
+        spec = (f"; speculative rounds: acceptance {rep.spec_accepted}/{rep.spec_drafted} = "
+                f"{rep.spec_acceptance:.4f}, draft_ms median={med(probe['draft_ms']):.3f} "
+                f"(n={len(probe['draft_ms'])}), verify_ms median={med(probe['verify_ms']):.3f} "
+                f"(n={len(probe['verify_ms'])}), one round launched {probe['draft_kernels']} "
+                f"kernels drafting {scfg.spec_k} tokens and {probe['verify_kernels']} verifying "
+                f"{scfg.spec_k + 1}; kernel 3 launches by (B, C) {shapes['paged_flash_decode']}")
+        E2E[f"grok spec round kernels (draft, verify), {label}"] = [probe["draft_kernels"],
+                                                                     probe["verify_kernels"]]
+        E2E[f"grok verify ms, {label}"] = med(probe["verify_ms"])
+        E2E[f"grok draft ms, {label}"] = med(probe["draft_ms"])
+        E2E[f"grok acceptance, {label}"] = rep.spec_acceptance
+    print(f"serve {label}: completed={rep.completed}/{rep.requests} "
           f"ticks={rep.ticks} tokens={rep.tokens_out} wall_s={rep.wall_s:.3f} "
           f"tokens_per_s={rep.tokens_per_s:.2f} mean_tick_ms={1e3 * rep.wall_s / rep.ticks:.3f} "
           f"decode_tick_ms median={med(decode):.3f} (n={len(decode)}) "
           f"admit_tick_ms median={med(admit):.3f} (n={len(admit)}) "
           f"reconfig_count={rep.reconfig_count} launches={counts} rmsnorm by (T, D) "
-          f"{shapes['rmsnorm']}; one decode tick launched {traced['launches']} kernels",
+          f"{shapes['rmsnorm']}; one decode tick launched {traced['launches']} kernels "
+          f"({traced['device_ms']} ms of device time){spec}",
           flush=True)
-    E2E[f"grok decode tick ms, reconfig_every={reconfig_every}"] = med(decode)
-    E2E[f"grok decode tick kernel launches, reconfig_every={reconfig_every}"] = traced["launches"]
+    assert rep.completed == len(reqs), f"serve {label}: not every request completed"
+    if eng.applier is not None:
+        undo_placement(eng)
+    E2E[f"grok decode tick ms, {label}"] = med(decode)
+    E2E[f"grok tokens/s, {label}"] = rep.tokens_per_s
+    E2E[f"grok decode tick kernel launches, {label}"] = traced["launches"]
+    E2E[f"grok decode tick device ms, {label}"] = traced["device_ms"]
     return rep, toks, counts, shapes
 
 
@@ -1485,7 +1616,7 @@ SHAPE_ROWS = {
     "grouped_matmul_blocks_dw_wout": "grouped_matmul_blocks_dw",
     "grouped_matmul_blocks_skew": "grouped_matmul_blocks",
     "grouped_matmul_blocks_dw_skew": "grouped_matmul_blocks_dw",
-    "paged_flash_decode_long": "paged_flash_decode",
+    "paged_flash_decode_long": "paged_flash_decode", "paged_flash_decode_verify": "paged_flash_decode",
     "rmsnorm_prefill_d": "rmsnorm", "rmsnorm_decode_inner": "rmsnorm",
     "rmsnorm_decode_d": "rmsnorm", "rmsnorm_grok": "rmsnorm", "rmsnorm_mixtral": "rmsnorm",
     "ssd_chunk_prefill_256": "ssd_chunk", "ssd_chunk_generate": "ssd_chunk",
@@ -2254,6 +2385,44 @@ def generate_phase(torch, params, cfg, plan, seed: int, batch: int = 4, prompt: 
     return counts, shapes
 
 
+def sampled_generate_phase(torch, params, cfg, plan, seed: int, batch: int = 4,
+                           prompt: int = 512, new: int = 16):
+    """Sampled ``generate`` of ``new`` tokens for ``batch`` prompts of
+    ``prompt`` tokens, three times: seeds 1, 1 and 2.  The same seed must
+    give the same tokens, the other seed other tokens, and every run's first
+    tokens are the prefill's argmax (as in the reference)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.decode import generate
+    from repro_torch.train.train_step import make_prefill_step
+
+    prompts = generate_prompts(torch, cfg, seed, batch, prompt)
+    first, _ = make_prefill_step(cfg, plan)(params, {"tokens": prompts})
+    ops.reset_launch_counts()
+    outs, walls = [], []
+    for s in (1, 1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(generate(params, cfg, plan, prompts, max_new_tokens=new, sample=True, seed=s))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    want = {"rmsnorm": 3 * (2 * cfg.num_layers + 1) * new, "ssd_chunk": 3 * cfg.num_layers}
+    assert {k: counts[k] for k in want} == want, f"sampled generate launches {counts} != {want}"
+    a, b, c = outs
+    assert a.shape == (batch, new) and bool(((a >= 0) & (a < cfg.vocab_size)).all())
+    assert torch.equal(a, b), "sampled generate: the same seed gave different tokens"
+    assert not torch.equal(a, c), "sampled generate: another seed gave the same tokens"
+    assert all(torch.equal(o[:, :1], first) for o in outs), "the first tokens are not the prefill's"
+    for s, o in ((1, a), (2, c)):
+        TOKENS_SHA256[f"mamba2 sampled generate, seed={s}"] = tokens_sha256(
+            dict(enumerate(o.tolist())))
+    print(f"generate sampled: {batch} prompts x {prompt} tokens, {new} new tokens, seeds 1, 1, "
+          f"2 in {', '.join(f'{1e3 * w:.1f}' for w in walls)} ms "
+          f"({batch * new / walls[1]:.1f} tokens/s, prefill included); seed 1 twice "
+          f"bit-identical, seed 2 different; launches rmsnorm={counts['rmsnorm']} "
+          f"ssd_chunk={counts['ssd_chunk']}", flush=True)
+
+
 def mamba_phases(torch, seed: int, profile: bool, slots: int = MAMBA_SLOTS,
                  max_len: int = MAMBA_MAX_LEN):
     """Mamba-2 1.3B at full width, random weights from ``seed``: the
@@ -2315,6 +2484,7 @@ def mamba_phases(torch, seed: int, profile: bool, slots: int = MAMBA_SLOTS,
         profile_serve(torch, params, cfg, plan, reqs, gen,
                       ServeConfig(slots=slots, max_len=max_len), label="profile mamba2")
     counts_gen, shapes["generate"] = generate_phase(torch, params, cfg, plan, seed)
+    sampled_generate_phase(torch, params, cfg, plan, seed)
     del params
     torch.cuda.empty_cache()
     reduced_card_vs_cpu(torch, seed)
@@ -2371,6 +2541,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.models.moe import resolve_draft_mode
     from repro_torch.models.transformer import init_model
     from repro_torch.parallel.sharding import make_plan
     from repro_torch.serve.workload import WorkloadGenerator
@@ -2431,6 +2602,31 @@ def main(argv=None) -> int:
         assert not missing, f"kernels never launched while serving: {missing}"
     print(f"serve: tokens bit-identical with reconfiguration off and on "
           f"({rep_on.reconfig_count} reconfigurations)", flush=True)
+    # Sampled and speculative serving, reconfiguration on: speculative
+    # tokens must equal serial tokens bit for bit, greedy and sampled.
+    kw = dict(reconfig_every=4, slots=slots, max_len=max_len, page=page)
+    sampled = dict(sample=True, sample_seed=1)
+    rep_s, toks_s, counts_s, _ = serve(torch, params, cfg, plan, reqs, gen, **kw, **sampled)
+    rep_sg, toks_sg, counts_sg, shapes_sg = serve(torch, params, cfg, plan, reqs, gen, **kw,
+                                                  spec_k=SPEC_K)
+    rep_ss, toks_ss, counts_ss, _ = serve(torch, params, cfg, plan, reqs, gen, **kw,
+                                          spec_k=SPEC_K, **sampled)
+    assert toks_sg == toks_off, "speculative greedy tokens differ from serial greedy tokens"
+    assert toks_ss == toks_s, "speculative sampled tokens differ from serial sampled tokens"
+    assert toks_s != toks_off, "sampled tokens equal the greedy ones: the draw is not threaded"
+    assert all(0 <= t < cfg.vocab_size for out in toks_s.values() for t in out)
+    for rep in (rep_s, rep_sg, rep_ss):
+        assert rep.reconfig_count > 0, "the control plane never reconfigured"
+    assert rep_sg.spec_drafted > 0 and rep_ss.spec_drafted > 0
+    for counts in (counts_s, counts_sg, counts_ss):
+        missing = [n for n in SERVE_KERNELS if counts[n] == 0]
+        assert not missing, f"kernels never launched while serving: {missing}"
+    rows["paged_flash_decode_verify"]["launches"] = \
+        shapes_sg["paged_flash_decode"].get((slots, SPEC_K + 1), 0)
+    print(f"serve: speculative tokens (spec_k={SPEC_K}, the {resolve_draft_mode(cfg)} draft) "
+          f"bit-identical to serial tokens, greedy (acceptance {rep_sg.spec_acceptance:.4f}) "
+          f"and sampled (acceptance {rep_ss.spec_acceptance:.4f}), reconfiguration on",
+          flush=True)
     rows["rmsnorm_grok"] = grok_norm_row(torch, cfg, shapes_on["rmsnorm"], args.seed)
     if args.profile:
         from repro_torch.serve.engine import ServeConfig
@@ -2497,11 +2693,13 @@ def main(argv=None) -> int:
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 36, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 37, [r["name"] for r in line]
+    spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "
           f"{E2E['grok decode tick kernel launches, reconfig_every=0']} (reconfiguration off), "
-          f"{E2E['grok decode tick kernel launches, reconfig_every=4']} (on); mamba2 "
+          f"{E2E['grok decode tick kernel launches, reconfig_every=4']} (on); one speculative "
+          f"round (draft, verify) {E2E[spec_key]} (greedy); mamba2 "
           f"{E2E['mamba2 decode tick kernel launches']}", flush=True)
     print(f"tokens sha256: {json.dumps(TOKENS_SHA256)}", flush=True)
     print(json.dumps({"kernels": line}))

@@ -17,14 +17,20 @@
 // * Split the context across CTAs.  A CTA serves one (b, kv head, block of
 //   8 query rows; row = c * group + g) over one span of the page table;
 //   the spans of a (b, kv head, row block) are one thread-block cluster.
-//   The number of splits is a function of the shapes alone (B, Hkv, rows,
-//   P): about two CTAs an SM of a 132-SM card, at most 8 (the portable
-//   cluster size) and at most one for every 4 pages.  So a token's result
-//   never depends on the lengths' values or on timing: the serve's tokens
-//   are bit-identical across runs and with reconfiguration on and off.
-// * Inside a CTA, warp w walks pages w, w + 4, ... of the span that lie in
-//   [window's first page, page of t + C - 1]; a span past them leaves an
-//   empty partial.  Each warp loads its pages itself (16-byte cp.async,
+//   The number of splits is a function of the table's width P alone: one
+//   for every 8 pages, at most 8 (the portable cluster size).  Page p of a
+//   row's table always goes to the same split and the same warp, whatever
+//   B, C or the lengths are, and a page that is masked for a row (past its
+//   position, before its window) leaves that row's partial exactly as it
+//   was.  So a row's result is a function of its own query, position and
+//   pages: a verify pass over C = k + 1 rows gives each row the bits a
+//   one-row decode tick gives it, and the serve's tokens are bit-identical
+//   across runs, batch sizes and with reconfiguration on and off.
+// * Inside a CTA, warp w walks pages pb + w, pb + w + 4, ... of its split's
+//   span (pb the span's first page), skipping those before the block's
+//   window and past the page of its last row's position; a span past them
+//   leaves an empty partial, which merges as an exact zero (its max is
+//   -1e30, so its weight expf(-1e30 - M) is 0).  Each warp loads its pages itself (16-byte cp.async,
 //   bf16 kept as bf16 in shared memory; one page in flight a warp: more
 //   CTAs an SM measured faster than a ring of two or three pages) and
 //   serves all 8 rows from one read of each page, with the running max /
@@ -65,7 +71,7 @@ constexpr int kRows = 8;         // query rows a CTA serves
 constexpr int kParts = 4;        // lanes a row (CUDA cores)
 constexpr int kTok = 4;          // keys whose scores are taken together (CUDA cores)
 constexpr int kMaxSplits = 8;    // portable cluster size
-constexpr int kSmsTarget = 132;  // split rule: ~2 CTAs an SM of 132 (a constant, not the card's)
+constexpr int kSplitPages = 8;   // pages of the table a split (the split count's rule)
 constexpr size_t kSmemMax = 232448;
 
 // Shared memory: each warp's K and V page (rows of `rs` elements) and its
@@ -125,10 +131,12 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 // ---- what both kernels share ---------------------------------------------------
 
 // The CTA's place: split (cluster rank), kv head, row block, batch row, and
-// its pages: its span of the table, within the block's window and up to the
-// page of its last row's position; warp w takes pages pb + w, pb + w + 4, ...
+// its pages: warp w takes pages pb + w + 4 i of its split's span for i in
+// [i0, mine), the ones within the block's window and up to the page of its
+// last row's position.  pb depends on the split alone, so which warp reads a
+// page never depends on the block's rows.
 struct Span {
-  int split, splits, kvh, rb, b, group, R, t, pb, mine;
+  int split, splits, kvh, rb, b, group, R, t, pb, i0, mine;
 };
 
 __device__ __forceinline__ Span cta_span(const int* __restrict__ lengths, int C, int Hq, int Hkv,
@@ -142,9 +150,11 @@ __device__ __forceinline__ Span cta_span(const int* __restrict__ lengths, int C,
   const int c_hi = min(s.R - 1, s.rb * kRows + kRows - 1) / s.group;
   const int last = min(P - 1, (s.t + c_hi) / page);
   const int first = window > 0 ? max(0, s.t + c_lo - window + 1) / page : 0;
-  s.pb = max(first, s.split * pps);
+  s.pb = s.split * pps;
   const int pe = min(last + 1, (s.split + 1) * pps);
   const int warp = threadIdx.x / 32;
+  const int lo = first - s.pb - warp;  // the warp's pages before the window
+  s.i0 = lo > 0 ? (lo + kWarps - 1) / kWarps : 0;
   s.mine = pe - s.pb - warp > 0 ? (pe - s.pb - warp + kWarps - 1) / kWarps : 0;
   return s;
 }
@@ -269,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < KS; ++k) o[k][0] = o[k][1] = o[k][2] = o[k][3] = 0.f;
   float m[2] = {repro::kNegBig, repro::kNegBig}, l[2] = {0.f, 0.f};
 
-  for (int i = 0; i < s.mine; ++i) {
+  for (int i = s.i0; i < s.mine; ++i) {
     load_page<T, D>(ks, vs, k_pool, v_pool, table, s, i, page, P, Hkv, RS);
     const int p = s.pb + warp + kWarps * i;
 
@@ -417,7 +427,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float m = repro::kNegBig, l = 0.f;
-  for (int i = 0; i < s.mine; ++i) {
+  for (int i = s.i0; i < s.mine; ++i) {
     load_page<T, D>(ks, vs, k_pool, v_pool, table, s, i, page, P, Hkv, D);
     const int p = s.pb + warp + kWarps * i;
     // Scores, kTok tokens at a time: their dot products (two partial sums
@@ -509,9 +519,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* table, con
   }();
   const int rs = kMma ? D + 8 : D;
   const int rblocks = (Hq / Hkv * C + kRows - 1) / kRows;
-  const int ctas = B * Hkv * rblocks;
-  int splits = min(kMaxSplits, max(1, (2 * kSmsTarget + ctas - 1) / ctas));
-  splits = max(1, min(splits, (P + kWarps - 1) / kWarps));
+  // The split is a function of P alone (see the header): never of B or C.
+  int splits = max(1, min(kMaxSplits, (P + kSplitPages - 1) / kSplitPages));
   const int pps = max(1, (P + splits - 1) / splits);
   splits = max(1, (P + pps - 1) / pps);
   const size_t smem = smem_bytes(page, rs, sizeof(T));

@@ -27,10 +27,12 @@ backward through autograd), the bound (bytes over 3.35 TB/s or FLOP over
 
 ``--paged`` times paged decode instead (kernel 3,
 ``csrc/paged_flash_decode.cu``; its variants are ``PAGED_VARIANTS``) at
-grok-1's decode shapes, q [4, 1, 48, 128] against bf16 pools of 8 kv heads
-and pages of 16: ``chip_smoke.py``'s serve row (contexts of 10, 44, 20 and 8
-tokens, pool [64, 16, 8, 128]) and a long context (4 slots at t = 4095,
-pool [1024, 16, 8, 128], 67.1 MB of K/V), through a permuted page table.
+grok-1's decode shapes, q [4, C, 48, 128] against bf16 pools of 8 kv heads
+and pages of 16: ``chip_smoke.py``'s serve row (C = 1, contexts of 10, 44,
+20 and 8 tokens, pool [64, 16, 8, 128]), a speculative verify pass over the
+same pool (C = 5: row c attends positions <= t + c) and a long context (4
+slots at t = 4095, pool [1024, 16, 8, 128], 67.1 MB of K/V), through a
+permuted page table.
 Each result is first held against the plain version in bf16's tolerance.
 Per shape: CUDA-event ms, device ms warm and cold (a 128 MiB fill before
 each call), the wall ms per call in a CUDA graph of 20 calls, host µs per
@@ -97,12 +99,19 @@ PAGED_VARIANTS = {
     # At most 4 splits.
     "splits4": [("paged_flash_decode.cu", "constexpr int kMaxSplits = 8;",
                  "constexpr int kMaxSplits = 4;")],
+    # A split for every 4 (16) pages of the table instead of every 8: still
+    # a function of P alone.
+    "pages4": [("paged_flash_decode.cu", "constexpr int kSplitPages = 8;",
+                "constexpr int kSplitPages = 4;")],
+    "pages16": [("paged_flash_decode.cu", "constexpr int kSplitPages = 8;",
+                 "constexpr int kSplitPages = 16;")],
 }
-# (name, context lengths t, pages in the pool, table width P); page 16,
-# grok-1's q [4, 1, 48, 128] and 8 kv heads.
+# (name, context lengths t, pages in the pool, table width P, query rows C
+# a slot); page 16, grok-1's 48 query and 8 kv heads.
 PAGED_SHAPES = (
-    ("serve row", (10, 44, 20, 8), 64, 16),
-    ("long context", (4095, 4095, 4095, 4095), 1024, 256),
+    ("serve row", (10, 44, 20, 8), 64, 16, 1),
+    ("verify", (10, 44, 20, 8), 64, 16, 5),
+    ("long context", (4095, 4095, 4095, 4095), 1024, 256, 1),
 )
 PAGE, HQ, HKV, HD = 16, 48, 8, 128
 
@@ -120,14 +129,14 @@ def paged(torch, F, args) -> int:
     cpu = torch.Generator().manual_seed(0)
     scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scrub.fill_(1)  # noqa: E731
-    for name, lengths, pages, width in PAGED_SHAPES:
+    for name, lengths, pages, width, c in PAGED_SHAPES:
         b = len(lengths)
         perm = torch.randperm(pages, generator=cpu)[: b * width].reshape(b, width)
-        used = torch.tensor([-(-(t + 1) // PAGE) for t in lengths])
+        used = torch.tensor([-(-(t + c) // PAGE) for t in lengths])
         table = torch.where(torch.arange(width)[None, :] < used[:, None], perm, -1)
         table = table.to(torch.int32).cuda()
         tvec = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        q = torch.randn((b, 1, HQ, HD), generator=gen, device="cuda").bfloat16()
+        q = torch.randn((b, c, HQ, HD), generator=gen, device="cuda").bfloat16()
         kp = torch.randn((pages, PAGE, HKV, HD), generator=gen, device="cuda").bfloat16()
         vp = torch.randn((pages, PAGE, HKV, HD), generator=gen, device="cuda").bfloat16()
         out = kfa.paged_flash_decode_cuda(q, kp, vp, table, tvec)
@@ -136,8 +145,9 @@ def paged(torch, F, args) -> int:
                                    msg=lambda m: f"{name}: {m}")
         assert torch.equal(out, kfa.paged_flash_decode_cuda(q, kp, vp, table, tvec)), \
             f"{name}: two calls differ"
+        last = tvec[:, None] + torch.arange(c, device="cuda")[None, :]  # [B, C]
         mask = (torch.arange(width * PAGE, device="cuda")[None, None, None, :]
-                <= tvec[:, None, None, None])
+                <= last[:, None, :, None])
 
         def library():
             vk = ref.paged_gather_kv(kp, table).transpose(1, 2)
@@ -146,9 +156,10 @@ def paged(torch, F, args) -> int:
                                                   enable_gqa=True)
 
         kernel = lambda: kfa.paged_flash_decode_cuda(q, kp, vp, table, tvec)  # noqa: E731
-        nbytes = (sum((t + 1) * HKV * HD * 2 * 2 for t in lengths) + 2 * b * HQ * HD * 2
+        nbytes = (sum((t + c) * HKV * HD * 2 * 2 for t in lengths) + 2 * b * c * HQ * HD * 2
                   + table.numel() * 4 + b * 4)
-        bms, by = timing.bound_ms(nbytes, sum(4.0 * HQ * HD * (t + 1) for t in lengths))
+        bms, by = timing.bound_ms(
+            nbytes, sum(4.0 * HQ * HD * (t + j + 1) for t in lengths for j in range(c)))
         iters = 50 if max(lengths) > 1000 else 200
         ms = timing.time_ms(torch, kernel, iters)
         dev, per = timing.device_ms(torch, kernel)
@@ -158,7 +169,7 @@ def paged(torch, F, args) -> int:
         ldev, _ = timing.device_ms(torch, library)
         lcold, _ = timing.device_ms(torch, library, before=flush)
         parts = " ".join(f"{k[:40]}={v:.5f}" for k, v in sorted(per.items()))
-        print(f"bench [{tag}] paged_flash_decode {name}: q [{b}, 1, {HQ}, {HD}] bf16, pool "
+        print(f"bench [{tag}] paged_flash_decode {name}: q [{b}, {c}, {HQ}, {HD}] bf16, pool "
               f"[{pages}, {PAGE}, {HKV}, {HD}], t={list(lengths)}: ms={ms:.5f} "
               f"device_ms={dev:.5f} cold_device_ms={cold:.5f} graph_ms={graph:.5f} "
               f"host_us={host:.2f} bound_ms={bms:.6f} ({by}; {nbytes / 1e6:.2f} MB, "

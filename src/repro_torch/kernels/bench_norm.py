@@ -255,8 +255,9 @@ def tick_rows(torch, args):
         eng.run(reqs, gen)
         ticks.sort()
         print(f"bench [{args.tag}] {name} ({cfg.num_layers} layers) decode tick: "
-              f"{traced['launches']} kernel launches; host ms median "
-              f"{ticks[len(ticks) // 2]:.3f} over {len(ticks)} untraced decode ticks", flush=True)
+              f"{traced['launches']} kernel launches, {traced['device_ms']} ms of device "
+              f"time; host ms median {ticks[len(ticks) // 2]:.3f} over {len(ticks)} untraced "
+              f"decode ticks", flush=True)
         del eng, params, step, timed_step
         gc.collect()
         torch.cuda.empty_cache()

@@ -278,7 +278,9 @@ def paged_flash_decode_cuda(
     if err:
         raise RuntimeError(f"paged_flash_decode kernel launch failed (error {err})")
     paged_flash_decode_cuda.launches += 1
+    paged_flash_decode_cuda.shapes[(b, c)] = paged_flash_decode_cuda.shapes.get((b, c), 0) + 1
     return out[..., :d].contiguous() if dp != d else out
 
 
 paged_flash_decode_cuda.launches = 0
+paged_flash_decode_cuda.shapes = {}  # (B, C) -> launches

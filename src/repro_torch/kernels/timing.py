@@ -210,13 +210,14 @@ def trace_decode_tick(torch, eng) -> dict:
     """Wrap ``eng.step`` (a ``ServeEngine``'s) so that its ticks run under
     torch.profiler until the first pure decode tick (one that admits
     nothing and decodes); ``out["launches"]`` is then the number of kernels
-    that tick launched on the card (copies and fills not counted).  While
+    that tick launched on the card (copies and fills not counted) and
+    ``out["device_ms"]`` the sum of their device times.  While
     ``out["launches"]`` is None the next tick is traced: its host clock
     carries the profiler's cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = {"launches": None}
+    out = {"launches": None, "device_ms": None}
     step = eng.step
 
     def traced_step():
@@ -225,11 +226,12 @@ def trace_decode_tick(torch, eng) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             st = step()
             torch.cuda.synchronize()
-        n = sum(ev.count for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA
-                and not any(w in ev.key.lower() for w in ("memcpy", "memset")))
+        evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+               and not any(w in ev.key.lower() for w in ("memcpy", "memset"))]
+        n = sum(ev.count for ev in evs)
         if st.admitted == 0 and st.live > 0 and n > 0:
             out["launches"] = n
+            out["device_ms"] = sum(ev.self_device_time_total for ev in evs) / 1e3
         return st
 
     eng.step = traced_step

@@ -21,10 +21,38 @@ from repro_torch.kernels import ref as kref
 __all__ = [
     "rms_norm", "init_rms_norm", "rope_frequencies", "apply_rope",
     "init_attention", "attention_apply", "init_attention_cache",
-    "init_paged_attention_cache", "DecodeWrites", "decode_writes", "normal",
+    "init_paged_attention_cache", "DecodeWrites", "decode_writes", "normal", "decode_rows",
+    "DECODE_ROWS", "project_in", "project_out",
 ]
 
 _NEG = -1e30
+
+# Rows of every decode-mode product (see ``decode_rows``).
+DECODE_ROWS = 32
+
+
+def decode_rows(fn, *xs: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``fn(*xs)`` for a row-wise product whose rows lie along ``dim`` of
+    every input (and of its output), run on blocks of exactly
+    ``DECODE_ROWS`` rows, the last one zero-padded.
+
+    A library GEMM picks its algorithm, and with it the order of each row's
+    sums, from the call's shapes: on the H100, cuBLAS rounds a row of
+    ``[M, 6144] @ [6144, 6144]`` (grok-1's q and o projections) and of the
+    f32 router product differently at M = 4 and M = 20.  Every decode-mode
+    product runs through here, so a row's bits never depend on how many
+    rows share the call, and a speculative verify pass over B x (k + 1)
+    rows reproduces a serial tick's B rows bit for bit.  Each block is a
+    fresh contiguous tensor, so the library also sees the same alignment."""
+    m = xs[0].shape[dim]
+    pad = -m % DECODE_ROWS
+    if pad:
+        xs = [torch.cat([x, x.new_zeros(x.shape[:dim] + (pad,) + x.shape[dim + 1:])], dim)
+              for x in xs]
+    blocks = zip(*(x.split(DECODE_ROWS, dim) for x in xs))
+    outs = [fn(*(b.contiguous() for b in blk)) for blk in blocks]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim)
+    return out.narrow(dim, 0, m) if pad else out
 
 
 def normal(gen: torch.Generator, shape, dtype, device, scale: float) -> torch.Tensor:
@@ -284,9 +312,10 @@ def attention_apply(
 ) -> tuple[torch.Tensor, dict | None]:
     b, s, _ = x.shape
     window = cfg.window_size if kind == "local" else None
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    # Decode-mode products on fixed row blocks (``decode_rows``): a verify
+    # pass's rows equal a serial tick's.
+    fixed = mode == "decode"
+    q, k, v = (project_in(x, params[n], fixed) for n in ("wq", "wk", "wv"))
     if mode == "decode":
         # Per-slot positions: t scalar (lockstep) or [B] (continuous
         # batching); s > 1 writes the chunked-prefill positions t..t+s-1.
@@ -316,8 +345,27 @@ def attention_apply(
             v.transpose(1, 2).contiguous(),
             causal=True, window=window, softcap=cfg.logit_softcap,
         ).transpose(1, 2)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, cache
+    return project_out(out, params["wo"], fixed), cache
+
+
+def project_in(x: torch.Tensor, w: torch.Tensor, fixed_rows: bool = False) -> torch.Tensor:
+    """``x [B, S, D] @ w [D, H, K] -> [B, S, H, K]``; ``fixed_rows``: on
+    ``decode_rows`` blocks."""
+    if not fixed_rows:
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    b, s, d = x.shape
+    return decode_rows(lambda r: torch.einsum("md,dhk->mhk", r, w), x.reshape(b * s, d)).reshape(
+        b, s, *w.shape[1:])
+
+
+def project_out(o: torch.Tensor, w: torch.Tensor, fixed_rows: bool = False) -> torch.Tensor:
+    """``o [B, S, H, K] @ w [H, K, D] -> [B, S, D]``; ``fixed_rows``: on
+    ``decode_rows`` blocks."""
+    if not fixed_rows:
+        return torch.einsum("bshk,hkd->bsd", o, w)
+    b, s = o.shape[:2]
+    return decode_rows(lambda r: torch.einsum("mhk,hkd->md", r, w),
+                       o.reshape(b * s, *o.shape[2:])).reshape(b, s, -1)
 
 
 def init_attention_cache(cfg, batch: int, max_len: int, *, device, dtype=None) -> dict:

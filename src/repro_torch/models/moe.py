@@ -18,9 +18,16 @@ the unpack and the weighted combine (``ops.moe_combine``).  Each gather is
 given its inverse map from the dispatch plan, which is what its backward
 kernel gathers through on the card.  P > 1 and the chunked overlap
 pipeline (``overlap_chunks > 1``) come with the multi-device slice.
+
+Speculative decoding's draft passes (``MoEConfig.draft_mode``, picked by
+:func:`resolve_draft_mode` and :func:`draft_config`): ``topk1`` narrows the
+routed fan-out to each token's best expert, ``shared_only`` skips the routed
+experts and keeps the shared lane.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -28,11 +35,14 @@ import torch.nn.functional as F
 from repro_torch.core.commruntime import AllToAll, CommSpec
 from repro_torch.kernels import ops
 from repro_torch.models import routing
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import decode_rows, normal
 from repro_torch.models.routing import MoEStats, router_losses
 from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
 
-__all__ = ["init_moe", "moe_apply", "MoEStats", "router_losses", "chunk_count"]
+__all__ = [
+    "init_moe", "moe_apply", "MoEStats", "router_losses", "chunk_count", "resolve_draft_mode",
+    "draft_config",
+]
 
 
 def init_moe(gen, cfg, plan: ShardingPlan, *, reps: int, device) -> dict:
@@ -67,18 +77,31 @@ def _actfn(act: str):
     return lambda x: F.gelu(x, approximate="tanh")
 
 
-def _expert_ffn(x, w_in, w_gate, w_out, act):
-    """x ``[G, E, C, D]`` through each expert's gated FFN, batched over E."""
-    g, e, c, d = x.shape
-    xe = x.transpose(0, 1).reshape(e, g * c, d)
+def _ffn_rows(xe, w_in, w_gate, w_out, act):
+    """``xe [E, M, D]`` through each expert's gated FFN, batched over E."""
     h = torch.bmm(xe, w_in)
     gt = torch.bmm(xe, w_gate)
-    h = _actfn(act)(gt) * h
-    y = torch.bmm(h, w_out)  # [E, G*C, D]
+    return torch.bmm(_actfn(act)(gt) * h, w_out)
+
+
+def _expert_ffn(x, w_in, w_gate, w_out, act, fixed_rows=False):
+    """x ``[G, E, C, D]`` through each expert's gated FFN, batched over E;
+    ``fixed_rows``: in blocks of ``layers.DECODE_ROWS`` rows an expert
+    (decode mode: row-invariant)."""
+    g, e, c, d = x.shape
+    xe = x.transpose(0, 1).reshape(e, g * c, d)
+    if fixed_rows:
+        y = decode_rows(lambda r: _ffn_rows(r, w_in, w_gate, w_out, act), xe, dim=1)
+    else:
+        y = _ffn_rows(xe, w_in, w_gate, w_out, act)  # [E, G*C, D]
     return y.reshape(e, g, c, d).transpose(0, 1)
 
 
-def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None):
+def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None, fixed_rows=False):
+    """The GShard einsum backend; ``fixed_rows`` (decode mode) runs the
+    router, the per-expert products and the combine on fixed row blocks
+    (``layers.decode_rows``), so a token's output does not depend on how
+    many tokens share the call."""
     e = cfg.moe
     b, s, d = x.shape
     ev, r = virtual_experts(e.num_experts, plan.model_size)
@@ -86,7 +109,11 @@ def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None):
     g = plan.model_size if (plan.model_size > 1 and s % plan.model_size == 0) else 1
     t = s // g
     xg = x.reshape(b * g, t, d)
-    logits = torch.einsum("gtd,de->gte", xg.float(), params["router"])
+    if fixed_rows:
+        logits = decode_rows(lambda r: r @ params["router"], xg.reshape(-1, d).float()).reshape(
+            b * g, t, -1)
+    else:
+        logits = torch.einsum("gtd,de->gte", xg.float(), params["router"])
     info = routing.compute_routing(
         logits.reshape(-1, e.num_experts),
         top_k=e.top_k, num_virtual=ev, replication=r, expert_perm=expert_perm,
@@ -104,7 +131,7 @@ def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None):
     dropped = 1.0 - keep.sum() / (b * g * t * sc)
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)  # [G, Ev, C, D]
-    ye = _expert_ffn(xe, params["w_in"], params["w_gate"], params["w_out"], cfg.act)
+    ye = _expert_ffn(xe, params["w_in"], params["w_gate"], params["w_out"], cfg.act, fixed_rows)
     # Combine in GATE order: gather each choice's expert row through its
     # (slot, rank) address and contract over the choices.  The JAX backend's
     # [.., Ev, C] combine einsum sums over slots, whose association would
@@ -112,34 +139,42 @@ def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None):
     gi = torch.arange(b * g, device=x.device)[:, None, None]
     ysel = ye[gi, vdest.long(), rank.clamp(0, cap - 1).long()]  # [G, T, S, D]
     w = torch.where(keep, wfull, torch.zeros_like(wfull)).to(x.dtype)
-    out = torch.einsum("gts,gtsd->gtd", w, ysel).reshape(b, s, d)
+    out = _combine(w.reshape(b * s, -1), ysel.reshape(b * s, -1, d), fixed_rows).reshape(b, s, d)
 
     balance, z = router_losses(logits, info.idx, e.num_experts)
     load = routing.expert_load(info.idx, e.num_experts)
     return out, MoEStats(load, balance, z, dropped.float())
 
 
+def _combine(w, ysel, fixed_rows):
+    """``out[t] = sum_s w[t, s] * ysel[t, s]`` for ``w [T, S]`` and ``ysel
+    [T, S, D]``, on fixed row blocks when ``fixed_rows``."""
+    f = lambda wr, yr: torch.einsum("ts,tsd->td", wr, yr)  # noqa: E731
+    return decode_rows(f, w, ysel) if fixed_rows else f(w, ysel)
+
+
 def _moe_dense_decode(params, x, cfg, plan: ShardingPlan, expert_perm=None,
                       gate_weights=None):
     """Decode-time MoE: ALL experts computed on the handful of live tokens,
     each choice's expert output gathered by ``vdest`` and summed in gate
-    order, so decode tokens are bit-identical under any ``expert_perm``."""
+    order, so decode tokens are bit-identical under any ``expert_perm``;
+    every product on fixed row blocks (``layers.decode_rows``)."""
     e = cfg.moe
     b, s, d = x.shape
     ev, r = virtual_experts(e.num_experts, plan.model_size)
     xt = x.reshape(b * s, d)
-    logits = xt.float() @ params["router"]
+    logits = decode_rows(lambda rr: rr @ params["router"], xt.float())
     info = routing.compute_routing(
         logits, top_k=e.top_k, num_virtual=ev, replication=r, expert_perm=expert_perm,
     )
     xe = xt.unsqueeze(0).expand(ev, -1, -1)
-    h = torch.bmm(xe, params["w_in"])
-    gt = torch.bmm(xe, params["w_gate"])
-    h = _actfn(cfg.act)(gt) * h
-    y = torch.bmm(h, params["w_out"])  # [Ev, T, D]
+    y = decode_rows(
+        lambda rr: _ffn_rows(rr, params["w_in"], params["w_gate"], params["w_out"], cfg.act), xe,
+        dim=1,
+    )  # [Ev, T, D]
     tok = torch.arange(b * s, device=x.device)[:, None]
     ysel = y[info.vdest.long(), tok]  # [T, S, D]
-    out = torch.einsum("ts,tsd->td", info.wfull.to(y.dtype), ysel).reshape(b, s, d)
+    out = _combine(info.wfull.to(y.dtype), ysel, True).reshape(b, s, d)
 
     balance, z = router_losses(logits, info.idx, e.num_experts)
     load = routing.expert_load(info.idx, e.num_experts, weights=gate_weights)
@@ -280,8 +315,13 @@ def moe_apply(
     addressing (the dense backends hit the physically resident weights);
     ``gate_weights``: optional ``[B, S]`` telemetry weight per token."""
     e = cfg.moe
-    if e.draft_mode != "off":
-        raise NotImplementedError("speculative draft passes come with their slice")
+    if e.draft_mode == "topk1" and e.top_k > 1:
+        # Speculative draft: narrow the routed fan-out to the gate's single
+        # best expert by rewriting the config; every backend below runs as is.
+        e = dataclasses.replace(
+            e, top_k=routing.effective_top_k(e.top_k, e.draft_mode), draft_mode="off"
+        )
+        cfg = dataclasses.replace(cfg, moe=e)
     backend = backend or e.backend
     if backend != "einsum" and (x.shape[1] == 1 or mode == "decode"):
         # Decode: the weight-stationary dense path, unless the config pins
@@ -296,7 +336,15 @@ def moe_apply(
         wire = torch.as_tensor(wire_perm, dtype=torch.int32, device=x.device)
         perm = wire[(perm // epd).long()] * epd + perm % epd
         wire_perm = None
-    if backend == "dense_decode":
+    if e.draft_mode == "shared_only":
+        # Speculative draft with only the always-on lane: no routed experts,
+        # and a zero load so draft passes never reach the control plane.
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        out = torch.zeros_like(x)
+        stats = MoEStats(
+            torch.zeros((e.num_experts,), dtype=torch.float32, device=x.device), zero, zero, zero
+        )
+    elif backend == "dense_decode":
         out, stats = _moe_dense_decode(
             params, x, cfg, plan, expert_perm=perm, gate_weights=gate_weights
         )
@@ -305,12 +353,39 @@ def moe_apply(
             params, x, cfg, plan, mesh, perm, wire_perm=wire_perm, gate_weights=gate_weights,
         )
     elif backend == "einsum":
-        out, stats = _moe_einsum(params, x, cfg, plan, expert_perm=perm)
+        out, stats = _moe_einsum(params, x, cfg, plan, expert_perm=perm,
+                                 fixed_rows=mode == "decode")
     else:
         raise ValueError(f"unknown MoE backend {backend!r}")
     if "shared" in params:
         sh = params["shared"]
-        h = x @ sh["w_in"]
-        gt = F.silu(x @ sh["w_gate"])
-        out = out + (gt * h) @ sh["w_out"]
+
+        def lane(r):
+            return (F.silu(r @ sh["w_gate"]) * (r @ sh["w_in"])) @ sh["w_out"]
+
+        if mode == "decode" or backend == "dense_decode":
+            b, s, d = x.shape
+            out = out + decode_rows(lane, x.reshape(b * s, d)).reshape(b, s, d)
+        else:
+            out = out + lane(x)
     return out, stats
+
+
+def resolve_draft_mode(cfg, mode: str = "auto") -> str:
+    """The draft pass for speculative decoding: ``auto`` takes
+    ``shared_only`` when the model has a shared expert, ``topk1`` for a
+    pure sparse MoE, and ``off`` (the draft is the model) without MoE."""
+    if mode != "auto":
+        return mode
+    if not cfg.is_moe:
+        return "off"
+    return "shared_only" if cfg.moe.num_shared_experts > 0 else "topk1"
+
+
+def draft_config(cfg, mode: str = "auto"):
+    """The draft model's config: the same weights, ``draft_mode`` set on the
+    MoE block."""
+    mode = resolve_draft_mode(cfg, mode)
+    if mode == "off" or not cfg.is_moe:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, draft_mode=mode))

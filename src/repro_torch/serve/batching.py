@@ -12,9 +12,18 @@ prefix reuse through copy-on-write forks.  A model with recurrent state
 (Mamba-2) runs dense, whole-prompt only: admission overwrites the slot's
 whole state column, and every slot, live or dead, advances its state each
 tick, as the reference's do.  Every cache update here is an in-place index
-write into the batcher's tensors.  Sampled decoding
-(``sample=True``) and speculative decoding (``spec_k > 0``) raise until
-their slice.
+write into the batcher's tensors.
+
+Sampled decoding (``sample=True``) keys each emitted token with
+``fold(fold(PRNGKey(sample_seed), rid), output index)`` (DESIGN.md §11,
+:mod:`repro_torch.prng`), so the draw is a pure function of the request and
+the position.  Speculative decoding (``spec_k > 0``, paged only) drafts up
+to ``spec_k`` tokens a slot with the cheap draft config
+(:func:`repro_torch.models.moe.draft_config`), then scores all of them with
+the full model in one verify pass; the longest agreeing prefix plus the
+verifier's next token is emitted, which is what serial decoding emits, bit
+for bit, greedy or sampled.  Rejected tails are truncated off the slot's
+pages.
 """
 
 from __future__ import annotations
@@ -25,14 +34,17 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import trace
 from repro_torch.serve.paged import PageAllocator
 from repro_torch.train.train_step import (
+    make_draft_loop_step,
     make_prefill_chunk_step,
     make_prefill_step,
     make_serve_step,
+    make_verify_step,
 )
 
 __all__ = ["ContinuousBatcher", "Request", "TickStats"]
@@ -75,6 +87,16 @@ def _copy_pages(caches, src: list, dst: list) -> None:
             pool[:, d] = pool[:, s]
 
 
+def _fold_span_keys(base, rids, starts, c: int) -> torch.Tensor:
+    """``[B, c, 2]`` keys for a c-token span: slot s's key j is
+    ``fold(fold(base, rids[s]), starts[s] + j)``.  The key stream is a pure
+    function of (request, output position), so speculative and serial decode
+    consume the same keys however many drafts were burned on the way."""
+    k1 = prng.fold_in(base, rids)  # [B, 2]
+    counts = starts[:, None] + torch.arange(c, dtype=starts.dtype, device=starts.device)
+    return prng.fold_in(k1[:, None, :], counts)
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -108,9 +130,10 @@ class TickStats:
     admitted: int
     finished: int
     gate_load: np.ndarray | None  # [repeats, E] live-slot expert loads
-    spec_drafted: int = 0
-    spec_accepted: int = 0
-    spec_verified: int = 0
+    # Speculative round telemetry (DESIGN.md §11); zero on plain ticks.
+    spec_drafted: int = 0  # draft tokens proposed (live slots x span k)
+    spec_accepted: int = 0  # draft tokens accepted AND emitted
+    spec_verified: int = 0  # positions the full model scored (live x (k+1))
 
 
 class ContinuousBatcher:
@@ -136,10 +159,6 @@ class ContinuousBatcher:
         sample_seed: int = 0,
         device=None,
     ):
-        if sample:
-            raise NotImplementedError("sampled decoding comes with its slice")
-        if spec_k > 0:
-            raise NotImplementedError("speculative decoding comes with its slice")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -148,11 +167,10 @@ class ContinuousBatcher:
         self.slots = slots
         self.max_len = max_len
         self.prefill_chunk = int(prefill_chunk)
-        self.sample = False
-        self.spec_k = 0
-        self.draft_mode = "off"
-        self.spec_drafted = 0
-        self.spec_accepted = 0
+        self.sample = bool(sample)
+        self.sample_seed = int(sample_seed)
+        self._base_key = prng.prng_key(self.sample_seed, self.device) if self.sample else None
+        self.spec_k = int(spec_k)
         # Measurement plane: the owning engine points ``trace_tid`` at its
         # viewer track so batcher spans land on the same timeline row.
         self._tr = trace.default()
@@ -179,7 +197,7 @@ class ContinuousBatcher:
             )
         else:
             self.caches = tfm.init_caches(cfg, slots, max_len, device=self.device)
-        self._step = make_serve_step(cfg, plan, with_stats=True)
+        self._step = make_serve_step(cfg, plan, sample=self.sample, with_stats=True)
         self._prefill_fn = make_prefill_step(cfg, plan, with_stats=True)
         # Paged mode always has the chunk step: a prefix-cache hit resumes
         # the prompt mid-way as a decode-mode continuation.
@@ -188,6 +206,25 @@ class ContinuousBatcher:
             if self.prefill_chunk > 0 or self.paged
             else None
         )
+        # Speculative decoding: the draft appends into the same page pool,
+        # so a rejection is a length truncation; the dense ring buffer has no
+        # such invariant, hence the paged requirement.
+        self.draft_mode = "off"
+        self._verify_fn = None
+        self._draft_cfg = None
+        self._draft_fns: dict[int, object] = {}  # span k -> draft loop
+        if self.spec_k > 0:
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding requires the paged KV cache "
+                    "(pass paged=True / a paged-capable model)"
+                )
+            self.draft_mode = moe_mod.resolve_draft_mode(cfg, spec_draft_mode)
+            self._draft_cfg = moe_mod.draft_config(cfg, spec_draft_mode)
+            self._verify_fn = make_verify_step(cfg, plan, sample=self.sample, with_stats=True)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rounds = 0
         self.prefilling: deque[_Prefill] = deque()
         self.finished: list[Request] = []
         self.tick = 0
@@ -359,16 +396,35 @@ class ContinuousBatcher:
                 self.tokens[pf.slot, 0] = first
         return len(chunk), load
 
+    def _span_keys(self, c: int) -> torch.Tensor:
+        """``[slots, c, 2]`` sample keys for a c-token span: slot s's key j
+        is ``fold(fold(base, rid), len(out) + j)``, the per-verified-token
+        discipline that makes speculative and serial sampling identical."""
+        rids = np.zeros(self.slots, np.int64)
+        starts = np.zeros(self.slots, np.int64)
+        for s in range(self.slots):
+            req = self.active[s]
+            if req is not None:
+                rids[s] = req.rid
+                starts[s] = len(req.out)
+        return _fold_span_keys(self._base_key, self._dev(rids), self._dev(starts), c)
+
     # -- one decode tick -------------------------------------------------------
     def step(self) -> TickStats:
-        """Admit, advance one prefill chunk, decode one token for every
-        active slot, evict finished.  Returns the tick's observations."""
+        """Admit, advance one prefill chunk, decode one token (or one
+        speculative draft/verify round) for every active slot, evict
+        finished.  Returns the tick's observations."""
         admitted, pre_load = self._admit()
         prefill_tokens, chunk_load = self._advance_prefill()
         live = [s for s in range(self.slots) if self.active[s] is not None]
         finished = 0
         gate_load = None
-        if live:
+        spec_drafted = spec_accepted = spec_verified = 0
+        if live and self.spec_k > 0:
+            finished, gate_load, spec_drafted, spec_accepted, spec_verified = (
+                self._spec_tick(live)
+            )
+        elif live:
             perm, wire = self._perm_args()
             live_mask = np.zeros((self.slots, 1), np.float32)
             live_mask[live] = 1.0
@@ -381,6 +437,7 @@ class ContinuousBatcher:
                         self.alloc.ensure(s, int(self.t[s]), int(self.t[s]) + 1)
                     )
                 page_table = self._dev(self.alloc.table)
+            rng = self._span_keys(1)[:, 0] if self.sample else None
             # The live mask weights the exported gate telemetry and keeps
             # dead slots from writing K/V at stale positions.
             with self._tr.span("serve.decode", tid=self.trace_tid, live=len(live)):
@@ -389,7 +446,7 @@ class ContinuousBatcher:
                     self.caches,
                     self._dev(self.tokens),
                     self._dev(self.t),
-                    None,
+                    rng,
                     perm,
                     wire,
                     self._dev(live_mask),
@@ -429,7 +486,114 @@ class ContinuousBatcher:
             admitted=admitted,
             finished=finished,
             gate_load=gate_load,
+            spec_drafted=spec_drafted,
+            spec_accepted=spec_accepted,
+            spec_verified=spec_verified,
         )
+
+    def _spec_tick(self, live):
+        """One speculative draft/verify round (DESIGN.md §11).
+
+        Draft the next k tokens a live slot with the draft config, then
+        score all k + 1 positions with the full model in one verify pass.
+        The accepted prefix (the longest run where draft and verify agree,
+        plus verify's token at the first disagreement, or a bonus token when
+        all agreed) is what serial decoding would have emitted, greedy or
+        sampled (verify draws with the keys serial decoding would use).
+        Rejected positions hold orphaned K/V: the slot's length does not
+        advance over them, and whole unused pages go back to the allocator.
+        """
+        perm, wire = self._perm_args()
+        # Uniform span: clamp k so every live slot's k + 1 writes stay inside
+        # the page table.
+        k = self.spec_k
+        for s in live:
+            k = min(k, self.max_len - 1 - int(self.t[s]))
+        k = max(k, 0)
+        c = k + 1
+        # The draft writes t .. t+k-1 and verify rewrites t .. t+k: make the
+        # whole span privately writable first (CoW forks and fresh pages,
+        # from the spec_k admission headroom).
+        for s in live:
+            self._apply_forks(self.alloc.ensure(s, int(self.t[s]), int(self.t[s]) + c))
+        page_table = self._dev(self.alloc.table)
+        t_vec = self._dev(self.t)
+        live_mask = np.zeros((self.slots, c), np.float32)
+        live_mask[live] = 1.0
+        span_keys = self._span_keys(c) if self.sample else None
+        tokens = np.zeros((self.slots, c), np.int32)
+        tokens[:, 0] = self.tokens[:, 0]
+        draft_np = None
+        if k > 0:
+            draft_fn = self._draft_fns.get(k)
+            if draft_fn is None:
+                draft_fn = make_draft_loop_step(self._draft_cfg, self.plan, k=k,
+                                                sample=self.sample)
+                self._draft_fns[k] = draft_fn
+            with self._tr.span("serve.spec_draft", tid=self.trace_tid, k=k, live=len(live)):
+                drafts, _ = draft_fn(
+                    self.params,
+                    self.caches,
+                    self._dev(self.tokens),
+                    t_vec,
+                    None if span_keys is None else span_keys[:, :k],
+                    perm,
+                    wire,
+                    self._dev(live_mask[:, :1]),
+                    page_table,
+                )
+            draft_np = drafts.cpu().numpy()
+            tokens[:, 1:] = draft_np
+        with self._tr.span("serve.spec_verify", tid=self.trace_tid, span=c, live=len(live)):
+            toks, _, stats = self._verify_fn(
+                self.params,
+                self.caches,
+                self._dev(tokens),
+                t_vec,
+                span_keys,
+                perm,
+                wire,
+                self._dev(live_mask),
+                page_table,
+            )
+        gate_load = None if stats is None else stats.cpu().numpy()
+        v = toks.cpu().numpy()
+        finished = 0
+        drafted = k * len(live)
+        accepted = 0
+        for s in live:
+            req = self.active[s]
+            a = 0
+            while a < k and draft_np[s, a] == v[s, a]:
+                a += 1
+            emit = [int(x) for x in v[s, : a + 1]]
+            # EOS inside the accepted span: stop AT the EOS; the verified
+            # tail past it would never exist in serial decode.
+            if req.eos_id is not None and req.eos_id in emit:
+                emit = emit[: emit.index(req.eos_id) + 1]
+            emit = emit[: req.max_new_tokens - len(req.out)]
+            accepted += min(len(emit), a)
+            req.out.extend(emit)
+            self.t[s] += len(emit)
+            self.tokens[s, 0] = emit[-1]
+            done = (
+                len(req.out) >= req.max_new_tokens
+                or (req.eos_id is not None and emit[-1] == req.eos_id)
+                or self.t[s] >= self.max_len
+            )
+            if done:
+                finished += 1
+                self._finish(req)
+                self.active[s] = None
+                self.alloc.release(s)
+            elif len(emit) < c:
+                # Rejected or cut tail: whole pages past the accepted length
+                # go back to the free list and the reservation is restored.
+                self.alloc.truncate(s, int(self.t[s]))
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_rounds += 1
+        return finished, gate_load, drafted, accepted, c * len(live)
 
     @property
     def busy(self) -> bool:

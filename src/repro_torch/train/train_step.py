@@ -6,20 +6,50 @@ differentiates :func:`loss_fn` with ``torch.autograd.grad`` and applies
 AdamW in place; the serving steps run under ``torch.no_grad``.  The DP
 gradient reduction modes other than ``"auto"`` (the CommRuntime
 all-reduce, its int8 compression) come with the multi-device slice.
+
+Sampled serving steps draw with :mod:`repro_torch.prng`, the counterpart of
+the ``jax.random`` calls the reference makes, on the logits' device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import decode_rows
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
 from repro_torch.parallel.sharding import ShardingPlan
 
 __all__ = [
     "loss_fn", "make_train_step", "init_all", "make_prefill_step", "make_prefill_chunk_step",
-    "make_serve_step",
+    "make_serve_step", "make_verify_step", "make_draft_loop_step",
 ]
+
+
+def _attention_only(cfg, what: str) -> None:
+    bad = [k for k in (*cfg.block_pattern, *cfg.tail_pattern) if k not in ("global", "local")]
+    if bad:
+        raise ValueError(f"{what} needs attention-only block patterns, got {bad}")
+
+
+def _decode_logits(params, feats: torch.Tensor, cfg) -> torch.Tensor:
+    """``[B, C, V]`` logits of decode-mode features, the LM head on fixed
+    row blocks (``layers.decode_rows``): a row's logits do not depend on how
+    many rows the step scores."""
+    b, c, d = feats.shape
+    return decode_rows(
+        lambda r: tfm.logits_from_features(params, r[None], cfg)[0], feats.reshape(b * c, d)
+    ).reshape(b, c, -1)
+
+
+def _sample_rows(logits: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Per-row Gumbel-argmax sample: ``[B, V]`` logits x ``[B, 2]`` keys,
+    each row drawing on its OWN key (the serving engine's key discipline,
+    DESIGN.md §11), so speculative and serial decode draw the same token
+    from the same logits."""
+    l32 = logits.float()
+    return torch.argmax(l32 + prng.gumbel(keys, l32.shape[-1:]), dim=-1)
 
 
 def loss_fn(params, batch, cfg, plan, mesh=None, expert_perm=None, wire_perm=None):
@@ -157,9 +187,7 @@ def make_prefill_chunk_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: b
     written in place, attended causally over the cached prefix plus the
     chunk); returns the next-token prediction after the chunk's last
     token."""
-    bad = [k for k in (*cfg.block_pattern, *cfg.tail_pattern) if k not in ("global", "local")]
-    if bad:
-        raise ValueError(f"chunked prefill needs attention-only block patterns, got {bad}")
+    _attention_only(cfg, "chunked prefill")
 
     @torch.no_grad()
     def chunk_step(
@@ -171,7 +199,7 @@ def make_prefill_chunk_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: b
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
-        logits = tfm.logits_from_features(params, feats[:, -1:], cfg)
+        logits = _decode_logits(params, feats[:, -1:], cfg)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         if with_stats:
             return next_tok, caches, aux.moe_stats
@@ -183,10 +211,10 @@ def make_prefill_chunk_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: b
 def make_serve_step(
     cfg, plan: ShardingPlan, mesh=None, *, sample: bool = False, with_stats: bool = False,
 ):
-    """One greedy decode step: ``tokens [B, 1]`` + caches -> next token
-    ``[B, 1]``.  Sampled decoding comes with its slice."""
-    if sample:
-        raise NotImplementedError("sampled decoding comes with its slice")
+    """One decode step: ``tokens [B, 1]`` + caches -> next token ``[B, 1]``,
+    greedy, or sampled when ``sample`` and ``rng`` is given: ``rng [B, 2]``
+    draws each row on its own key, a single key ``[2]`` draws the whole
+    batch with ``categorical``."""
 
     @torch.no_grad()
     def serve_step(
@@ -198,10 +226,90 @@ def make_serve_step(
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
-        logits = tfm.logits_from_features(params, feats, cfg)[:, -1]
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        logits = _decode_logits(params, feats, cfg)[:, -1]
+        if sample and rng is not None:
+            if rng.dim() == 2:  # [B, 2] per-slot keys (DESIGN.md §11)
+                next_tok = _sample_rows(logits, rng)
+            else:  # one key for the whole batch
+                next_tok = prng.categorical(rng, logits.float())
+        else:
+            next_tok = torch.argmax(logits, dim=-1)
+        next_tok = next_tok.to(torch.int32)[:, None]
         if with_stats:
             return next_tok, caches, aux.moe_stats
         return next_tok, caches
 
     return serve_step
+
+
+def make_verify_step(
+    cfg, plan: ShardingPlan, mesh=None, *, sample: bool = False, with_stats: bool = False,
+):
+    """Speculative VERIFY step (DESIGN.md §11): score a ``[B, C]`` causal
+    continuation in one pass and emit the model's token at EVERY position.
+    Position ``j`` consumes token ``j`` (the last accepted token at ``j = 0``,
+    draft token ``j`` otherwise) and overwrites cache position ``t + j`` with
+    the full model's K/V, so ``tokens[:, j]`` of the result is what serial
+    decode would emit after the chunk prefix ``.. j``.  ``rng``:
+    ``[B, C, 2]`` per-(slot, position) sample keys."""
+    _attention_only(cfg, "speculative verify")
+
+    @torch.no_grad()
+    def verify_step(
+        params, caches, tokens, t, rng=None, expert_perm=None, wire_perm=None,
+        gate_weights=None, page_table=None,
+    ):
+        feats, aux, caches = tfm.model_apply(
+            params, {"tokens": tokens}, cfg, plan, mode="decode", caches=caches, t=t,
+            expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
+            page_table=page_table,
+        )
+        logits = _decode_logits(params, feats, cfg)  # [B, C, V]
+        b, c, _ = logits.shape
+        if sample and rng is not None:
+            toks = _sample_rows(logits.reshape(b * c, -1), rng.reshape(b * c, 2)).reshape(b, c)
+        else:
+            toks = torch.argmax(logits, dim=-1)
+        toks = toks.to(torch.int32)
+        if with_stats:
+            return toks, caches, aux.moe_stats
+        return toks, caches
+
+    return verify_step
+
+
+def make_draft_loop_step(cfg, plan: ShardingPlan, mesh=None, *, k: int, sample: bool = False):
+    """Speculative DRAFT loop (DESIGN.md §11): ``k`` greedy or sampled
+    decode steps of the draft config (``models.moe.draft_config``), an eager
+    loop where the reference fuses a ``lax.scan``.  The draft writes its K/V
+    into the same paged pool at ``t .. t+k-1``; verify overwrites them.
+    ``rng``: ``[B, k, 2]`` keys, the ones verify uses (common random
+    numbers).  Returns the drafts ``[B, k]`` i32 and the caches; the
+    draft's gate statistics are dropped, as the reference drops them."""
+    _attention_only(cfg, "speculative drafting")
+
+    @torch.no_grad()
+    def draft_loop(
+        params, caches, tokens, t, rng=None, expert_perm=None, wire_perm=None,
+        gate_weights=None, page_table=None,
+    ):
+        b = tokens.shape[0]
+        tok, drafts = tokens, []
+        for i in range(k):
+            feats, _, caches = tfm.model_apply(
+                params, {"tokens": tok}, cfg, plan, mode="decode", caches=caches, t=t + i,
+                expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
+                page_table=page_table,
+            )
+            logits = _decode_logits(params, feats, cfg)[:, -1]
+            if sample:
+                keys = rng[:, i] if rng is not None else torch.zeros(
+                    (b, 2), dtype=torch.int64, device=logits.device)
+                nxt = _sample_rows(logits, keys)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            tok = nxt.to(torch.int32)[:, None]
+            drafts.append(tok)
+        return torch.cat(drafts, dim=1), caches
+
+    return draft_loop

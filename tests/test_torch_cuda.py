@@ -937,19 +937,21 @@ def test_ssd_chunk_kernel_bit_identical(dev, groups, heads, l, p, n):
 
 @pytest.mark.cuda
 def test_launch_shapes_count_each_launch_by_shape(dev):
-    """Kernels 8 and 9 count their launches by shape, (T, D) and (G, L),
-    and a reset clears those counts with the others."""
+    """Kernels 8, 9 and 3 count their launches by shape, (T, D), (G, L) and
+    (B, C), and a reset clears those counts with the others."""
     ops.reset_launch_counts()
     x = torch.randn((3, 64), device=dev)
     for t in (3, 3, 5):
         rmsnorm_cuda(x.new_ones((t, 64)), x[0])
     xs, da, bm, cm = _ssd_case(dev, 4, 2, 8, 16, 16, None, seed=1)
     ssd_chunk_cuda(xs, da, bm, cm, 2)
+    q, kp, vp, table, t = _paged_case(dev, [3, 9], 5, 8, 2, 4, 2, 64, torch.bfloat16, seed=1)
+    paged_flash_decode_cuda(q, kp, vp, table, t)
     assert ops.launch_shapes() == {"rmsnorm": {(3, 64): 2, (5, 64): 1},
-                                   "ssd_chunk": {(4, 8): 1}}
+                                   "ssd_chunk": {(4, 8): 1}, "paged_flash_decode": {(2, 5): 1}}
     assert ops.launch_counts()["rmsnorm"] == 3
     ops.reset_launch_counts()
-    assert ops.launch_shapes() == {"rmsnorm": {}, "ssd_chunk": {}}
+    assert ops.launch_shapes() == {"rmsnorm": {}, "ssd_chunk": {}, "paged_flash_decode": {}}
 
 
 # ---------------------------------------------------------------------------
@@ -1145,3 +1147,152 @@ def test_topk_gating_backward_layouts(dev, e, k):
     l2 = logits.clone().requires_grad_()
     ref.topk_gating(l2, k)[0].backward(dw)
     torch.testing.assert_close(l1.grad, l2.grad, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Row invariance on grok-1's decode path.  A speculative verify pass decodes
+# C = k + 1 = 5 tokens a slot where a serial tick decodes one, so every
+# operation on the path must give a row the same bits at M = B rows and at
+# M = B * C rows: then speculative tokens equal serial tokens on the card.
+# Each case runs the operation on [4, 5, ...] and on each [4, 1, ...] slice
+# and compares the shared rows with torch.equal (no tolerance).
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.parallel.sharding import make_plan  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_flash_decode_row_invariant(dev, dtype, window):
+    """Kernel 3: a row's output is bit-identical at B in {1, 4} and C in
+    {1, 5}.  grok-1's heads, a table of 16 pages (4 splits of 4 pages);
+    rows of length 0 and 3 leave three of the four splits empty."""
+    lengths = [0, 3, 100, 250]
+    q, kp, vp, table, t = _paged_case(dev, lengths, 5, 16, 16, 48, 8, 128, dtype, seed=21,
+                                      pages=64)
+    kw = dict(window=window)
+    full = paged_flash_decode_cuda(q, kp, vp, table, t, **kw)
+    torch.testing.assert_close(full.float(), ref.paged_flash_decode(q, kp, vp, table, t, **kw)
+                               .float(), **TOLS[dtype])
+    for b in range(4):
+        alone = paged_flash_decode_cuda(q[b : b + 1], kp, vp, table[b : b + 1], t[b : b + 1], **kw)
+        assert torch.equal(alone[0], full[b]), f"slot {b} alone, C = 5"
+    for c in range(5):
+        one = paged_flash_decode_cuda(q[:, c : c + 1].contiguous(), kp, vp, table, t + c, **kw)
+        assert torch.equal(one[:, 0], full[:, c]), f"row {c}, B = 4, C = 1"
+        for b in range(4):
+            alone = paged_flash_decode_cuda(q[b : b + 1, c : c + 1].contiguous(), kp, vp,
+                                            table[b : b + 1], t[b : b + 1] + c, **kw)
+            assert torch.equal(alone[0, 0], full[b, c]), f"row {c} of slot {b}, B = 1, C = 1"
+
+
+def _rows_equal(f, x):
+    """f on x [B, C, ...] and on each [B, 1, ...] slice: the shared rows are
+    bit-identical."""
+    full = f(x)
+    for c in range(x.shape[1]):
+        one = f(x[:, c : c + 1].contiguous())
+        assert torch.equal(one[:, 0], full[:, c]), f"row {c} of {x.shape[1]}"
+
+
+def _grok_op(op, dev):
+    """grok-1's decode-mode operation ``op`` at its published widths, as the
+    port runs it (products on ``layers.decode_rows`` blocks), with random
+    weights: x [B, C, ...] -> [B, C, ...]."""
+    from repro_torch.train.train_step import _decode_logits
+
+    cfg = get_config("grok-1-314b")
+    d, h, hkv, dh, v = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, 128, cfg.vocab_size
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def w(*shape, dtype=torch.bfloat16, scale=None):
+        return (torch.randn(shape, generator=g, device=dev) * (scale or shape[0] ** -0.5)).to(dtype)
+
+    if op in ("wq", "wk", "wv"):
+        wt = w(d, h if op == "wq" else hkv, dh)
+        return lambda x: L.project_in(x, wt, True), (d,)
+    if op == "wo":
+        wt = w(h, dh, d, scale=(h * dh) ** -0.5)
+        return lambda x: L.project_out(x, wt, True), (h, dh)
+    if op == "lm_head":
+        p = {"lm_head": w(d, v)}
+        return lambda x: _decode_logits(p, x, cfg), (d,)
+    if op == "rmsnorm":
+        wt = w(d, scale=0.1)
+        return lambda x: L.rms_norm(x, wt), (d,)
+    if op == "topk_gating":
+        return lambda x: torch.stack(ops.topk_gating(x.reshape(-1, 8), 2), -1).reshape(
+            *x.shape[:2], 2, 2), (8,)
+    e, f = cfg.moe.num_experts, cfg.moe.d_ff
+    p = {"router": w(d, e, dtype=torch.float32), "w_in": w(e, d, f, scale=d**-0.5),
+         "w_gate": w(e, d, f, scale=d**-0.5), "w_out": w(e, f, d, scale=f**-0.5)}
+    if op == "router":
+        return lambda x: L.decode_rows(lambda r: r @ p["router"], x.reshape(-1, d)).reshape(
+            *x.shape[:2], e), (d,)
+    if op == "expert_ffn":  # the per-expert products, M = 4 * tokens a group
+        return lambda x: moe_mod._expert_ffn(
+            x.reshape(x.shape[0], 1, -1, d).expand(-1, e, -1, -1), p["w_in"], p["w_gate"],
+            p["w_out"], cfg.act, fixed_rows=True)[:, 0], (d,)
+    assert op == "moe"
+    return lambda x: moe_mod._moe_einsum(p, x, cfg, make_plan(None), fixed_rows=True)[0], (d,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["wq", "wk", "wv", "wo", "lm_head", "rmsnorm", "topk_gating",
+                                "router", "expert_ffn", "moe"])
+def test_grok_decode_ops_row_invariant(dev, op):
+    """Every operation of grok-1's decode path at its published widths gives
+    a row the same bits at M = 4 (a serial tick) and M = 20 (a verify pass
+    of spec_k = 4); the MoE through the einsum backend as the serve runs it
+    (router, kernel 1, dispatch, the per-expert products, the combine).
+    Without ``decode_rows`` blocks, cuBLAS fails this for wq, wo and the f32
+    router product on the H100."""
+    with torch.no_grad():
+        f, tail = _grok_op(op, dev)
+        g = torch.Generator(device=dev).manual_seed(9)
+        x = torch.randn((4, 5, *tail), generator=g, device=dev)
+        _rows_equal(f, x if op in ("topk_gating", "router") else x.to(torch.bfloat16))
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", [False, True])
+def test_spec_equals_serial_on_the_card(dev, sample):
+    """Speculative decoding emits serial decoding's tokens bit for bit on
+    the card: reduced grok-1 in bf16 (head dim 64, so kernel 3 runs at a
+    kernel width), spec_k = 4 with the topk1 draft, reconfiguration on,
+    greedy and sampled, the page pool balancing after every tick."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.serve.batching import Request
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_reduced("grok-1-314b", dtype="bfloat16", head_dim=64)
+    params = tfm.init_model(0, cfg, make_plan(None), device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size - 1, size=n).astype(np.int32) for n in (5, 19, 9, 30)]
+
+    def serve(spec_k):
+        scfg = ServeConfig(slots=4, max_len=64, page_size=8, spec_k=spec_k, sample=sample,
+                           sample_seed=3, reconfig_every=3, reconfig_min_gain=0.0, num_devices=4)
+        # A clone: a reconfiguration permutes the engine's expert weights.
+        eng = ServeEngine(_clone_tree(params), cfg, make_plan(None), scfg, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=10 + i, prompt=p, max_new_tokens=12))
+        while eng.batcher.busy:
+            eng.step()
+            eng.batcher.alloc.check_leaks()
+        rep = eng.report(1.0)
+        assert rep.completed == len(prompts)
+        return {r.rid: r.out for r in eng.batcher.finished}, rep
+
+    serial, _ = serve(0)
+    spec, rep = serve(4)
+    assert spec == serial
+    assert rep.spec_drafted > 0 and rep.reconfig_count > 0

@@ -119,10 +119,12 @@ def test_entry_points_default_to_the_card():
 
 def test_slices_not_ported_yet_raise(port_model, tmp_path):
     cfg, params = port_model
-    with pytest.raises(NotImplementedError):
-        ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, spec_k=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, sample=True), device="cpu")
+    # Sampled and speculative decoding are ported (tests/test_torch_spec.py);
+    # speculative decoding needs the paged cache, as in the reference.
+    eng = ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, spec_k=2, sample=True), device="cpu")
+    assert eng.batcher.draft_mode == "topk1" and eng.batcher.sample
+    with pytest.raises(ValueError, match="paged"):
+        ServeEngine(params, cfg, PLAN, ServeConfig(**SCFG, spec_k=2, paged=False), device="cpu")
     # An engine without a control plane saves and restores (no placement
     # to carry).
     eng = ServeEngine(_clone(params), cfg, PLAN, ServeConfig(**SCFG), device="cpu")

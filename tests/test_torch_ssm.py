@@ -287,5 +287,10 @@ def test_port_generate_matches_jax_generate(model):
     got = generate(params, cfg, PLAN, prompts, max_new_tokens=5)
     assert got.dtype == torch.int32 and got.shape == (2, 5)
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError):
-        generate(params, cfg, PLAN, prompts, sample=True)
+    # Sampled: the prefill's token is an argmax, as in the reference; the
+    # same seed repeats itself (the sampled parity with JAX is in
+    # tests/test_torch_spec.py).
+    a = generate(params, cfg, PLAN, prompts, max_new_tokens=5, sample=True, seed=3)
+    assert torch.equal(a, generate(params, cfg, PLAN, prompts, max_new_tokens=5, sample=True,
+                                   seed=3))
+    assert torch.equal(a[:, 0], got[:, 0])
