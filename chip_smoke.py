@@ -10,7 +10,9 @@ Phases, one printed line (or more) each:
    from ``src/repro_torch/csrc`` (7 sources, one process each, all at once);
 3. kernels — each kernel at the serving path's shapes (kernel 3 also at a
    speculative verify pass, q [4, 5, 48, 128], each of whose rows must
-   equal the one-row launch's bit for bit) and at small cases
+   equal the one-row launch's bit for bit, and at an admission chunk, q
+   [1, 180, 48, 128] after 4 cached pages, whose rows must equal the same
+   rows of the chunk from position 0) and at small cases
    with window, softcap, ragged lengths, -1 page-table entries, head
    dims from 32 to 256 (40 zero-padded) and S = 300 with a group of 6, held
    against its plain PyTorch version on the card; kernel, plain and library
@@ -30,8 +32,10 @@ Phases, one printed line (or more) each:
    layers), random weights from ``--seed``, serves 8 chat requests
    through ``ServeEngine`` twice: reconfiguration off, then on
    (the on-run permutes the expert weights in place).  Tokens must be
-   bit-identical, the control plane must reconfigure, and every kernel's
-   launch count must grow during the serve (kernel 8 runs every norm); the
+   bit-identical, the control plane must reconfigure, and the launch count
+   of every serving kernel (1, 3 and 8: a paged admission runs its prompt as
+   a decode-mode chunk through kernel 3, and kernel 8 every norm) must grow
+   during the serve; the
    first pure decode tick of each serve runs under the profiler, which
    counts its kernels; then kernel 8 at every (T, D) the serve launched it
    at.  Three more serves, reconfiguration on: sampled (``sample=True,
@@ -42,7 +46,25 @@ Phases, one printed line (or more) each:
    the acceptance, the median draft and verify times and the kernels one
    round's draft and verify launch (under the profiler); after each
    reconfiguring serve the experts are moved back to their own slots;
-5b. mamba2 — the grok model is freed; Mamba-2 1.3B at full width,
+5b. fleet — the grok model is freed; grok-1 at its published widths, depth
+   2, random weights from ``--seed``, three replica trees (two made by
+   ``replica_params``: private experts, every other leaf shared), every
+   replica ``ServeConfig(max_len=256, page_size=16, num_devices=4,
+   external_control=True, num_regions=4)``; 8 agentic requests (10 new
+   tokens, prompts up to 244) through the unsteered single replica (4
+   slots) and through ``FleetEngine`` fleets of 1, 2 and 3 replicas (slots
+   4, 2, 4) under each steering policy, reconfiguring every 4 fleet ticks,
+   then 3 with a failure and with a drain/restore: every fleet's tokens
+   equal the single replica's, every request completes, the locality runs
+   reconfigure, and a replica a size-3 locality run left unmoved holds the
+   initial experts bit for bit; the size-3 locality run is traced, the
+   trace validated and summarised through ``repro_torch.measure_run``; then
+   8 agentic_shared requests (shared prefixes) through the single replica
+   and fleets of 3 (locality, round robin): tokens equal, prefix-cache hits
+   that differ from the single replica's; per run completed, ticks, steer
+   reasons, reconfigurations, TTFT, SLO attainment, tokens/s and the median
+   fleet tick; the phase's seconds and peak memory;
+5c. mamba2 — the fleet's model is freed; Mamba-2 1.3B at full width,
    random weights from ``--seed``: prefill 200 tokens and decode 56 one at
    a time against one 256-token prefill (every decoded position's logits),
    held in f32 at all 48 layers and in bf16 at 2 (in bf16 at 48 random
@@ -151,10 +173,13 @@ BF16_GEMM_REL = 1e-2
 NORM_DW_REL = 1e-2
 LAYERS = 4  # of grok-1's 64: 42.6 GB of weights on an 80 GB card
 SPEC_K = 4  # draft tokens a speculative round (the verify pass scores k + 1)
+CHUNK_ROWS = 180  # kernel 3's admission-chunk row: a 244-token prompt after 4 cached pages
 REQUESTS = 8
 TRAIN_LAYERS = 2  # of Mixtral-8x7B's 32: 3.17 B parameters, 38 GB with grads and f32 moments
 TRAIN_STEPS = 8
-SERVE_KERNELS = ("topk_gating", "flash_attention", "paged_flash_decode", "rmsnorm")
+# A paged admission runs the prompt as a decode-mode chunk (kernel 3), so
+# serving grok-1 launches no kernel 2.
+SERVE_KERNELS = ("topk_gating", "paged_flash_decode", "rmsnorm")
 
 KERNEL_ROWS = {
     "topk_gating": ("src/repro_torch/csrc/topk_gating.cu", "src/repro/kernels/topk_gating.py:44"),
@@ -223,6 +248,10 @@ KERNEL_ROWS = {
     # at that shape of the greedy speculative serve.
     "paged_flash_decode_verify": ("src/repro_torch/csrc/paged_flash_decode.cu",
                                   "src/repro/kernels/flash_attention.py:226"),
+    # Kernel 3 at an admission chunk (a prefix-cache hit's remainder), with
+    # the grok serve's launches at B = 1 (every admission's chunk).
+    "paged_flash_decode_chunk": ("src/repro_torch/csrc/paged_flash_decode.cu",
+                                 "src/repro/kernels/flash_attention.py:226"),
     "ssd_chunk_prefill_256": ("src/repro_torch/csrc/ssd_chunk.cu",
                               "src/repro/kernels/ssd_chunk.py:50"),
     "ssd_chunk_generate": ("src/repro_torch/csrc/ssd_chunk.cu",
@@ -440,6 +469,40 @@ def kernel_phase(torch, cfg, prompt_lens, slots: int, page: int, max_len: int, s
         f"q [{slots}, {c}, {hq}, {d}] bf16, pool [{num_pages}, {page}, {hkv}, {d}], t={lengths}",
     )
 
+    # -- paged_flash_decode at an admission chunk: q [1, C, Hq, D], the
+    # prompt's last C rows after 4 cached pages (a prefix-cache hit), row c
+    # at t + c; each row must equal the same row of the chunk from position
+    # 0 (a miss) bit for bit.
+    t0_, c = 4 * page, CHUNK_ROWS
+    table = page_table_for(torch, [0], t0_ + c, page, max_pages, num_pages, cpu_g).to(dev)
+    tvec = torch.tensor([t0_], dtype=torch.int32, device=dev)
+    qm = torch.randn((1, t0_ + c, hq, d), generator=g, device=dev).to(bf16)
+    qc = qm[:, t0_:].contiguous()
+    out = paged_flash_decode_cuda(qc, kp, vp, table, tvec)
+    err = check(torch, out, ref.paged_flash_decode(qc, kp, vp, table, tvec), BF16_TOL,
+                "paged_flash_decode chunk")
+    miss = paged_flash_decode_cuda(qm, kp, vp, table, tvec - t0_)
+    assert torch.equal(miss[:, t0_:], out), "kernel 3: a hit's chunk rows != the miss's rows"
+    chunk_mask = (pos[None, None, None, :]
+                  <= (t0_ + torch.arange(c, device=dev))[None, None, :, None])
+
+    def sdpa_chunk():
+        vk = ref.paged_gather_kv(kp, table).transpose(1, 2)
+        vv_ = ref.paged_gather_kv(vp, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(qc.transpose(1, 2), vk, vv_, attn_mask=chunk_mask,
+                                              enable_gqa=True)
+
+    rows["paged_flash_decode_chunk"] = kernel_row(
+        torch, "paged_flash_decode_chunk", err,
+        lambda: paged_flash_decode_cuda(qc, kp, vp, table, tvec), 200,
+        time_ms(torch, lambda: ref.paged_flash_decode(qc, kp, vp, table, tvec), 20),
+        timed(torch, sdpa_chunk, 100),
+        2 * c * hq * d * 2 + (t0_ + c) * hkv * d * 2 * 2 + table.numel() * 4 + 4,
+        sum(4 * hq * d * (t0_ + j + 1) for j in range(c)), "bfloat16",
+        f"q [1, {c}, {hq}, {d}] bf16 after {t0_} cached positions, pool [{num_pages}, {page}, "
+        f"{hkv}, {d}]",
+    )
+
     # -- paged_flash_decode at a long context: every slot at t = 4095, a pool
     # of 1024 pages (67 MB of K/V read).
     long_t, long_pages = 4095, 1024
@@ -568,7 +631,6 @@ def decode_vs_prefill(torch, params, cfg, plan, tokens, page: int, device="cuda"
     flash kernel).  Tolerance: 5e-2 of the logits' largest magnitude, for
     bf16 activations rounded along two different paths through 4 layers."""
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve.batching import _scatter_prompt_pages
 
     dev = torch.device(device)
     n = len(tokens)
@@ -581,7 +643,12 @@ def decode_vs_prefill(torch, params, cfg, plan, tokens, page: int, device="cuda"
             params, {"tokens": torch.tensor(tokens[None, :m], device=dev)}, cfg, plan,
             mode="prefill",
         )
-        _scatter_prompt_pages(caches, tfm.pad_caches(one, pages * page), table[0].numpy())
+        # The prefill's K/V [reps, 1, S, Hkv, dh] into pages 1.. of the pools.
+        one = tfm.pad_caches(one, pages * page)
+        for name, c in caches.items():
+            for key, pool in c.items():
+                kv = one[name][key][:, 0].reshape(pool.shape[0], pages, page, *pool.shape[3:])
+                pool[:, 1:] = kv.to(pool.dtype)
         feats, _, _ = tfm.model_apply(
             params, {"tokens": torch.tensor(tokens[None, m:], device=dev)}, cfg, plan,
             mode="decode", caches=caches, t=torch.tensor([m], dtype=torch.int32, device=dev),
@@ -771,6 +838,205 @@ def profile_serve(torch, params, cfg, plan, reqs, gen, scfg, label: str = "profi
         print(f"{label} class {cls}: {ms:.2f} ms ({100 * ms / busy:.1f}% of device time)")
     for ms, n, name in sorted(kernels, reverse=True)[:12]:
         print(f"{label} kernel {ms:9.3f} ms x{n:<5} {name}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the serving fleet
+# ---------------------------------------------------------------------------
+
+FLEET_LAYERS = 2  # of grok-1's 64: three replicas' experts (19.3 GB each) + 3.6 GB shared
+FLEET_SLOTS = (4, 2, 4)  # the replicas' slot counts; a fleet of n takes the first n
+FLEET_MAX_LEN = 256  # every replica's: kernel 3's split is a function of the table's width
+
+
+def fleet_requests_of(cfg, mix: str, seed: int):
+    """``REQUESTS`` of ``mix`` clamped as ``examples/fleet.py`` clamps them:
+    10 new tokens each, prompts up to 244 tokens."""
+    from repro_torch.serve.fleet import fleet_requests
+    from repro_torch.serve.workload import WorkloadGenerator, clamp_requests
+
+    gen = WorkloadGenerator(mix, seed=seed, vocab_size=cfg.vocab_size)
+    out_cap = max(1, min(10, FLEET_MAX_LEN // 4))
+    raw = clamp_requests(gen.generate(REQUESTS), prompt_max=FLEET_MAX_LEN - out_cap - 2,
+                         max_new=out_cap)
+    return fleet_requests(raw, gen)
+
+
+def fleet_replica(tree, cfg, plan, slots: int, page: int):
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    scfg = ServeConfig(slots=slots, max_len=FLEET_MAX_LEN, page_size=page, num_devices=4,
+                       external_control=True, num_regions=4, reconfig_min_gain=0.0)
+    return ServeEngine(tree, cfg, plan, scfg, device="cuda")
+
+
+def fleet_reference(tree, cfg, plan, freqs, page: int):
+    """Unsteered single-replica serving (4 slots): the tokens every fleet
+    must reproduce, and the engine (its prefix-cache hits)."""
+    from repro_torch.serve.batching import Request
+
+    eng = fleet_replica(tree, cfg, plan, 4, page)
+    for fr in sorted(freqs, key=lambda f: (f.arrival_s, f.rid)):
+        eng.submit(Request(rid=fr.rid, prompt=fr.prompt, max_new_tokens=fr.max_new_tokens,
+                           eos_id=fr.eos_id, region=fr.region))
+    while eng.batcher.busy:
+        eng.step()
+    assert all(r.error is None for r in eng.batcher.finished)
+    return {r.rid: list(r.out) for r in eng.batcher.finished}, eng
+
+
+def fleet_run(torch, trees, cfg, plan, freqs, ref, size: int, policy: str, label: str,
+              page: int, **events):
+    """One fleet of ``size`` replicas (slots ``FLEET_SLOTS[:size]``) over
+    ``freqs``: every request completes with the reference's tokens.  Each
+    fleet tick is clocked on the host (every replica tick ends in a host
+    read of its tokens).  Returns the fleet and its report; the replicas'
+    experts are still where the run left them."""
+    from repro_torch.serve.fleet import FleetConfig, FleetEngine
+
+    engines = [fleet_replica(trees[j], cfg, plan, FLEET_SLOTS[j], page) for j in range(size)]
+    fleet = FleetEngine(engines, FleetConfig(policy=policy, reconfig_every=4))
+    tick_ms, step = [], fleet.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        step()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+
+    fleet.step = timed_step
+    t0 = time.perf_counter()
+    rep = fleet.run(freqs, **events)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = [j for j, e in enumerate(engines) if e.controlplane.reconfig_count]
+    med = sorted(tick_ms)[len(tick_ms) // 2] if tick_ms else float("nan")
+    print(f"fleet {label}: size {size} slots {list(FLEET_SLOTS[:size])} policy={policy} "
+          f"{events or ''} completed={rep.completed}/{rep.requests} ticks={rep.ticks} "
+          f"steer={rep.steer_reasons} fleet_reconfigurations={rep.reconfig_events} "
+          f"(replicas moved {moved}) ttft_ticks p50/p99={rep.ttft_ticks_p50:.1f}/"
+          f"{rep.ttft_ticks_p99:.1f} slo_attainment={rep.slo_attainment} "
+          f"tokens_per_s={rep.tokens_out / wall:.2f} fleet_tick_ms median={med:.3f} "
+          f"(n={len(tick_ms)}) wall_s={wall:.3f} prefix_hit_pages by replica "
+          f"{[r.kv_prefix_hit_pages for r in rep.per_replica]}", flush=True)
+    assert rep.completed == len(freqs), f"fleet {label}: not every request completed"
+    assert rep.outputs == ref, f"fleet {label}: tokens differ from the single replica's"
+    if size > 1:
+        assert len(set(fleet.assignment.values())) > 1, f"fleet {label}: one replica served all"
+    E2E[f"fleet {label} tokens/s"] = rep.tokens_out / wall
+    E2E[f"fleet {label} tick ms"] = med
+    E2E[f"fleet {label} ttft ticks p50/p99"] = [rep.ttft_ticks_p50, rep.ttft_ticks_p99]
+    return fleet, rep
+
+
+def expert_leaves_equal(torch, tree, initial) -> bool:
+    """Every expert leaf of ``tree`` bit-identical to the host copy
+    ``initial`` (one leaf on the card at a time)."""
+    from repro_torch.serve.fleet import expert_leaves
+
+    return all(torch.equal(leaf, host.to(leaf.device))
+               for leaf, host in zip(expert_leaves(tree), initial, strict=True))
+
+
+def fleet_phase(torch, seed: int, page: int) -> dict:
+    """grok-1 at its published widths, depth 2, random weights from
+    ``seed``; three replica trees (the initial one and two made by
+    ``replica_params``: private experts, everything else shared).  On the
+    agentic mix: the unsteered single replica, then fleets of 1, 2 and 3
+    under each policy, a failure and a drain/restore, every one with the
+    reference's tokens; replicas that a locality run left unmoved keep the
+    initial expert weights bit for bit; the size-3 locality run is traced,
+    the trace validated and summarised.  On agentic_shared: the reference
+    and two fleets of 3, tokens equal, prefix hits that differ from the
+    reference's.  Experts are moved back after every run.  Returns the
+    kernel launch counts of the fleet runs."""
+    from repro_torch import measure_run
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+    from repro_torch.obs import trace
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.serve.fleet import expert_leaves, replica_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("grok-1-314b"), num_layers=FLEET_LAYERS)
+    plan = make_plan(None)
+    params = init_model(seed, cfg, plan, device="cuda")
+    initial = [leaf.cpu() for leaf in expert_leaves(params)]
+    trees = [params] + [replica_params(params) for _ in FLEET_SLOTS[1:]]
+    torch.cuda.synchronize()
+    print(f"fleet: {cfg.name} at published widths, {FLEET_LAYERS}/64 layers, "
+          f"{len(trees)} replica trees, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
+          flush=True)
+    agentic = fleet_requests_of(cfg, "agentic", seed)
+    ref, _ = fleet_reference(trees[0], cfg, plan, agentic, page)
+    ops.reset_launch_counts()
+    reconfigs, unmoved_checked = 0, []
+    path = REPO / "build" / "fleet_trace.json"
+    runs = [(n, p, {}) for n in (1, 2, 3) for p in ("locality", "least_loaded", "round_robin")]
+    runs += [(3, "locality", dict(fail_at={0: 4})),
+             (3, "locality", dict(drain_at={1: 2}, restore_at={1: 8}))]
+    for size, policy, events in runs:
+        traced = size == 3 and policy == "locality" and not events
+        if traced:
+            trace.enable()
+        fleet, rep = fleet_run(torch, trees, cfg, plan, agentic, ref, size, policy,
+                               f"agentic {size} {policy} {sorted(events)}", page, **events)
+        if traced:
+            n = trace.export(str(path))
+            failures = trace.validate_file(str(path))
+            trace.disable()
+            trace.default().clear()
+            assert not failures, f"fleet trace schema failures: {failures[:3]}"
+            obs = measure_run.traffic_reports(measure_run.load_events(str(path)))
+            assert {"fleet", "replica0", "replica1", "replica2"} <= set(obs), sorted(obs)
+            summary = {scope: {"locality": round(o.locality_score(), 6),
+                               "regional_skew": round(o.regional_skew(), 6), "ticks": o.ticks}
+                       for scope, o in sorted(obs.items())}
+            print(f"fleet trace: {n} events -> {path}, schema OK; measure_run: "
+                  f"{json.dumps(summary)}", flush=True)
+        reconfigs += rep.reconfig_events if policy == "locality" else 0
+        moved = {j for j, e in enumerate(fleet.engines) if e.controlplane.reconfig_count}
+        if size == 3 and moved and not unmoved_checked:
+            # A replica's reconfiguration must not move another's experts.
+            for j in sorted(set(range(size)) - moved):
+                assert expert_leaves_equal(torch, trees[j], initial), \
+                    f"replica {j} never moved, yet its experts differ from the initial ones"
+                unmoved_checked.append(j)
+        for e in fleet.engines:
+            undo_placement(e)
+    assert reconfigs > 0, "the locality fleets never reconfigured a replica"
+    # The failure run always leaves one (replica 0 fails before the first
+    # reconfiguration tick).
+    assert unmoved_checked, "no size-3 locality run left a replica unmoved"
+    counts = ops.launch_counts()
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
+    assert not missing, f"kernels never launched by the fleet: {missing}"
+    print(f"fleet: {reconfigs} fleet reconfigurations over the locality runs; replicas "
+          f"{unmoved_checked} never moved in a size-3 run and hold the initial experts bit "
+          f"for bit; launches {counts}", flush=True)
+
+    shared = fleet_requests_of(cfg, "agentic_shared", seed)
+    ref_s, ref_eng = fleet_reference(trees[0], cfg, plan, shared, page)
+    ref_hits = ref_eng.batcher.alloc.prefix_hit_pages
+    differs = False
+    for policy in ("locality", "round_robin"):
+        fleet, rep = fleet_run(torch, trees, cfg, plan, shared, ref_s, 3, policy,
+                               f"agentic_shared 3 {policy}", page)
+        hits = [r.kv_prefix_hit_pages for r in rep.per_replica]
+        differs |= sum(hits) > 0 and sum(hits) != ref_hits
+        for e in fleet.engines:
+            undo_placement(e)
+    print(f"fleet agentic_shared: reference prefix_hit_pages={ref_hits}; fleet tokens equal "
+          f"the reference's with other hits", flush=True)
+    assert differs, "no fleet run hit the prefix cache otherwise than the reference"
+    seconds = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"fleet phase: {seconds:.1f} s, peak {peak:.2f} GB on {card_line()}", flush=True)
+    E2E["fleet phase s"] = seconds
+    E2E["fleet phase peak GB"] = peak
+    del params, trees, initial
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1617,6 +1883,7 @@ SHAPE_ROWS = {
     "grouped_matmul_blocks_skew": "grouped_matmul_blocks",
     "grouped_matmul_blocks_dw_skew": "grouped_matmul_blocks_dw",
     "paged_flash_decode_long": "paged_flash_decode", "paged_flash_decode_verify": "paged_flash_decode",
+    "paged_flash_decode_chunk": "paged_flash_decode",
     "rmsnorm_prefill_d": "rmsnorm", "rmsnorm_decode_inner": "rmsnorm",
     "rmsnorm_decode_d": "rmsnorm", "rmsnorm_grok": "rmsnorm", "rmsnorm_mixtral": "rmsnorm",
     "ssd_chunk_prefill_256": "ssd_chunk", "ssd_chunk_generate": "ssd_chunk",
@@ -2623,6 +2890,8 @@ def main(argv=None) -> int:
         assert not missing, f"kernels never launched while serving: {missing}"
     rows["paged_flash_decode_verify"]["launches"] = \
         shapes_sg["paged_flash_decode"].get((slots, SPEC_K + 1), 0)
+    rows["paged_flash_decode_chunk"]["launches"] = sum(
+        n for (b, _), n in shapes_on["paged_flash_decode"].items() if b == 1)
     print(f"serve: speculative tokens (spec_k={SPEC_K}, the {resolve_draft_mode(cfg)} draft) "
           f"bit-identical to serial tokens, greedy (acceptance {rep_sg.spec_acceptance:.4f}) "
           f"and sampled (acceptance {rep_ss.spec_acceptance:.4f}), reconfiguration on",
@@ -2638,6 +2907,9 @@ def main(argv=None) -> int:
     # served engines' clocked ``step`` wrappers hold them in reference
     # cycles, which only the collector frees).
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_fleet = fleet_phase(torch, args.seed, page)
     gc.collect()
     torch.cuda.empty_cache()
     mamba_rows, counts_mamba, counts_gen = mamba_part(torch, args.seed, args.profile)
@@ -2688,12 +2960,13 @@ def main(argv=None) -> int:
             library_device_ms=r["library_device_ms"], shape=r["shape"],
             launches_by_path={"serve": counts_on[name], "train": counts_train[name],
                               "train_capacity": counts_cap[name],
-                              "serve_mamba2": counts_mamba[name], "generate": counts_gen[name]},
+                              "serve_mamba2": counts_mamba[name], "generate": counts_gen[name],
+                              "fleet": counts_fleet[name]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 37, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 38, [r["name"] for r in line]
     spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "

@@ -34,6 +34,7 @@ from repro_torch.core.traffic import TrafficMonitor
 from repro_torch.obs import metrics, trace
 
 __all__ = [
+    "EXPERT_LEAVES",
     "LayerPlan",
     "ControlPlane",
     "FailureHandler",
@@ -122,6 +123,11 @@ class RegionGateStats:
         self.alpha = float(state.get("alpha", self.alpha))
 
 
+# The stacked expert leaves under ``params["blocks"][*]["moe"]`` that a
+# reconfiguration moves.
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
+
+
 def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int):
     """Move every MoE block's stacked expert tensors into their new slots.
 
@@ -141,7 +147,7 @@ def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int):
     for bparams in params["blocks"].values():
         if "moe" not in bparams:
             continue
-        for wname in ("w_in", "w_gate", "w_out"):
+        for wname in EXPERT_LEAVES:
             leaf = bparams["moe"][wname]
             if leaf.dim() < 2 or leaf.shape[0] != reps or leaf.shape[1] != num_virtual:
                 continue

@@ -14,8 +14,9 @@ solved by projected gradient descent with the reference's step size and its
 50-step bisection simplex projection, batched over layers as one torch
 computation in float32 (what the reference computes on the CPU with JAX's
 64-bit mode off).  It is host-side control logic on small ``[L, E, E]``
-tensors and runs on the CPU whatever device the model is on.  The fleet's
-``rollout`` and the Fig. 19 accuracy helpers come with their slices.
+tensors and runs on the CPU whatever device the model is on.
+``rollout`` is the fleet's steering predictor; the Fig. 19 accuracy
+helpers come with the evaluation slice.
 """
 
 from __future__ import annotations
@@ -139,3 +140,17 @@ class CopilotPredictor:
             raise ValueError("no next layer to predict")
         x = self._normalize(np.asarray(observed_load, dtype=np.float64))
         return np.asarray(self.state.transitions[layer] @ x)
+
+    def rollout(self, entry_load: np.ndarray) -> np.ndarray:
+        """Forecast every layer's expert mix from an entry-layer mix:
+        ``mix[0]`` is the normalized entry load and ``mix[l+1] = P_l @
+        mix[l]``, renormalized.  Returns ``[num_layers, num_experts]``: the
+        fleet's steering predictor (a request's region gives its entry mix,
+        the rollout the per-layer mix a replica's placement is scored on)."""
+        x = self._normalize(np.asarray(entry_load, dtype=np.float64))
+        mixes = [x]
+        for layer in range(self.num_layers - 1):
+            x = self.state.transitions[layer] @ x
+            x = x / max(float(x.sum()), 1e-12)
+            mixes.append(x)
+        return np.stack(mixes)

@@ -3,12 +3,15 @@ its own position; finished sequences are evicted between steps and queued
 prompts are admitted into the freed slots.
 
 Port of :mod:`repro.serve.batching`.  Two admission paths: whole-prompt
-prefill (default) — the prompt runs through a batch-1 prefill whose K/V
-scatter into the slot — and chunked prefill (``prefill_chunk > 0``), which
-streams the prompt through the tick loop.  The paged KV cache (auto-on for
+(default) and chunked prefill (``prefill_chunk > 0``), which streams the
+prompt through the tick loop.  The paged KV cache (auto-on for
 attention-only models) replaces the per-slot ring buffer with page pools
 plus a ``[slots, max_pages]`` table from :class:`PageAllocator`, with
-prefix reuse through copy-on-write forks.  A model with recurrent state
+prefix reuse through copy-on-write forks; a paged whole-prompt admission
+runs the prompt (or, on a prefix-cache hit, its uncached remainder) as one
+decode-mode continuation chunk, so a hit and a miss give a request the same
+bits.  The dense cache admits through a batch-1 prefill whose K/V scatter
+into the slot.  A model with recurrent state
 (Mamba-2) runs dense, whole-prompt only: admission overwrites the slot's
 whole state column, and every slot, live or dead, advances its state each
 tick, as the reference's do.  Every cache update here is an in-place index
@@ -56,24 +59,6 @@ def _scatter_slot_caches(caches, one, slot: int) -> None:
     for name, c in caches.items():
         for key, full in c.items():
             full[:, slot].copy_(one[name][key][:, 0])
-
-
-@torch.no_grad()
-def _scatter_prompt_pages(caches, one, page_ids: np.ndarray) -> None:
-    """Scatter a batch-1 prefill's K/V into the page pool, in place.
-
-    ``one`` leaves are ``[reps, 1, P*page, Hkv, dh]`` (padded to the table's
-    span); ``page_ids [P]`` maps logical page j to its pool slot, and -1
-    entries (past the prompt, or reused prefix pages that must not be
-    overwritten) are skipped."""
-    keep = np.nonzero(page_ids >= 0)[0]
-    for name, c in caches.items():
-        for key, pool in c.items():
-            reps, page = pool.shape[0], pool.shape[2]
-            new = one[name][key][:, 0].reshape(reps, len(page_ids), page, *pool.shape[3:])
-            dst = torch.as_tensor(page_ids[keep], device=pool.device)
-            src = torch.as_tensor(keep, device=pool.device)
-            pool[:, dst] = new[:, src].to(pool.dtype)
 
 
 @torch.no_grad()
@@ -198,9 +183,11 @@ class ContinuousBatcher:
         else:
             self.caches = tfm.init_caches(cfg, slots, max_len, device=self.device)
         self._step = make_serve_step(cfg, plan, sample=self.sample, with_stats=True)
-        self._prefill_fn = make_prefill_step(cfg, plan, with_stats=True)
-        # Paged mode always has the chunk step: a prefix-cache hit resumes
-        # the prompt mid-way as a decode-mode continuation.
+        # The dense cache admits through a prefill; the paged one through
+        # the chunk step.
+        self._prefill_fn = None if self.paged else make_prefill_step(cfg, plan, with_stats=True)
+        # Paged mode always has the chunk step: it admits every prompt (from
+        # position 0, or mid-way after a prefix-cache hit).
         self._chunk_fn = (
             make_prefill_chunk_step(cfg, plan, with_stats=True)
             if self.prefill_chunk > 0 or self.paged
@@ -318,21 +305,18 @@ class ContinuousBatcher:
         return load
 
     def _admit_paged(self, req: Request, slot: int, plan_a, load):
-        """Paged admission: whole-prompt prefill scatters K/V into freshly
-        allocated pages; a prefix-cache hit skips the reused pages and runs
-        only the remainder as a decode-mode continuation chunk."""
+        """Paged admission: the prompt from ``plan_a.start`` on runs as ONE
+        decode-mode continuation chunk over the slot's pages — from position
+        0 on a miss, past the reused pages on a prefix-cache hit.  One route
+        for both, so a row's bits never depend on whether its prefix was
+        cached: every product runs on ``layers.decode_rows`` blocks and, on
+        the card, the attention is the paged kernel, whose split follows the
+        table's width alone (a whole-prompt prefill would take cuBLAS at
+        M = the prompt's length and the flash kernel instead)."""
         prompt = np.asarray(req.prompt)
         n = len(prompt)
-        perm, wire = self._perm_args()
-        if plan_a.start == 0:
-            self._apply_forks(self.alloc.ensure(slot, 0, n))
-            batch = {"tokens": self._dev(prompt[None, :])}
-            next_tok, one, stats = self._prefill_fn(self.params, batch, perm, wire)
-            one = tfm.pad_caches(one, self.max_pages * self.page_size)
-            _scatter_prompt_pages(self.caches, one, np.asarray(self.alloc.table[slot]))
-        else:
-            self._apply_forks(self.alloc.ensure(slot, plan_a.start, n))
-            next_tok, stats = self._run_chunk(slot, prompt[plan_a.start :], plan_a.start)
+        self._apply_forks(self.alloc.ensure(slot, plan_a.start, n))
+        next_tok, stats = self._run_chunk(slot, prompt[plan_a.start :], plan_a.start)
         first = int(next_tok[0, 0])
         self.alloc.register_prefix(slot, prompt)
         if stats is not None:

@@ -1296,3 +1296,48 @@ def test_spec_equals_serial_on_the_card(dev, sample):
     spec, rep = serve(4)
     assert spec == serial
     assert rep.spec_drafted > 0 and rep.reconfig_count > 0
+
+
+# ---------------------------------------------------------------------------
+# A prefix-cache hit and a miss give a request the same bits.  A hit admits
+# only the prompt's remainder over the cached pages, a miss the whole
+# prompt; the request's next-token logits and its greedy tokens must not
+# depend on which it was (the fleet steers a request to any replica, warm or
+# cold).  Kernel 3 at a continuation chunk's shape: rows of a chunk that
+# starts after 4 cached pages equal the same rows of a chunk from position 0.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_paged_flash_decode_chunk_rows_invariant(dev):
+    """grok-1's heads, a table of 16 pages: q [1, 244, 48, 128] from
+    position 0 and its last 180 rows from position 64 (4 cached pages of
+    16): the shared rows are bit-identical, and both hold the plain
+    version."""
+    q, kp, vp, table, t = _paged_case(dev, [0], 244, 16, 16, 48, 8, 128, torch.bfloat16,
+                                      seed=31, pages=32)
+    miss = paged_flash_decode_cuda(q, kp, vp, table, t)
+    torch.testing.assert_close(miss.float(), ref.paged_flash_decode(q, kp, vp, table, t).float(),
+                               **TOLS[torch.bfloat16])
+    tail = q[:, 64:].contiguous()
+    hit = paged_flash_decode_cuda(tail, kp, vp, table, t + 64)
+    torch.testing.assert_close(hit.float(), ref.paged_flash_decode(tail, kp, vp, table, t + 64)
+                               .float(), **TOLS[torch.bfloat16])
+    assert torch.equal(hit, miss[:, 64:])
+
+
+@pytest.mark.cuda
+def test_prefix_hit_equals_miss_on_the_card(dev, monkeypatch):
+    """grok-1 at its published widths (1 of 64 layers, random bf16
+    weights): a prefix hit gives B the logits and tokens a miss gives it,
+    bit for bit, with the prefix cache on."""
+    import dataclasses
+
+    from _torch_prefix import admission_logits, prefix_hit_and_miss
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), num_layers=1)
+    params = tfm.init_model(0, cfg, make_plan(None), device=dev)
+    out = prefix_hit_and_miss(params, cfg, dev, admission_logits(monkeypatch))
+    (miss_logits, miss_toks), (hit_logits, hit_toks) = out[False], out[True]
+    assert torch.equal(hit_logits, miss_logits), (hit_logits - miss_logits).abs().max()
+    assert hit_toks == miss_toks

@@ -5,6 +5,7 @@ package out of the port.  The CUDA kernels against their plain versions are
 in ``test_torch_cuda.py``, which imports no JAX so that it runs on the
 machine with the card."""
 
+import functools
 import os
 import pathlib
 import re
@@ -31,6 +32,10 @@ PORT = REPO / "src" / "repro_torch"
 
 def _t(a):
     return torch.from_numpy(np.asarray(a).copy())
+
+
+# The attention oracles run under one jit each: eagerly, every primitive
+# compiles on its own, which costs more on the CPU than the check itself.
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +83,8 @@ def test_flash_attention_plain_matches_jax(case):
     v = rng.standard_normal((c["b"], c["hkv"], c["s"], c["d"])).astype(np.float32)
     kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
     out = tref.flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
-    expect = np.asarray(jref.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    expect = np.asarray(jax.jit(functools.partial(jref.flash_attention, **kw))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     pallas = np.asarray(flash_attention_pallas(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bq=16, bk=16, interpret=True, **kw
     ))
@@ -137,7 +143,7 @@ def test_paged_flash_decode_plain_matches_jax(c, knobs):
     q, kp, vp, table, lengths = _paged_case(c, seed=c)
     out = tref.paged_flash_decode(_t(q), _t(kp), _t(vp), _t(table), _t(lengths), **knobs)
     args = [jnp.asarray(a) for a in (q, kp, vp, table, lengths)]
-    expect = np.asarray(jref.paged_flash_decode(*args, **knobs))
+    expect = np.asarray(jax.jit(functools.partial(jref.paged_flash_decode, **knobs))(*args))
     pallas = np.asarray(paged_flash_decode_pallas(*args, interpret=True, **knobs))
     assert out.shape == q.shape
     np.testing.assert_allclose(out.numpy(), expect, atol=1e-5, rtol=0)

@@ -56,18 +56,25 @@ def port_model():
 
 
 def test_port_engine_matches_jax_engine():
+    """Tokens, reconfigurations, perm stack, a2a bytes and gate loads equal
+    the JAX engine's exactly, with both engines admitting each prompt as one
+    decode-mode continuation chunk over the paged cache (``prefill_chunk``
+    on both sides).  The port's whole-prompt paged admission runs that same
+    chunk; the JAX package's runs a prefill, another float route whose
+    routing near-ties can fall the other way."""
     jcfg = jget_reduced("grok-1-314b")
     jplan = jmake_plan(None)
     jparams = jax.jit(lambda k: jinit_model(k, jcfg, jplan)[0])(jax.random.PRNGKey(0))
     gen, reqs = _requests(4)
     jeng = JServeEngine(
         jax.tree.map(lambda a: a, jparams), jcfg, jplan,
-        JServeConfig(**SCFG, reconfig_every=3),
+        JServeConfig(**SCFG, reconfig_every=3, prefill_chunk=20),
     )
     jrep = jeng.run(reqs, gen)
     cfg = get_reduced("grok-1-314b")
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg)
-    eng, rep, toks = _serve(params, cfg, reqs, gen, reconfig_every=3)
+    eng, rep, toks = _serve(params, cfg, reqs, gen, reconfig_every=3, prefill_chunk=20)
+    assert eng.batcher.paged
     assert rep.completed == jrep.completed == len(reqs)
     assert toks == {r.rid: r.out for r in jeng.batcher.finished}
     assert rep.reconfig_count == jrep.reconfig_count > 0
@@ -129,17 +136,17 @@ def test_slices_not_ported_yet_raise(port_model, tmp_path):
     # to carry).
     eng = ServeEngine(_clone(params), cfg, PLAN, ServeConfig(**SCFG), device="cpu")
     assert eng.restore_checkpoint(str(tmp_path), eng.save_checkpoint(str(tmp_path))) == 0
-    # The mixnet backend came with the training slice: prefill runs it,
-    # decode the dense path, as in the reference.  Only its multi-device
-    # pieces still raise.
+    # The mixnet backend came with the training slice: prefill (the dense
+    # cache's admission) runs it, decode the dense path, as in the
+    # reference.  Only its multi-device pieces still raise.
+    dense = ServeConfig(**SCFG, paged=False)
     mix = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, backend="mixnet"))
-    rep = ServeEngine(params, mix, PLAN, ServeConfig(**SCFG), device="cpu").run(*_requests(1)[::-1])
+    rep = ServeEngine(params, mix, PLAN, dense, device="cpu").run(*_requests(1)[::-1])
     assert rep.completed == 1
     chunked = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, backend="mixnet", overlap_chunks=2))
     with pytest.raises(NotImplementedError, match="multi-device slice"):
-        ServeEngine(params, chunked, PLAN, ServeConfig(**SCFG), device="cpu").run(
-            *_requests(1)[::-1])
+        ServeEngine(params, chunked, PLAN, dense, device="cpu").run(*_requests(1)[::-1])
 
 
 def test_checkpoint_roundtrip_mid_reconfig_bit_identical(tmp_path):

@@ -296,9 +296,12 @@ def test_moe_mixnet_local_value_and_grad_match_jax(dispatch):
 def test_adamw_and_cosine_lr_match_jax():
     cfg = jadamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=5)
     tcfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=5)
+    # The JAX side under one jit each (eagerly every primitive compiles).
+    jlr = jax.jit(lambda s: jadamw.cosine_lr(cfg, s))
+    jupdate = jax.jit(lambda p, g, s: jadamw.adamw_update(p, g, s, cfg))
     for s in range(8):
         _close(adamw.cosine_lr(tcfg, torch.tensor(s, dtype=torch.int32)),
-               jadamw.cosine_lr(cfg, jnp.asarray(s, jnp.int32)))
+               jlr(jnp.asarray(s, jnp.int32)))
     rng = np.random.default_rng(2)
     shapes = {"a": (2, 3, 4), "blocks": {"w": (2, 5), "b": (7,)}}
     mk = lambda sh: (rng.standard_normal(sh).astype(np.float32) if isinstance(sh, tuple)
@@ -309,7 +312,7 @@ def test_adamw_and_cosine_lr_match_jax():
     ts = adamw.init_adamw(tp, tcfg)
     for _ in range(3):
         g = mk(shapes)
-        jp, js, jm = jadamw.adamw_update(jp, jax.tree.map(jnp.asarray, g), js, cfg)
+        jp, js, jm = jupdate(jp, jax.tree.map(jnp.asarray, g), js)
         tp, ts, tm = adamw.adamw_update(tp, params_from_numpy(g), ts, tcfg)
         _close(tm["grad_norm"], jm["grad_norm"])
         _close(tm["lr"], jm["lr"])
