@@ -129,7 +129,22 @@ Phases, one printed line (or more) each:
    is removed;
 13. serve checkpoint — reduced grok-1 saved mid-reconfiguration and
    restored into a fresh engine gives bit-identical next tokens;
-14. the kernels of one decode tick of each serve, the sha256 of each
+14. multi-rank — Mixtral-8x7B at its published widths as four ranks
+   sharing the card (``torch.multiprocessing``, spawn; gloo, with the
+   collectives gloo refuses on CUDA tensors staged through host memory and
+   counted): first, in this process, the one-device runs the ranks are held
+   to; then on a ``(1, 4)`` ``("data", "model")`` mesh with
+   ``a2a_group=2`` (the delegation all-to-all, 2 groups of 2), depth 2, 4
+   steps with two plans applied before the first: a whole-device-block
+   swap on layer 0 (a wire re-address) and a cross-block slot swap on layer
+   1 (expert weights moved across ranks), once through the wire path (the
+   main path, launches counted per rank) and once forced through the weight
+   path; then a ``(2, 2)`` mesh at depth 1, 4 steps.  Wire and weight runs
+   equal bit for bit (losses and every parameter), non-expert parameters
+   bit-identical across ranks, losses within 1e-4 relative of one device;
+   per-rank step times, wire and host-staged bytes per step, peak memory,
+   launches; kernels 4, 5 and 7 timed at one rank's shapes;
+15. the kernels of one decode tick of each serve, the sha256 of each
    serve's tokens (to set beside another tree's), the kernels line (JSON),
    the card line, and the result line ``{"ok": true, "device": {...}}``.
 
@@ -265,6 +280,15 @@ KERNEL_ROWS = {
     "rmsnorm_grok": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
     "rmsnorm_mixtral": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
     "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    # Kernels 4, 7 and 5 at one rank's shapes of the (1, 4) multi-rank run:
+    # the received layout packed into 2-expert blocks, those blocks, the
+    # return trip combined (SHAPE_ROWS), with rank 0's launches there.
+    "moe_dispatch_rank_pack": ("src/repro_torch/csrc/moe_dispatch.cu",
+                               "src/repro/kernels/moe_dispatch.py:49"),
+    "grouped_matmul_blocks_rank": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                   "src/repro/kernels/grouped_matmul.py:116"),
+    "moe_combine_rank": ("src/repro_torch/csrc/moe_dispatch.cu",
+                         "src/repro/kernels/moe_dispatch.py:89"),
 }
 # End-to-end numbers the serve phases leave for the summary line (measured,
 # not claimed: they move with the host).
@@ -1887,6 +1911,8 @@ SHAPE_ROWS = {
     "rmsnorm_prefill_d": "rmsnorm", "rmsnorm_decode_inner": "rmsnorm",
     "rmsnorm_decode_d": "rmsnorm", "rmsnorm_grok": "rmsnorm", "rmsnorm_mixtral": "rmsnorm",
     "ssd_chunk_prefill_256": "ssd_chunk", "ssd_chunk_generate": "ssd_chunk",
+    "moe_dispatch_rank_pack": "moe_dispatch", "grouped_matmul_blocks_rank": "grouped_matmul_blocks",
+    "moe_combine_rank": "moe_combine",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
@@ -2789,6 +2815,393 @@ def mamba_part(torch, seed: int, profile: bool):
     return rows, counts, counts_gen
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-rank MixNet training, four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+MULTI_RANKS = 4
+MULTI_STEPS = 4
+MULTI_TIMEOUT_S = 300  # a hung collective fails the run
+# P = 4 against P = 1 losses: the card-vs-CPU step check's loss tolerance.
+MULTI_LOSS_REL = 1e-4
+# The phase's learning rate: at the train phase's 3e-4 (a loss of 10.87 ->
+# 11.74 after one step) P = 4 drifted 8.6e-3 from P = 1 by step 4 from a
+# 2e-5 difference at step 1; at 1e-5 the runs stay comparable.
+MULTI_LR = 1e-5
+# Mixtral's 8 slots over a model axis of 4: layer 0 swaps whole device
+# blocks (0 <-> 1, 2 <-> 3: a wire re-address, no weight moves), layer 1
+# swaps slots 0 and 2 across a block (the weight path, across ranks).
+MULTI_PLANS = ((0, (2, 3, 0, 1, 6, 7, 4, 5)), (1, (2, 1, 0, 3, 4, 5, 6, 7)))
+MULTI_KERNELS = TRAIN_KERNELS
+MULTI_DEVICE = "cuda"
+
+
+def multi_cfg(layers: int):
+    """Mixtral-8x7B at its published widths, the mixnet backend with the
+    paper's regional delegation (``a2a_group=2``: 2 groups of 2 over a model
+    axis of 4), dropless, remat "full", ``layers`` of its 32 layers.  The
+    balance loss's weight is 0: over a mesh it is a per-shard mean (as the
+    reference's), another function than one device's, and Adam's first,
+    sign-like steps carried that 2e-5 difference to 1.8e-4 in 4 steps; the
+    router z-loss (a token mean, the same function) stays."""
+    from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
+
+    c = MIXTRAL_8X7B_CONFIG
+    return dataclasses.replace(c, num_layers=layers, moe=dataclasses.replace(
+        c.moe, a2a_group=2, dispatch="dropless", balance_loss=0.0))
+
+
+def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wire: bool = True):
+    """A ``Trainer`` over ``mesh`` (None: one device) with the two plans of
+    MULTI_PLANS applied before the first step when ``plans``: the AdamW
+    moments stay in their slots (as the reference's), so a weight move
+    after a step would give the weight run other moments than the wire
+    run's; before the first step both are zero."""
+    import numpy as np
+
+    from repro_torch.core.controlplane import ControlPlane, LayerPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tr = Trainer(cfg, AdamWConfig(lr=MULTI_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
+                 TrainerConfig(total_steps=0, reconfig_every=10**6), plan, mesh=mesh, seed=seed,
+                 device=device)
+    if plans:
+        tr.controlplane = ControlPlane(num_layers=cfg.num_layers,
+                                       num_experts=cfg.moe.num_experts, num_devices=4)
+        if not wire:
+            tr._wire_capable = lambda: False
+        tr._apply_layer_plans([LayerPlan(layer, True, perm=np.array(perm))
+                               for layer, perm in MULTI_PLANS if layer < cfg.num_layers])
+    return tr
+
+
+def multi_steps(torch, tr, cfg, seed: int, on_step=None):
+    """MULTI_STEPS ``Trainer.train`` calls on the 2 x 256 global batch of
+    ``SyntheticLM``; ``on_step(i)`` after each, outside nothing."""
+    from repro_torch.data.pipeline import SyntheticLM
+
+    data = iter(SyntheticLM(cfg.vocab_size, seq_len=256, global_batch=2, seed=seed))
+    for s in range(1, MULTI_STEPS + 1):
+        tr.tcfg.total_steps = s
+        tr.train(data)
+        torch.cuda.synchronize()
+        if on_step is not None:
+            on_step(s)
+    return [float(m["loss"]) for m in tr.metrics_log]
+
+
+def multi_reference(torch, seed: int) -> dict:
+    """The one-device runs the ranks are held to: the (1, 4) run's model
+    (depth 2, the same two plans, realized by weight moves) and the (2, 2)
+    run's (depth 1), same seed, same data."""
+    from repro_torch.parallel.sharding import make_plan
+
+    out = {}
+    for tag, layers, plans in (("14", 2, True), ("22", 1, False)):
+        cfg = multi_cfg(layers)
+        tr = multi_trainer(torch, cfg, seed, make_plan(None), None, MULTI_DEVICE, plans=plans)
+        out[tag] = multi_steps(torch, tr, cfg, seed)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    a = t.detach()
+    if a.dtype == torch.bfloat16:
+        a = a.view(torch.int16)
+    return hashlib.sha1(a.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def multi_digests(tr) -> dict:
+    """sha1 of every parameter leaf of this rank (expert leaves per layer)."""
+    out = {}
+    for path, leaf in _flat_tree(tr.params):
+        if path.split("/")[-1] in ("w_in", "w_gate", "w_out"):
+            for li in range(leaf.shape[0]):
+                out[f"{path}#{li}"] = _leaf_digest(leaf[li])
+        else:
+            out[path] = _leaf_digest(leaf)
+    return out
+
+
+def multi_run(torch, cr, cfg, seed: int, mesh, device, *, plans: bool, wire: bool = True,
+              count: bool = False) -> dict:
+    """One rank's run: MULTI_STEPS steps, each ``train`` call clocked whole,
+    the wire bytes and host-staged bytes of each step, peak memory, the
+    launch counts when ``count`` (reset just before the first step, read
+    just after the last), and the digests of the final parameters."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import make_plan
+
+    plan = make_plan(mesh, fsdp=False)
+    t0 = time.perf_counter()
+    tr = multi_trainer(torch, cfg, seed, plan, mesh, device, plans=plans, wire=wire)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    wires, staged, call_ms = [], [], []
+    marks = [cr.wire_bytes(), cr.host_staged_bytes(), time.perf_counter()]
+
+    def on_step(_):
+        now = [cr.wire_bytes(), cr.host_staged_bytes(), time.perf_counter()]
+        wires.append([a - b for a, b in zip(dataclasses.astuple(now[0]),
+                                             dataclasses.astuple(marks[0]))])
+        staged.append(now[1] - marks[1])
+        call_ms.append(1e3 * (now[2] - marks[2]))
+        marks[:] = now
+
+    if count:
+        ops.reset_launch_counts()
+    losses = multi_steps(torch, tr, cfg, seed, on_step)
+    counts = ops.launch_counts() if count else None
+    step_ms = [1e3 * m["step_time_s"] for m in tr.metrics_log]
+    t0 = time.perf_counter()
+    digests = multi_digests(tr)
+    res = dict(losses=losses, step_ms=step_ms, call_ms=call_ms, wire_bytes=wires,
+               staged_bytes=staged, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               counts=counts, digests=digests, init_s=t_init,
+               digest_s=time.perf_counter() - t0,
+               wire_perm=None if tr.wire_perm is None else tr.wire_perm.tolist(),
+               wire_reconfigs=tr.wire_reconfig_count, reconfigs=tr.reconfig_count,
+               params=sum(t.numel() for _, t in _flat_tree(tr.params)))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def rank_kernel_rows(torch, cfg, seed: int) -> dict:
+    """Kernels 4, 5 and 7 at the shapes one rank of the (1, 4) run launches:
+    128 tokens a rank routed top-2 over 8 experts, 2 of them local; the
+    received layout [P * 256, D] (every source's dropless send buffer for
+    this rank) packed into the 2-expert blocks, the blocks through kernel 7,
+    the return trip's rows combined back to the rank's tokens (bf16 out)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.kernels import ref
+    from repro_torch.models import routing
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 41)
+    bf16 = torch.bfloat16
+    d, f = cfg.d_model, cfg.moe.d_ff
+    e, k, p = cfg.moe.num_experts, cfg.moe.top_k, MULTI_RANKS
+    epd, tl = e // p, 2 * 256 // p
+    n = tl * k
+    randn = lambda *shape, dt=torch.float32: torch.randn(shape, generator=g, device=dev).to(dt)
+    with torch.no_grad():
+        recv, own = [], None
+        for src in range(p):
+            info = routing.compute_routing(randn(tl, e), top_k=k, num_virtual=e, replication=1)
+            flat_dev = (info.vdest // epd).reshape(n)
+            local_e = (info.vdest % epd).reshape(n)
+            rank1, _ = routing.bucket_ranks(flat_dev, p)
+            plan1 = routing.capacity_plan(flat_dev, rank1, None, p, n)
+            send_e = torch.where(plan1.src >= 0, local_e[plan1.src.clamp(0, n - 1).long()],
+                                 torch.full_like(plan1.src, -1)).reshape(p, n)
+            recv.append(send_e[0])
+            if src == 0:
+                own = (plan1, info)
+        re = torch.cat(recv).to(torch.int32)
+        valid = re >= 0
+        rank2, counts2 = routing.bucket_ranks(re, epd, valid=valid)
+        plan2 = routing.dropless_plan(re, rank2, counts2, valid, epd, 8)
+    rows = {}
+    rx = randn(p * n, d, dt=bf16)
+    rx[~valid] = 0
+    packed = kmd.moe_dispatch_cuda(rx, plan2.src)
+    assert torch.equal(packed, ref.moe_dispatch(rx, plan2.src)), "moe_dispatch rank pack differs"
+    n_pack = plan2.src.shape[0]
+    nv = int(valid.sum())
+    rows["moe_dispatch_rank_pack"] = kernel_row(
+        torch, "moe_dispatch_rank_pack", 0.0, lambda: kmd.moe_dispatch_cuda(rx, plan2.src), 200,
+        time_ms(torch, lambda: ref.moe_dispatch(rx, plan2.src), 200), NO_LIBRARY,
+        (nv + n_pack) * d * 2 + n_pack * 4, 0.0, "bfloat16",
+        f"received [{p * n}, {d}] bf16 ({nv} valid) -> [{n_pack}, {d}], {epd} local experts",
+    )
+    nb = plan2.block_experts.shape[0]
+    pad = (plan2.src < 0).reshape(nb, 8)
+    dy = randn(nb, 8, f, dt=bf16)
+    dy[pad] = 0
+    blocks_rows(torch, rows, "_rank", packed.reshape(nb, 8, d), (randn(epd, d, f) * d**-0.5).to(bf16),
+                dy, plan2.block_experts, counts2, f", {epd} local experts", parts=("",))
+    plan1, info = own
+    ret = randn(p * n, d, dt=bf16)
+    slot = plan1.slot.reshape(tl, k)
+    wts = info.wfull.float().contiguous()
+    got = kmd.moe_combine_cuda(ret, slot, wts, out_dtype=bf16)
+    err = check(torch, got, ref.moe_combine(ret, slot, wts), BF16_TOL, "moe_combine rank")
+    slot_l, wts_b = slot.long(), wts.to(bf16)
+    rows["moe_combine_rank"] = kernel_row(
+        torch, "moe_combine_rank", err, lambda: kmd.moe_combine_cuda(ret, slot, wts,
+                                                                    out_dtype=bf16), 200,
+        time_ms(torch, lambda: ref.moe_combine(ret, slot, wts).to(bf16), 50),
+        library_time(torch, lambda: F.embedding_bag(slot_l, ret, per_sample_weights=wts_b,
+                                                    mode="sum"),
+                     got, BF16_GEMM_REL, 200, "moe_combine_rank (F.embedding_bag)"),
+        n * d * 2 + tl * k * 8 + tl * d * 2, 2.0 * n * d, "float32",
+        f"returned [{p * n}, {d}] bf16, slot/w [{tl}, {k}] -> [{tl}, {d}] bf16",
+    )
+    return rows
+
+
+def multi_rank_main(rank: int, seed: int, port: int, out_path: str) -> None:
+    """One of the four ranks (``torch.multiprocessing`` spawn): the (1, 4)
+    run through the wire path (the main path, launches counted) and forced
+    through the weight path, then the (2, 2) run; rank 0 also times kernels
+    4, 5 and 7 at its shapes and writes every rank's results."""
+    import datetime
+
+    import torch
+
+    from repro_torch.core import commruntime as cr
+    from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, backend = init_distributed(
+        "auto", rank=rank, world_size=MULTI_RANKS, init_method=f"tcp://localhost:{port}",
+        device_type=MULTI_DEVICE, timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    device = local_device(rank, MULTI_DEVICE)
+    mesh14 = make_mesh((1, 4), ("data", "model"))
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    t0 = time.perf_counter()
+    res = {"rank": rank, "backend": backend, "device": str(device)}
+    res["wire"] = multi_run(torch, cr, multi_cfg(2), seed, mesh14, device, plans=True, count=True)
+    res["weight"] = multi_run(torch, cr, multi_cfg(2), seed, mesh14, device, plans=True,
+                              wire=False)
+    res["mesh22"] = multi_run(torch, cr, multi_cfg(1), seed, mesh22, device, plans=False)
+    res["seconds"] = time.perf_counter() - t0
+    rows = None
+    if rank == 0:
+        rows = rank_kernel_rows(torch, multi_cfg(2), seed)
+    gathered = cr.all_gather_objects(res)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps({"ranks": gathered, "rows": rows}))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def multi_rank_phase(torch, seed: int) -> dict:
+    """Four ranks on the one card (``torch.multiprocessing``, spawn; the
+    kernels were built in this process before): the (1, 4) mesh with
+    ``a2a_group=2`` at depth 2 (wire and weight runs) and the (2, 2) mesh at
+    depth 1, MULTI_STEPS steps each, held to the one-device runs made here
+    first (and freed before the spawn)."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    ref = multi_reference(torch, seed)
+    t_ref = time.perf_counter() - t_phase
+    print(f"multi-rank: one-device references, Mixtral-8x7B full width: depth 2 with the two "
+          f"plans {['%.6f' % v for v in ref['14']]}, depth 1 {['%.6f' % v for v in ref['22']]}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out = pathlib.Path(tempfile.mkdtemp(dir=REPO / "build")) / "multi_rank.json"
+    mp.spawn(multi_rank_main, args=(seed, port, str(out)), nprocs=MULTI_RANKS, join=True)
+    got = json.loads(out.read_text())
+    out.unlink()
+    ranks = got["ranks"]
+    wire_run = [r["wire"] for r in ranks]
+    weight_run = [r["weight"] for r in ranks]
+    mesh22 = [r["mesh22"] for r in ranks]
+    wire0 = wire_run[0]["wire_perm"]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    staged = sum(sum(run["staged_bytes"]) for run in wire_run + weight_run + mesh22)
+    errs = {tag: max(abs(a - b) / abs(b) for a, b in zip(runs_[0]["losses"], ref[tag]))
+            for tag, runs_ in (("14", wire_run), ("22", mesh22))}
+    # What was measured first, then the checks.
+    print(f"multi-rank: backend {ranks[0]['backend']} ({MULTI_RANKS} ranks share "
+          f"{ranks[0]['device']}; NCCL needs a card per rank); host-staged: "
+          f"{'yes' if staged else 'no'} ({staged / 1e6:.1f} MB over all ranks and runs, "
+          f"comm.host_staged_bytes: gloo took every collective's CUDA tensors)", flush=True)
+    for tag, runs_ in (("(1, 4) wire", wire_run), ("(1, 4) weight", weight_run),
+                       ("(2, 2)", mesh22)):
+        print(f"multi-rank {tag}: losses {['%.6f' % v for v in runs_[0]['losses']]}; per-rank "
+              f"median step ms (steps 2-{MULTI_STEPS}, trainer's clock) "
+              f"{['%.1f' % med(r['step_ms'][1:]) for r in runs_]}; wire MB per step, rank 0 "
+              f"(LinkBytes scale_up / scale_out / cross_region, comm.link_bytes) "
+              f"{['/'.join('%.2f' % (v / 1e6) for v in b) for b in runs_[0]['wire_bytes']]}; "
+              f"host-staged MB per step (rank 0) "
+              f"{['%.2f' % (b / 1e6) for b in runs_[0]['staged_bytes']]}; peak GB per rank "
+              f"{['%.2f' % r['peak_gb'] for r in runs_]}; parameters per rank "
+              f"{[r['params'] for r in runs_]}", flush=True)
+    print(f"multi-rank: P = 4 against one device, max rel loss diff over {MULTI_STEPS} steps: "
+          f"(1, 4) {errs['14']:.3e}, (2, 2) {errs['22']:.3e} (limit {MULTI_LOSS_REL})",
+          flush=True)
+    print(f"multi-rank: kernel launches per rank, (1, 4) wire run: "
+          f"{[{k: run['counts'][k] for k in MULTI_KERNELS} for run in wire_run]}", flush=True)
+    print(f"multi-rank: phase {time.perf_counter() - t_phase:.1f} s (references "
+          f"{t_ref:.1f} s; ranks {['%.1f' % r['seconds'] for r in ranks]} s; rank 0 init / "
+          f"steps / digests s: "
+          + ", ".join(f"{k} {r['init_s']:.1f} / {sum(r['call_ms']) / 1e3:.1f} / "
+                      f"{r['digest_s']:.1f}" for k, r in (("wire", wire_run[0]),
+                                                       ("weight", weight_run[0]),
+                                                       ("(2, 2)", mesh22[0])))
+          + ")", flush=True)
+    # Every rank reports the global loss; wire and weight runs bit for bit.
+    for r in range(MULTI_RANKS):
+        assert wire_run[r]["losses"] == wire_run[0]["losses"], "ranks disagree on the loss"
+        assert weight_run[r]["losses"] == wire_run[r]["losses"], \
+            f"rank {r}: weight-path losses {weight_run[r]['losses']} != wire {wire_run[r]['losses']}"
+        assert mesh22[r]["losses"] == mesh22[0]["losses"], "(2, 2) ranks disagree on the loss"
+    assert wire0 is not None and wire0[0] != [0, 1, 2, 3] and wire0[1] == [0, 1, 2, 3], wire0
+    assert all(r["wire_reconfigs"] == 1 for r in wire_run), "the wire plan did not land"
+    assert all(r["wire_reconfigs"] == 0 and r["reconfigs"] == 2 for r in weight_run)
+    for r in range(MULTI_RANKS):
+        for key, dg in wire_run[r]["digests"].items():
+            _, expert, layer = key.partition("#")
+            # The weight run moved layer 0's expert blocks across ranks: rank r
+            # holds what the wire run keeps on rank wire0[0][r].
+            want = wire_run[wire0[0][r]]["digests"][key] if layer == "0" else dg
+            assert weight_run[r]["digests"][key] == want, \
+                f"rank {r} {key}: the weight run's parameter differs from the wire run's"
+            if not expert:
+                assert dg == wire_run[0]["digests"][key], f"{key}: differs across ranks"
+        for key, dg in mesh22[r]["digests"].items():
+            if "#" not in key:
+                assert dg == mesh22[0]["digests"][key], f"(2, 2) {key}: differs across ranks"
+    for tag, runs_ in (("14", wire_run), ("22", mesh22)):
+        assert errs[tag] <= MULTI_LOSS_REL, \
+            f"({tag}) losses {runs_[0]['losses']} vs one device {ref[tag]}: rel {errs[tag]:.3e}"
+    for r, run in enumerate(wire_run):
+        missing = [k for k in MULTI_KERNELS if not run["counts"][k]]
+        assert not missing, f"rank {r}: kernels never launched on the multi-rank path: {missing}"
+    assert all(math.isfinite(v) for run in wire_run + mesh22 for v in run["losses"])
+    print(f"multi-rank: checks held: (1, 4) wire run == weight run bit for bit (losses and every "
+          f"parameter, layer 0's expert blocks on the rank the wire map {wire0[0]} names); "
+          f"non-expert parameters bit-identical on all {MULTI_RANKS} ranks in both meshes; "
+          f"reconfigurations 1 wire + 1 weight (across ranks) in the wire run, 2 weight in the "
+          f"weight run; losses within {MULTI_LOSS_REL} of one device; every kernel of "
+          f"{MULTI_KERNELS} launched on every rank", flush=True)
+    E2E["multi-rank (1, 4) median step ms per rank"] = [med(r["step_ms"][1:]) for r in wire_run]
+    E2E["multi-rank (1, 4) wire bytes per step, rank 0"] = wire_run[0]["wire_bytes"]
+    E2E["multi-rank (2, 2) median step ms per rank"] = [med(r["step_ms"][1:]) for r in mesh22]
+    E2E["multi-rank (2, 2) wire bytes per step, rank 0"] = mesh22[0]["wire_bytes"]
+    rows = got["rows"]
+    for name, kernel in (("moe_dispatch_rank_pack", "moe_dispatch"),
+                         ("grouped_matmul_blocks_rank", "grouped_matmul_blocks"),
+                         ("moe_combine_rank", "moe_combine")):
+        rows[name]["launches"] = wire_run[0]["counts"][kernel]
+    return {"rows": rows, "counts": [run["counts"] for run in wire_run]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and workload seed")
@@ -2935,6 +3348,10 @@ def main(argv=None) -> int:
     )
     counts_cap, _ = train_capacity_and_resume(torch, args.seed, args.profile)
     serve_checkpoint_phase(torch, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi = multi_rank_phase(torch, args.seed)
+    rows.update(multi["rows"])
 
     # launches: each kernel's count from the path it belongs to — the
     # capacity training run for kernel 6 and its backward, the dropless run
@@ -2961,12 +3378,13 @@ def main(argv=None) -> int:
             launches_by_path={"serve": counts_on[name], "train": counts_train[name],
                               "train_capacity": counts_cap[name],
                               "serve_mamba2": counts_mamba[name], "generate": counts_gen[name],
-                              "fleet": counts_fleet[name]},
+                              "fleet": counts_fleet[name],
+                              "multi_rank": [c[name] for c in multi["counts"]]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 38, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 41, [r["name"] for r in line]
     spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "

@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import commruntime as cr
 from repro_torch.core.copilot import CopilotPredictor
 from repro_torch.core.placement import (
     inverse_permutation,
@@ -128,7 +129,8 @@ class RegionGateStats:
 EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
 
 
-def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int):
+def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int, *, mesh=None,
+                           axis: str | None = None):
     """Move every MoE block's stacked expert tensors into their new slots.
 
     ``inv_stack`` is ``[L, E_virtual]`` of per-layer *inverse* permutations
@@ -141,9 +143,16 @@ def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int):
     IN PLACE, one layer and one leaf at a time, walking each permutation
     cycle with a single expert's slice as scratch: a whole-stack gather
     would need a second copy of every expert weight (at grok-1's width one
-    layer's leaf alone is 3.2 GB)."""
+    layer's leaf alone is 3.2 GB).
+
+    Over a mesh whose ``axis`` shards the slots (each rank holds ``[L,
+    E_virtual / P, ...]``), the slots a plan moves across ranks travel in one
+    all-to-all over the axis per layer and leaf (:func:`_exchange_slots`)."""
     inv_stack = np.asarray(inv_stack)
     reps = inv_stack.shape[0]
+    if mesh is not None and axis is not None:
+        if cr.axis_size(mesh, axis) > 1:
+            return _permute_sharded(params, inv_stack, num_virtual, mesh, axis)
     for bparams in params["blocks"].values():
         if "moe" not in bparams:
             continue
@@ -172,6 +181,45 @@ def _permute_slots_(w: torch.Tensor, inv: np.ndarray) -> None:
             s = int(inv[s])
         w[s].copy_(scratch)
         done[s] = True
+
+
+def _permute_sharded(params, inv_stack: np.ndarray, num_virtual: int, mesh, axis: str):
+    p, m = cr.axis_size(mesh, axis), cr.axis_index(mesh, axis)
+    epd = num_virtual // p
+    group = cr.axis_group(mesh, axis)
+    reps = inv_stack.shape[0]
+    for bparams in params["blocks"].values():
+        if "moe" not in bparams:
+            continue
+        for wname in EXPERT_LEAVES:
+            leaf = bparams["moe"][wname]
+            if leaf.dim() < 2 or leaf.shape[0] != reps or leaf.shape[1] != epd:
+                continue
+            for layer in range(reps):
+                if (inv_stack[layer] != np.arange(num_virtual)).any():
+                    _exchange_slots(leaf[layer], inv_stack[layer], m, p, epd, group)
+    return params
+
+
+@torch.no_grad()
+def _exchange_slots(w: torch.Tensor, inv: np.ndarray, m: int, p: int, epd: int, group) -> None:
+    """``w [epd, ...]`` holds global slots ``m * epd ..``; set ``slot s <-
+    slot inv[s]`` for each of them, in place.  Every rank sends, in slot
+    order, the rows the other ranks' slots take from it (its own included),
+    through one all-to-all with split sizes."""
+    send_rows, in_split = [], []
+    for q in range(p):
+        rows = [int(inv[s]) - m * epd for s in range(q * epd, (q + 1) * epd)
+                if int(inv[s]) // epd == m]
+        send_rows += rows
+        in_split.append(len(rows))
+    mine = range(m * epd, (m + 1) * epd)
+    order = [s - m * epd for q in range(p) for s in mine if int(inv[s]) // epd == q]
+    out_split = [sum(1 for s in mine if int(inv[s]) // epd == q) for q in range(p)]
+    flat = w.reshape(epd, -1)
+    send = flat[torch.as_tensor(send_rows, dtype=torch.long, device=w.device)]
+    recv = cr.all_to_all_rows(send, in_split, out_split, group)
+    flat[torch.as_tensor(order, dtype=torch.long, device=w.device)] = recv
 
 
 @dataclasses.dataclass
@@ -559,9 +607,13 @@ class PlacementApplier:
     ordering in :meth:`ControlPlane.apply`).
     """
 
-    def __init__(self, cp: ControlPlane, *, model_size: int = 1, wire_capable: bool = False):
+    def __init__(self, cp: ControlPlane, *, model_size: int = 1, wire_capable: bool = False,
+                 mesh=None, axis: str | None = None):
         self.cp = cp
         self.model_size = max(model_size, 1)
+        # Over a mesh the expert slots shard over ``axis``: the weight path
+        # exchanges the slots a plan moves across ranks.
+        self.mesh, self.axis = mesh, axis
         # Wire re-addressing needs the mixnet data plane and a control-plane
         # device space that IS the model axis (one slot block per device).
         self.wire_capable = (
@@ -574,8 +626,6 @@ class PlacementApplier:
 
     def apply(self, params, plans: list[LayerPlan]):
         """Actuate ``plans``; returns ``(params, changed)``."""
-        from repro_torch.core.commruntime import device_perm_from_slots
-
         cp = self.cp
         live = [p for p in plans if p.reconfigure]
         if not live:
@@ -587,7 +637,7 @@ class PlacementApplier:
         gather_needed = False
         for p in live:
             devp = (
-                device_perm_from_slots(np.asarray(p.perm), epd)
+                cr.device_perm_from_slots(np.asarray(p.perm), epd)
                 if self.wire_capable
                 else None
             )
@@ -620,7 +670,8 @@ class PlacementApplier:
             gather_needed = True
             metrics.counter("placement.applies", mode="weight_gather").inc()
         if gather_needed:
-            params = permute_expert_weights(params, inv_stack, ev)
+            params = permute_expert_weights(params, inv_stack, ev, mesh=self.mesh,
+                                            axis=self.axis)
         for p in live:
             cp.apply(p)
         return params, True

@@ -11,9 +11,8 @@ column-stochastic polytope:
     s.t.    P >= 0,  1^T P = 1^T          (each column a distribution)
 
 solved by projected gradient descent with the reference's step size and its
-50-step bisection simplex projection, batched over layers as one torch
-computation in float32 (what the reference computes on the CPU with JAX's
-64-bit mode off).  It is host-side control logic on small ``[L, E, E]``
+50-step bisection simplex projection, batched over layers in numpy float32
+(what the reference computes on the CPU with JAX's 64-bit mode off).  It is host-side control logic on small ``[L, E, E]``
 tensors and runs on the CPU whatever device the model is on.
 ``rollout`` is the fleet's steering predictor; the Fig. 19 accuracy
 helpers come with the evaluation slice.
@@ -29,20 +28,19 @@ import torch
 __all__ = ["fit_transition_matrices", "CopilotPredictor"]
 
 
-def _project_columns_to_simplex(p: torch.Tensor, iters: int = 50) -> torch.Tensor:
+def _project_columns_to_simplex(p: np.ndarray, iters: int = 50) -> np.ndarray:
     """Euclidean projection of every column of ``p`` onto the simplex: the
     water-filling threshold found by ``iters`` bisection halvings (any
-    leading batch dims)."""
-    lo = p.amin(dim=-2, keepdim=True) - 1.0  # sum(max(v-lo,0)) >= 1
-    hi = p.amax(dim=-2, keepdim=True)  # sum(max(v-hi,0)) == 0
+    leading batch dims), in float32."""
+    lo = p.min(axis=-2, keepdims=True) - np.float32(1.0)  # sum(max(v-lo,0)) >= 1
+    hi = p.max(axis=-2, keepdims=True)  # sum(max(v-hi,0)) == 0
+    half = np.float32(0.5)
     for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        s = torch.clamp_min(p - mid, 0.0).sum(dim=-2, keepdim=True)
-        over = s > 1.0
-        lo = torch.where(over, mid, lo)
-        hi = torch.where(over, hi, mid)
-    theta = 0.5 * (lo + hi)
-    return torch.clamp_min(p - theta, 0.0)
+        mid = half * (lo + hi)
+        over = np.maximum(p - mid, np.float32(0.0)).sum(axis=-2, keepdims=True) > 1.0
+        lo = np.where(over, mid, lo)
+        hi = np.where(over, hi, mid)
+    return np.maximum(p - half * (lo + hi), np.float32(0.0))
 
 
 def fit_transition_matrices(x, y, weights, p_init, steps: int = 200, lr: float = 0.5):
@@ -51,23 +49,25 @@ def fit_transition_matrices(x, y, weights, p_init, steps: int = 200, lr: float =
     ``x``/``y``: ``[L, k, E]`` load distributions (rows sum to 1);
     ``weights``: ``[L, k]`` window weights (zero-weight rows pad ragged
     windows and change nothing); ``p_init``: ``[L, E, E]`` warm start.
-    Returns ``[L, E, E]`` float32.
+    Returns ``[L, E, E]`` float32.  The arrays are a few dozen floats a
+    layer, so the fit runs in numpy float32, where an operation costs a
+    fraction of a torch call's overhead.
     """
-    f32 = torch.float32
-    x = torch.as_tensor(np.asarray(x), dtype=f32)
-    y = torch.as_tensor(np.asarray(y), dtype=f32)
-    weights = torch.as_tensor(np.asarray(weights), dtype=f32)
-    p = torch.as_tensor(np.asarray(p_init), dtype=f32)
-    w = weights / (weights.sum(-1, keepdim=True) + 1e-12)
+    f32 = np.float32
+    x = np.asarray(x, dtype=f32)
+    y = np.asarray(y, dtype=f32)
+    weights = np.asarray(weights, dtype=f32)
+    p = np.asarray(p_init, dtype=f32)
+    w = weights / (weights.sum(-1, keepdims=True) + f32(1e-12))
     # Lipschitz-ish step size from the data scale.
-    scale = torch.clamp_min((w[..., None] * x**2).sum(dim=(-2, -1)), 1e-6)
-    step = (lr / scale)[:, None, None]
+    scale = np.maximum((w[..., None] * x**2).sum(axis=(-2, -1)), f32(1e-6))
+    step = (f32(lr) / scale)[:, None, None]
     xw = x * w[..., None]
     for _ in range(steps):
-        pred = x @ p.transpose(-1, -2)  # [L, k, E]
-        g = 2.0 * (pred - y).transpose(-1, -2) @ xw
+        pred = x @ p.transpose(0, 2, 1)  # [L, k, E]
+        g = f32(2.0) * ((pred - y).transpose(0, 2, 1) @ xw)
         p = _project_columns_to_simplex(p - step * g)
-    return p
+    return torch.from_numpy(np.ascontiguousarray(p, dtype=f32))
 
 
 @dataclasses.dataclass

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["tensor_from_numpy", "params_from_numpy"]
+__all__ = ["tensor_from_numpy", "params_from_numpy", "shard_params"]
 
 # Leaves that stay f32 whatever ``cfg.dtype`` says: the MoE router, and the
 # Mamba-2 block's per-head ``dt_bias``, ``A_log`` and ``D``.
@@ -55,3 +55,32 @@ def params_from_numpy(tree, cfg=None, device="cpu", *, trainable: bool = False):
         return t
 
     return conv(tree, "")
+
+
+_EXPERT_LEAVES = frozenset({"w_in", "w_gate", "w_out"})
+
+
+def shard_params(tree, plan, mesh, rank: int | None = None):
+    """A rank's shard of a global numpy tree (the JAX package's, converted):
+    the expert leaves (``moe/w_in``, ``moe/w_gate``, ``moe/w_out``, stacked
+    ``[reps, E_virtual, ...]``) keep the rank's ``E_virtual / P`` slots of the
+    model axis; every other leaf stays whole.  ``rank`` is the global rank
+    (default: this process's); the result is still numpy, for
+    :func:`params_from_numpy`, so a card only ever receives its shard."""
+    if mesh is None or plan.model_axis is None or plan.model_size <= 1:
+        return tree
+    names = list(mesh.mesh_dim_names)
+    coords = (mesh.mesh == (mesh.get_rank() if rank is None else rank)).nonzero()[0].tolist()
+    m, p = coords[names.index(plan.model_axis)], plan.model_size
+
+    def cut(node, path):
+        if isinstance(node, dict):
+            return {k: cut(v, f"{path}/{k}") for k, v in node.items()}
+        parts = path.rsplit("/", 2)
+        if len(parts) == 3 and parts[1] == "moe" and parts[2] in _EXPERT_LEAVES:
+            a = np.asarray(node)
+            n = a.shape[1] // p
+            return a[:, m * n:(m + 1) * n]
+        return node
+
+    return cut(tree, "")

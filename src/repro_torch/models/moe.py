@@ -10,14 +10,19 @@ order, an expert's output then does not depend on the slot it occupies, so
 runtime re-placement (``expert_perm``) leaves generated tokens
 bit-identical.
 
-The ``mixnet`` backend (the paper's data plane, §5.3) runs on one device
-(P = 1): send-buffer gather (``ops.moe_dispatch``), the CommRuntime
-all-to-all (the identity at P = 1), the pack into the dropless block layout,
-three grouped GEMMs over it (``ops.grouped_matmul(..., block_experts=)``),
-the unpack and the weighted combine (``ops.moe_combine``).  Each gather is
-given its inverse map from the dispatch plan, which is what its backward
-kernel gathers through on the card.  P > 1 and the chunked overlap
-pipeline (``overlap_chunks > 1``) come with the multi-device slice.
+The ``mixnet`` backend (the paper's data plane, §5.3): send-buffer gather
+(``ops.moe_dispatch``), the CommRuntime all-to-all (the payload and its
+expert ids fused into one wire transfer; the identity at P = 1), the pack
+into the dropless block layout, three grouped GEMMs over it
+(``ops.grouped_matmul(..., block_experts=)``), the unpack, the return trip
+and the weighted combine (``ops.moe_combine``).  Each gather is given its
+inverse map from the dispatch plan, which is what its backward kernel
+gathers through on the card.  Over a ``("data", "model")`` mesh each rank
+runs that body on its token slice with its ``E_virtual / P`` experts,
+re-addresses the wire chunks by a layer's ``wire_perm``, and reduces the
+telemetry as the reference's ``shard_map`` body does; ``overlap_chunks >
+1`` runs it as the chunked software pipeline.  The einsum and dense-decode
+backends over a mesh come with a later item.
 
 Speculative decoding's draft passes (``MoEConfig.draft_mode``, picked by
 :func:`resolve_draft_mode` and :func:`draft_config`): ``topk1`` narrows the
@@ -32,11 +37,14 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.commruntime import AllToAll, CommSpec
+from repro_torch.core import commruntime as cr
+from repro_torch.core.commruntime import AllToAll, CommSpec, fuse_pack, fuse_unpack
+from repro_torch.core.overlap import chunk_count, software_pipeline
 from repro_torch.kernels import ops
 from repro_torch.models import routing
 from repro_torch.models.layers import decode_rows, normal
 from repro_torch.models.routing import MoEStats, router_losses
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
 
 __all__ = [
@@ -45,8 +53,10 @@ __all__ = [
 ]
 
 
-def init_moe(gen, cfg, plan: ShardingPlan, *, reps: int, device) -> dict:
-    """Stacked ``[reps, ...]`` router and expert weights."""
+def init_moe(gen, cfg, plan: ShardingPlan, *, reps: int, device, model_index: int = 0) -> dict:
+    """Stacked ``[reps, ...]`` router and expert weights.  Over a model axis
+    of size P the expert leaves keep rank ``model_index``'s ``E_virtual /
+    P`` slots of the same draw (one layer stack drawn at a time)."""
     e = cfg.moe
     d = cfg.d_model
     dtype = getattr(torch, cfg.dtype)
@@ -54,11 +64,18 @@ def init_moe(gen, cfg, plan: ShardingPlan, *, reps: int, device) -> dict:
     if e.d_ff % r != 0:
         raise ValueError(f"expert d_ff {e.d_ff} not divisible by replication {r}")
     f = e.d_ff // r
+    p = max(plan.model_size, 1)
+    lo, hi = model_index * (ev // p), (model_index + 1) * (ev // p)
+
+    def experts(shape, std):
+        w = normal(gen, shape, dtype, device, std)
+        return w if p == 1 else w[:, lo:hi].clone()
+
     params = {
         "router": normal(gen, (reps, d, e.num_experts), torch.float32, device, d**-0.5),
-        "w_in": normal(gen, (reps, ev, d, f), dtype, device, d**-0.5),
-        "w_gate": normal(gen, (reps, ev, d, f), dtype, device, d**-0.5),
-        "w_out": normal(gen, (reps, ev, f, d), dtype, device, e.d_ff**-0.5),
+        "w_in": experts((reps, ev, d, f), d**-0.5),
+        "w_gate": experts((reps, ev, d, f), d**-0.5),
+        "w_out": experts((reps, ev, f, d), e.d_ff**-0.5),
     }
     if e.num_shared_experts:
         f_sh = e.d_ff * e.num_shared_experts
@@ -182,23 +199,67 @@ def _moe_dense_decode(params, x, cfg, plan: ShardingPlan, expert_perm=None,
     return out, MoEStats(load, balance, z, zero)
 
 
-def chunk_count(total: int, requested: int) -> int:
-    """Largest divisor of ``total`` that is <= ``requested`` (the chunked
-    overlap pipeline's chunk count, ``repro.core.overlap.chunk_count``)."""
-    c = max(min(int(requested), int(total)), 1)
-    while total % c:
-        c -= 1
-    return c
+def _wire_perms(wire_perm, p_axis: int, device):
+    """(dest_perm, src_perm) realizing a ControlPlane wire re-address.
+
+    ``wire_perm`` is the layer's device map ``D`` (logical device k's experts
+    physically live on device ``D[k]``).  The dispatch trip re-addresses
+    chunks with ``D^-1``; the return trip restores logical order with ``D``.
+    """
+    if wire_perm is None:
+        return None, None
+    wire_src = torch.as_tensor(wire_perm, device=device).long()
+    wire_dest = torch.empty_like(wire_src)
+    wire_dest[wire_src] = torch.arange(p_axis, device=device)
+    return wire_dest, wire_src
+
+
+class _ShardMean(torch.autograd.Function):
+    """A per-shard aux loss (balance, router z) averaged over one mesh axis.
+    Every rank's loss then holds the same value with cotangent ``ct``; the
+    gradient of the mean over all shards reaches this shard's term as
+    ``ct * scale``: 1 over a batch axis (the DP reduction averages there)
+    and ``1 / P`` over the model axis (the router's gradient is summed
+    there) — what the reference's transpose of ``pmean`` under
+    ``shard_map`` gives once its gradients are reduced."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, scale):
+        ctx.scale = scale
+        return cr.all_reduce(x, group) / float(size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None, None
+
+
+def _reduce_telemetry(mesh, plan, axis_names, token_axes, load, balance, z, kept, offered):
+    """The reference's reductions over the mesh (``moe.py:367-373``):
+    counts SUM over axes that shard the tokens and MEAN over axes the tokens
+    ride replicated; the aux losses MEAN."""
+    for ax in axis_names:
+        n = cr.axis_size(mesh, ax)
+        if n == 1:
+            continue
+        grp = cr.axis_group(mesh, ax)
+        scale = 1.0 / n if ax == plan.model_axis else 1.0
+        balance = _ShardMean.apply(balance, grp, n, scale)
+        z = _ShardMean.apply(z, grp, n, scale)
+        div = 1.0 if ax in token_axes else float(n)
+        load = cr.all_reduce(load, grp) / div
+        kept = cr.all_reduce(kept, grp) / div
+        offered = cr.all_reduce(offered, grp) / div
+    return load, balance, z, kept, offered
 
 
 def _moe_mixnet_local(
     params_local, xl, cfg, plan: ShardingPlan, expert_perm, axis_names=(),
-    wire_perm=None, token_axes=(), gate_weights=None,
+    wire_perm=None, token_axes=(), gate_weights=None, mesh=None,
 ):
-    """Per-device MoE body, serial path (``overlap_chunks`` resolving to one
-    chunk).  Returns ``(out [B, S, D], load [E], balance, z, drop)``."""
-    if wire_perm is not None:
-        raise NotImplementedError("wire re-addressing needs a model axis: the multi-device slice")
+    """Per-rank MoE body (the reference's ``shard_map`` body, or the whole
+    layer at P = 1).  ``cfg.moe.overlap_chunks > 1`` runs the chunked
+    software pipeline (:func:`_mixnet_chunked`), bit-identical to the serial
+    path.  Returns ``(out [B, S, D], load [E], balance, z, drop)``."""
     e = cfg.moe
     ev, r = virtual_experts(e.num_experts, plan.model_size)
     p_axis = max(plan.model_size, 1)
@@ -220,23 +281,25 @@ def _moe_mixnet_local(
     )
     flat_dev = (info.vdest // ev_local).reshape(n)
     local_e = (info.vdest % ev_local).reshape(n)
+    wire_dest, wire_src = _wire_perms(wire_perm, p_axis, xl.device)
 
+    # Stage-1 keep decisions are global (chunk-invariant): dropless keeps
+    # everything, capacity mode keeps rank < the serial capacity.
     rank1, _ = routing.bucket_ranks(flat_dev, p_axis)
     cp = n if dropless else routing.capacity(tl, sc, p_axis, e.capacity_factor)
     keep1 = None if dropless else rank1 < cp
 
-    a2a = AllToAll(CommSpec.from_plan(plan, group_size=e.a2a_group))
-    if chunk_count(tl, e.overlap_chunks) > 1:
-        raise NotImplementedError(
-            "the chunked overlap pipeline (overlap_chunks > 1) comes with the multi-device slice"
-        )
+    a2a = AllToAll(CommSpec.from_plan(plan, group_size=e.a2a_group, mesh=mesh))
+    chunks = chunk_count(tl, e.overlap_chunks)
 
     def expert_ffn_block(rx, re):
         """Received rows -> per-expert pack -> grouped GEMMs -> unpacked
         rows aligned with the receive layout, and the kept count."""
         valid = re >= 0
         rank2, counts2 = routing.bucket_ranks(re, ev_local, valid=valid)
-        if dropless:
+        if dropless or chunks > 1:
+            # The block layout places every valid received row (the chunked
+            # pipeline uses it for capacity mode too, as the reference).
             plan2 = routing.dropless_plan(re, rank2, counts2, valid, ev_local, e.dispatch_block)
             packed = ops.moe_dispatch(rx, plan2.src, inverse=plan2.slot)
             packed = packed.reshape(-1, e.dispatch_block, d)
@@ -254,47 +317,191 @@ def _moe_mixnet_local(
         back = ops.moe_dispatch(ye.reshape(plan2.num_rows, d), plan2.slot, inverse=plan2.src)
         return back, plan2.kept
 
-    # Serial path: one send buffer, one a2a pair.  The send gather is
-    # many-to-one (a token feeds its top-k choices): its backward is the
-    # combine with unit weights through plan1.slot.
-    plan1 = routing.capacity_plan(flat_dev, rank1, keep1, p_axis, cp)
-    src_tok = torch.where(plan1.src >= 0, plan1.src // sc, torch.full_like(plan1.src, -1))
-    send_x = ops.moe_dispatch(xt, src_tok, inverse=plan1.slot.reshape(tl, sc))
-    send_x = send_x.reshape(p_axis, cp, d)
-    send_e = torch.where(
-        plan1.src >= 0, local_e[plan1.src.clamp(0, n - 1).long()], torch.full_like(plan1.src, -1)
-    ).reshape(p_axis, cp).to(torch.int32)
-    # At P = 1 the fused and the separate transfers (``a2a_fuse``) are both
-    # the identity; they differ only in what crosses a wire.
-    recv_x, recv_e = a2a.fused(send_x, send_e)
-    back, kept = expert_ffn_block(recv_x.reshape(p_axis * cp, d), recv_e.reshape(p_axis * cp))
-    ret = a2a(back.reshape(p_axis, cp, d))
-    out = ops.moe_combine(
-        ret.reshape(p_axis * cp, d), plan1.slot.reshape(tl, sc), info.wfull, inverse=plan1.src,
-        out_dtype=xl.dtype,
-    )
+    if chunks == 1:
+        # Serial path: one send buffer, one a2a pair.  The send gather is
+        # many-to-one (a token feeds its top-k choices): its backward is the
+        # combine with unit weights through plan1.slot.
+        plan1 = routing.capacity_plan(flat_dev, rank1, keep1, p_axis, cp)
+        send_x, send_e = _send_buffers(xt, plan1, local_e, sc, p_axis, cp)
+        if e.a2a_fuse:
+            recv_x, recv_e = a2a.fused(send_x, send_e, dest_perm=wire_dest)
+        else:
+            recv_x = a2a(send_x, dest_perm=wire_dest)
+            recv_e = a2a(send_e[..., None], dest_perm=wire_dest)[..., 0]
+        back, kept = expert_ffn_block(recv_x.reshape(p_axis * cp, d),
+                                      recv_e.reshape(p_axis * cp))
+        ret = a2a(back.reshape(p_axis, cp, d), src_perm=wire_src)
+        out = ops.moe_combine(
+            ret.reshape(p_axis * cp, d), plan1.slot.reshape(tl, sc), info.wfull,
+            inverse=plan1.src, out_dtype=xl.dtype,
+        )
+    else:
+        out, kept = _mixnet_chunked(
+            xt, info, flat_dev, local_e, keep1, a2a, expert_ffn_block, wire_dest, wire_src,
+            chunks=chunks, p_axis=p_axis, sc=sc, cp=cp, fuse=e.a2a_fuse,
+        )
     out = out.reshape(bl, sl, d)
 
     balance, z = router_losses(logits, info.idx, e.num_experts)
     load = routing.expert_load(info.idx, e.num_experts, weights=gate_weights)
     # Drop telemetry folds both stages: `kept` counts choices that won a
     # send slot AND an expert slot (exactly 0 dropped in dropless mode).
-    drop = 1.0 - kept.float() / float(n)
+    kept = torch.as_tensor(kept, device=xl.device).float()
+    offered = torch.tensor(float(n), device=xl.device)
+    if axis_names:
+        load, balance, z, kept, offered = _reduce_telemetry(
+            mesh, plan, axis_names, token_axes, load, balance, z, kept, offered)
+    drop = 1.0 - kept / offered
     return out, load, balance, z, drop
+
+
+def _send_buffers(xt, plan1, local_e, sc: int, p_axis: int, cp: int):
+    """The ``[P, cp, D]`` send buffer of ``xt``'s rows by ``plan1`` and its
+    ``[P, cp]`` int32 local-expert ids (-1 in empty slots)."""
+    n = local_e.shape[0]
+    tl, d = xt.shape
+    src_tok = torch.where(plan1.src >= 0, plan1.src // sc, torch.full_like(plan1.src, -1))
+    send_x = ops.moe_dispatch(xt, src_tok, inverse=plan1.slot.reshape(tl, sc))
+    send_e = torch.where(
+        plan1.src >= 0, local_e[plan1.src.clamp(0, n - 1).long()], torch.full_like(plan1.src, -1)
+    ).reshape(p_axis, cp).to(torch.int32)
+    return send_x.reshape(p_axis, cp, d), send_e
+
+
+def _mixnet_chunked(
+    xt, info, flat_dev, local_e, keep1, a2a, expert_ffn_block,
+    wire_dest, wire_src, *, chunks, p_axis, sc, cp, fuse,
+):
+    """Chunked dispatch/FFN/combine pipeline (``repro.core.overlap``).
+
+    The token dim splits into ``chunks`` equal chunks; each runs send
+    buffer -> dispatch a2a (per delegation stage) -> expert FFN -> return
+    a2a (per stage) -> combine.  :func:`overlap.software_pipeline` issues
+    stage s of chunk k at tick k + s, and every a2a stage is issued async
+    and waited on by the next stage, so chunk k+1's dispatch is in flight
+    under chunk k's FFN.  Returns (``[T, D]`` output in xt's dtype, kept
+    count)."""
+    tl, d = xt.shape
+    tc = tl // chunks
+    nc = tc * sc
+    cp_c = nc if keep1 is None else min(nc, cp)
+    disp_stages = a2a.stages()
+    ret_stages = a2a.stages()
+    fused = fuse and xt.element_size() in (2, 4)
+
+    def s_build(_, k):
+        lo = k * nc
+        dest_c = flat_dev[lo:lo + nc]
+        keep_c = None if keep1 is None else keep1[lo:lo + nc]
+        rank_c, _ = routing.bucket_ranks(dest_c, p_axis, valid=keep_c)
+        plan1_c = routing.capacity_plan(dest_c, rank_c, keep_c, p_axis, cp_c)
+        send_x, send_e = _send_buffers(xt[k * tc:(k + 1) * tc], plan1_c, local_e[lo:lo + nc],
+                                       sc, p_axis, cp_c)
+        st = {"plan1": plan1_c}
+        if fused:
+            st["x"] = disp_stages[0](fuse_pack(send_x, send_e), dest_perm=wire_dest,
+                                     async_op=True)
+        else:
+            st["x"] = disp_stages[0](send_x, dest_perm=wire_dest, async_op=True)
+            st["e"] = disp_stages[0](send_e[..., None], dest_perm=wire_dest, async_op=True)
+        return st
+
+    def s_disp2(st, _):
+        st = dict(st)
+        st["x"] = disp_stages[1](st["x"].wait(), async_op=True)
+        if not fused:
+            st["e"] = disp_stages[1](st["e"].wait(), async_op=True)
+        return st
+
+    def s_ffn(st, _):
+        if fused:
+            recv_x, recv_e = fuse_unpack(st["x"].wait(), d)
+        else:
+            recv_x, recv_e = st["x"].wait(), st["e"].wait()[..., 0]
+        back, kept_c = expert_ffn_block(recv_x.reshape(p_axis * cp_c, d),
+                                        recv_e.reshape(p_axis * cp_c))
+        back = back.reshape(p_axis, cp_c, d)
+        last = len(ret_stages) == 1
+        back = ret_stages[0](back, src_perm=wire_src if last else None, async_op=True)
+        return {"plan1": st["plan1"], "back": back, "kept": kept_c}
+
+    def s_ret2(st, _):
+        st = dict(st)
+        st["back"] = ret_stages[1](st["back"].wait(), src_perm=wire_src, async_op=True)
+        return st
+
+    def s_combine(st, k):
+        wf_c = info.wfull[k * tc:(k + 1) * tc]
+        plan1_c = st["plan1"]
+        out_c = ops.moe_combine(
+            st["back"].wait().reshape(p_axis * cp_c, d), plan1_c.slot.reshape(tc, sc), wf_c,
+            inverse=plan1_c.src, out_dtype=xt.dtype,
+        )
+        return out_c, st["kept"]
+
+    stage_fns = [s_build]
+    if len(disp_stages) == 2:
+        stage_fns.append(s_disp2)
+    stage_fns.append(s_ffn)
+    if len(ret_stages) == 2:
+        stage_fns.append(s_ret2)
+    stage_fns.append(s_combine)
+
+    results = software_pipeline(chunks, stage_fns)
+    out = torch.cat([res[0] for res in results], dim=0)
+    kept = sum(res[1] for res in results)
+    return out, kept
+
+
+_LATER = "comes with a later item of the multi-device port (ROADMAP.md §1)"
 
 
 def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm=None,
                 gate_weights=None):
     """``expert_perm``: THIS layer's ``[E_virtual]`` expert->slot map;
     ``wire_perm``: its optional ``[P]`` device map; ``gate_weights``: an
-    optional ``[B, S]`` per-token telemetry weight."""
-    if mesh is not None and plan.model_size > 1:
-        raise NotImplementedError("the mixnet backend over a mesh comes with the multi-device slice")
+    optional ``[B, S]`` per-token telemetry weight.
+
+    Over a mesh, ``x`` is this rank's data slice of the batch and the
+    expert leaves are its ``[E_virtual / P, ...]`` shard.  The region takes
+    the rank's sequence slice over the model axis
+    (:func:`sharding.token_slice`), runs the per-rank body with the
+    reference's telemetry reductions, and all-gathers the output back.  A
+    data-only mesh (model size 1) runs the layer on the whole batch,
+    all-gathered over the data axis, as the reference's layer sees it, and
+    keeps the rank's rows."""
+    weights = (params["router"], params["w_in"], params["w_gate"], params["w_out"])
+    if mesh is None or (plan.model_size <= 1 and plan.data_size <= 1):
+        out, load, balance, z, drop = _moe_mixnet_local(
+            weights, x, cfg, plan, expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
+        )
+        return out, MoEStats(load, balance, z, drop)
+    if plan.model_size <= 1:
+        ax = plan.batch_axes[-1]
+        b = x.shape[0]
+        xg = cr.all_gather(x, mesh, ax)
+        gw = None if gate_weights is None else cr.all_gather(gate_weights, mesh, ax)
+        out, load, balance, z, drop = _moe_mixnet_local(
+            weights, xg, cfg, plan, expert_perm, wire_perm=wire_perm, gate_weights=gw,
+        )
+        i = cr.axis_index(mesh, ax)
+        return out[i * b:(i + 1) * b], MoEStats(load, balance, z, drop)
+    s = x.shape[1]
+    sharded = sharding.seq_sharded(plan, s)
+    axis_names = tuple(plan.batch_axes) + (plan.model_axis,)
+    token_axes = tuple(plan.batch_axes) + ((plan.model_axis,) if sharded else ())
+    xl = sharding.token_slice(x, plan, mesh)
+    gw = None
+    if gate_weights is not None:
+        gw = gate_weights
+        if sharded:
+            m, sl = cr.axis_index(mesh, plan.model_axis), s // plan.model_size
+            gw = gate_weights[:, m * sl:(m + 1) * sl]
     out, load, balance, z, drop = _moe_mixnet_local(
-        (params["router"], params["w_in"], params["w_gate"], params["w_out"]), x, cfg, plan,
-        expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
+        weights, xl, cfg, plan, expert_perm, axis_names, wire_perm=wire_perm,
+        token_axes=token_axes, gate_weights=gw, mesh=mesh,
     )
-    return out, MoEStats(load, balance, z, drop)
+    return sharding.token_gather(out, plan, mesh, s), MoEStats(load, balance, z, drop)
 
 
 def moe_apply(
@@ -323,10 +530,14 @@ def moe_apply(
         )
         cfg = dataclasses.replace(cfg, moe=e)
     backend = backend or e.backend
+    if mesh is not None and backend != "mixnet":
+        raise NotImplementedError(f"the {backend} backend over a mesh {_LATER}")
     if backend != "einsum" and (x.shape[1] == 1 or mode == "decode"):
         # Decode: the weight-stationary dense path, unless the config pins
         # the mixnet backend's sparse dispatch at decode.
         if not (backend == "mixnet" and e.decode_backend == "sparse"):
+            if mesh is not None:
+                raise NotImplementedError(f"the dense-decode backend over a mesh {_LATER}")
             backend = "dense_decode"
     ev, _ = virtual_experts(e.num_experts, plan.model_size)
     perm = routing.resolve_perm(expert_perm, ev, device=x.device)

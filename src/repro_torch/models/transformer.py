@@ -62,9 +62,11 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: dense MLP blocks come with a later slice")
 
 
-def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None) -> dict:
+def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) -> dict:
     """Seeded parameters drawn directly on ``device`` (the card unless the
-    caller asks for the CPU) in ``cfg.dtype``."""
+    caller asks for the CPU) in ``cfg.dtype``.  Over a ``mesh`` every rank
+    draws the same values and keeps its model-axis shard of the expert
+    leaves, so the ranks together hold the one-device draw."""
     cfg.validate()
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -86,13 +88,20 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None) -> dict:
             "norm1": L.init_rms_norm(d, dtype, dev, reps),
             "attn": L.init_attention(gen, cfg, plan, reps=reps, device=dev),
             "norm2": L.init_rms_norm(d, dtype, dev, reps),
-            "moe": moe_mod.init_moe(gen, cfg, plan, reps=reps, device=dev),
+            "moe": moe_mod.init_moe(gen, cfg, plan, reps=reps, device=dev,
+                                    model_index=_model_index(mesh, plan)),
         }
     params["blocks"] = blocks
     params["final_norm"] = L.init_rms_norm(d, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (d, cfg.vocab_size), dtype, dev, d**-0.5)
     return params
+
+
+def _model_index(mesh, plan: ShardingPlan) -> int:
+    if mesh is None or plan.model_axis is None:
+        return 0
+    return int(mesh.get_local_rank(plan.model_axis))
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +226,7 @@ def _remat(fn, remat: str):
 
 def _apply_block(
     kind, p, x, cfg, plan, mode, cache, t, expert_perm, positions,
-    wire_perm=None, gate_weights=None, page_table=None, writes=None,
+    wire_perm=None, gate_weights=None, page_table=None, writes=None, mesh=None,
 ):
     if kind == "ssm":
         # norm1 + SSD only (no norm2, no MLP), as the reference.  Every slot
@@ -240,7 +249,7 @@ def _apply_block(
     x = x + y
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y, stats = moe_mod.moe_apply(
-        p["moe"], h2, cfg, plan, expert_perm=expert_perm, wire_perm=wire_perm,
+        p["moe"], h2, cfg, plan, mesh=mesh, expert_perm=expert_perm, wire_perm=wire_perm,
         mode=mode, gate_weights=gate_weights,
     )
     return x + y, ac, stats
@@ -269,7 +278,10 @@ def model_apply(
     serving engine's live-slot mask); ``page_table``: optional ``[B, P]``
     i32 page ids switching decode onto the paged pools.  Decode writes the
     chunk's K/V into ``caches`` IN PLACE and returns the same dicts.
-    Returns ``(features [B, S, D], aux, caches)``.
+    ``mesh``: the ``DeviceMesh`` of ``plan``; ``batch`` is then this rank's
+    data slice, every non-MoE layer runs on it whole, and the MoE layers
+    shard it over the model axis.  Returns ``(features [B, S, D], aux,
+    caches)``.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -309,7 +321,7 @@ def model_apply(
                 kind, block_params[names[i]][li], x, cfg, plan, mode,
                 cache_i, t, None if expert_perm is None else expert_perm[li], positions,
                 wire_perm=None if wire_perm is None else wire_perm[li],
-                gate_weights=gate_weights, page_table=page_table, writes=writes,
+                gate_weights=gate_weights, page_table=page_table, writes=writes, mesh=mesh,
             )
             ncs.append(nc)
             if st is not None:

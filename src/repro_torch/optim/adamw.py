@@ -7,7 +7,7 @@ expert leaf of Mixtral-8x7B is ``[2, 8, 4096, 14336]``, one f32 temporary
 of it 3.76 GB, and the formula makes about six.  Each leaf is walked in
 slices along its leading dims (a ``[reps]`` slice, then smaller while a
 slice holds more than ``_SLICE`` elements), so the temporaries stay near
-one GB.
+a GB: four ranks of a mesh share one card.
 """
 
 from __future__ import annotations
@@ -17,9 +17,11 @@ import math
 
 import torch
 
-__all__ = ["AdamWConfig", "init_adamw", "adamw_update", "global_norm", "cosine_lr"]
+__all__ = [
+    "AdamWConfig", "init_adamw", "adamw_update", "global_norm", "sum_of_squares", "cosine_lr",
+]
 
-_SLICE = 1 << 28  # elements per in-place update slice (1 GiB of f32)
+_SLICE = 1 << 26  # elements per in-place update slice (256 MiB of f32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,30 +76,44 @@ def init_adamw(params, cfg: AdamWConfig):
 
 def _slices(x: torch.Tensor):
     """Views of ``x`` along its leading dims, each at most ``_SLICE``
-    elements (or one row of the last dim)."""
+    elements (or one row of the last dim): as many leading rows a view as
+    fit, a row's own slices when one row does not."""
     if x.numel() <= _SLICE or x.dim() <= 1:
         yield x
+        return
+    rows = _SLICE // (x.numel() // x.shape[0])
+    if rows >= 1:
+        yield from x.split(rows)
         return
     for row in x.unbind(0):
         yield from _slices(row)
 
 
-def global_norm(tree) -> torch.Tensor:
+def sum_of_squares(tree, keep=None) -> torch.Tensor | None:
+    """f32 sum of every (``keep(path)``) leaf's squares, in leaf order."""
     total = None
-    for _, g in _leaves(tree):
+    for path, g in _leaves(tree):
+        if keep is not None and not keep(path):
+            continue
         sq = sum(torch.sum(torch.square(s.float())) for s in _slices(g))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum_of_squares(tree))
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, grad_norm=None):
     """One AdamW step, in place: ``params`` and ``state`` hold the new values
     when it returns (and are returned, as the reference returns its new
-    trees).  Returns ``(params, state, metrics)``."""
+    trees).  ``grad_norm``: the clipping norm when the caller computes it
+    (over a mesh, the norm of the whole model's gradient).  Returns
+    ``(params, state, metrics)``."""
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     stepf = step.to(torch.float32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)

@@ -1,16 +1,34 @@
-"""Sharding plan — the single-device part the serving slice needs.
+"""Sharding plan over a ``("data", "model")`` device mesh.
 
-Port of :mod:`repro.parallel.sharding`: :class:`ShardingPlan`,
-``make_plan(None)``, :func:`virtual_experts`, and :func:`constrain` as an
-identity.  One card means the model axis has size P = 1; meshes, specs and
-``shard_map`` come with the multi-device slice.
+Port of :mod:`repro.parallel.sharding`.  A mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` with named dims; the plan says
+which axes shard the batch (DP), which is the regional model axis (EP for
+the MoE layers) and whether parameters shard over the data axis (ZeRO-3,
+which the trainer refuses until a later slice: build the plan with
+``make_plan(mesh, fsdp=False)``).
+
+Layouts are explicit in the port, so :func:`constrain` is the identity.  In
+place of ``shard_map``'s token spec for the MoE region (``moe.py:503-520``
+of the reference), :func:`token_slice` and :func:`token_gather` move a
+rank's activations in and out of the region: every rank of a model group
+runs the non-MoE layers on the same local batch, the MoE region takes the
+rank's sequence slice over the model axis (the whole sequence when the
+model size does not divide it, the reference's ``seq_ax=None``), and its
+output is all-gathered back.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ShardingPlan", "make_plan", "virtual_experts", "constrain"]
+import torch
+
+from repro_torch.core import commruntime as cr
+
+__all__ = [
+    "ShardingPlan", "make_plan", "virtual_experts", "constrain", "seq_sharded", "token_slice",
+    "token_gather",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,12 +39,37 @@ class ShardingPlan:
     fsdp_axis: str | None  # params sharded over this axis too (ZeRO-3)
     data_size: int = 1
 
+    def heads_axis(self, num_heads: int) -> str | None:
+        """Shard a heads dim over the model axis only when divisible."""
+        if self.model_axis and num_heads % max(self.model_size, 1) == 0:
+            return self.model_axis
+        return None
 
-def make_plan(mesh=None) -> ShardingPlan:
-    """The no-op single-device plan (``mesh=None``)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes come with the multi-device slice")
-    return ShardingPlan((), None, 1, None, 1)
+    def dim_axis(self, dim: int) -> str | None:
+        if self.model_axis and dim % max(self.model_size, 1) == 0:
+            return self.model_axis
+        return None
+
+    def fsdp_for(self, dim: int) -> str | None:
+        if self.fsdp_axis and dim % max(self.data_size, 1) == 0:
+            return self.fsdp_axis
+        return None
+
+
+def make_plan(mesh=None, *, fsdp: bool = True) -> ShardingPlan:
+    """The plan of a mesh's named axes (the no-op plan for None)."""
+    if mesh is None or not mesh.mesh_dim_names:
+        return ShardingPlan((), None, 1, None, 1)
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    batch_axes = tuple(a for a in ("pod", "data") if a in names)
+    return ShardingPlan(
+        batch_axes=batch_axes,
+        model_axis="model" if "model" in names else None,
+        model_size=int(sizes.get("model", 1)),
+        fsdp_axis="data" if (fsdp and "data" in names) else None,
+        data_size=int(sizes.get("data", 1)),
+    )
 
 
 def virtual_experts(num_experts: int, model_size: int) -> tuple[int, int]:
@@ -48,5 +91,70 @@ def virtual_experts(num_experts: int, model_size: int) -> tuple[int, int]:
 
 
 def constrain(x, mesh, spec=None):
-    """Sharding constraint: the identity without a mesh (always, here)."""
+    """Sharding constraint: the identity (layouts are explicit in the port)."""
     return x
+
+
+def seq_sharded(plan: ShardingPlan, seq_len: int) -> bool:
+    """True when the MoE region takes a sequence slice over the model axis
+    (the reference's ``seq_ax = model``): the model size divides S."""
+    return plan.model_size > 1 and seq_len % plan.model_size == 0
+
+
+class _TokenSlice(torch.autograd.Function):
+    """Rank ``m``'s sequence slice of ``[B, S, D]`` (the whole sequence when
+    not ``sharded``).  Backward: the model group's slice gradients
+    all-gathered (summed, for the whole-sequence copies), so every rank of
+    the group holds the full residual-stream gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, sharded):
+        ctx.mesh, ctx.axis, ctx.sharded = mesh, axis, sharded
+        if not sharded:
+            return x.view_as(x)
+        m, p = cr.axis_index(mesh, axis), cr.axis_size(mesh, axis)
+        s = x.shape[1] // p
+        return x[:, m * s:(m + 1) * s].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        grp = cr.axis_group(ctx.mesh, ctx.axis)
+        if not ctx.sharded:
+            return cr.all_reduce(g, grp), None, None, None
+        full = cr.all_gather_raw(g.transpose(0, 1).contiguous(), grp)
+        return full.transpose(0, 1).contiguous(), None, None, None
+
+
+class _TokenGather(torch.autograd.Function):
+    """The MoE region's output all-gathered over the model axis along the
+    sequence (the identity when not ``sharded``).  Backward: the rank's own
+    slice, not summed — every rank of the group computes the same loss; the
+    whole-sequence copies each take 1/P of the gradient, as the
+    reference's transpose of a replicated output does."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, axis, sharded):
+        ctx.mesh, ctx.axis, ctx.sharded = mesh, axis, sharded
+        if not sharded:
+            return y.view_as(y)
+        full = cr.all_gather_raw(y.transpose(0, 1).contiguous(), cr.axis_group(mesh, axis))
+        ctx.size = cr.axis_size(mesh, axis)
+        return full.transpose(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.sharded:
+            return g / float(cr.axis_size(ctx.mesh, ctx.axis)), None, None, None
+        m = cr.axis_index(ctx.mesh, ctx.axis)
+        s = g.shape[1] // ctx.size
+        return g[:, m * s:(m + 1) * s].contiguous(), None, None, None
+
+
+def token_slice(x: torch.Tensor, plan: ShardingPlan, mesh) -> torch.Tensor:
+    """``[B, S, D]`` -> the MoE region's ``[B, S / P, D]`` (or ``[B, S, D]``)."""
+    return _TokenSlice.apply(x, mesh, plan.model_axis, seq_sharded(plan, x.shape[1]))
+
+
+def token_gather(y: torch.Tensor, plan: ShardingPlan, mesh, seq_len: int) -> torch.Tensor:
+    """The MoE region's output back to ``[B, S, D]`` on every rank."""
+    return _TokenGather.apply(y, mesh, plan.model_axis, seq_sharded(plan, seq_len))

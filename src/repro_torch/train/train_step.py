@@ -3,9 +3,29 @@
 Port of :mod:`repro.train.train_step`.  ``jit`` has no counterpart here:
 each factory returns a plain eager function.  The training step
 differentiates :func:`loss_fn` with ``torch.autograd.grad`` and applies
-AdamW in place; the serving steps run under ``torch.no_grad``.  The DP
-gradient reduction modes other than ``"auto"`` (the CommRuntime
-all-reduce, its int8 compression) come with the multi-device slice.
+AdamW in place; the serving steps run under ``torch.no_grad``.
+
+Over a ``("data", "model")`` mesh (``dp_comm="auto"``) every rank
+differentiates its own loss — its data slice of the batch, the MoE layers
+sharded over the model axis — and the DP gradient reduction follows one
+rule per leaf (:func:`reduce_grads`):
+
+* expert leaves (``moe/w_in``, ``moe/w_gate``, ``moe/w_out``), sharded over
+  the model axis: averaged over the data axis;
+* leaves replicated inside the MoE region (``moe/router``), which see only
+  the rank's token slice: summed over the model axis, then averaged over
+  the data axis;
+* every other leaf (embeddings, attention, norms, the LM head, a shared
+  expert), computed redundantly by each rank of a model group: averaged
+  over the data axis only; every rank of the group holds the same gradient
+  bit for bit.
+
+The clipping norm is the whole model's, with the experts' squares summed
+in logical expert order whatever their placement.  ``dp_comm="runtime"`` computes per-shard gradients
+on a data-only mesh and reduces them through the CommRuntime's
+hierarchical :class:`~repro_torch.core.commruntime.AllReduce`, optionally
+int8 with error feedback (``dp_compress``), as the reference's
+``shard_map`` does.
 
 Sampled serving steps draw with :mod:`repro_torch.prng`, the counterpart of
 the ``jax.random`` calls the reference makes, on the logits' device.
@@ -16,14 +36,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch import prng
+from repro_torch.core import commruntime as cr
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import decode_rows
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw, sum_of_squares
 from repro_torch.parallel.sharding import ShardingPlan
 
 __all__ = [
-    "loss_fn", "make_train_step", "init_all", "make_prefill_step", "make_prefill_chunk_step",
-    "make_serve_step", "make_verify_step", "make_draft_loop_step",
+    "loss_fn", "make_train_step", "init_all", "init_ef_residual", "reduce_grads",
+    "grad_kind", "make_prefill_step", "make_prefill_chunk_step", "make_serve_step",
+    "make_verify_step", "make_draft_loop_step",
 ]
 
 
@@ -85,6 +107,148 @@ def _unflat(pairs: dict, like):
     return build(like, "")
 
 
+def grad_kind(path: str) -> str:
+    """``"expert"``, ``"router"`` or ``"redundant"``: which reduction rule
+    a leaf's gradient follows over a mesh (see the module docstring)."""
+    parts = path.strip("/").split("/")
+    if len(parts) >= 2 and parts[-2] == "moe":
+        if parts[-1] in ("w_in", "w_gate", "w_out"):
+            return "expert"
+        if parts[-1] == "router":
+            return "router"
+    return "redundant"
+
+
+def reduce_grads(grads: dict, plan: ShardingPlan, mesh) -> dict:
+    """The DP gradient reduction of ``dp_comm="auto"`` over ``mesh``, per
+    leaf (``{path: grad}``, reduced in place), in place of the reference's
+    GSPMD reduction."""
+    for path, g in grads.items():
+        # In place: the gradients are the step's own tensors, and a second
+        # copy of every gradient would not fit beside four ranks' states.
+        g = g.contiguous()
+        if grad_kind(path) == "router" and plan.model_size > 1:
+            cr.all_reduce(g, cr.axis_group(mesh, plan.model_axis), inplace=True)
+        for ax in plan.batch_axes:
+            n = cr.axis_size(mesh, ax)
+            if n > 1:
+                cr.all_reduce(g, cr.axis_group(mesh, ax), inplace=True).div_(float(n))
+        grads[path] = g
+    return grads
+
+
+def _mesh_grad_norm(grads: dict, plan: ShardingPlan, mesh, expert_perm, wire_perm):
+    """The whole model's gradient norm from a rank's reduced gradients: the
+    replicated leaves once, then every expert's squares in logical expert
+    order, gathered over the model axis.  The order does not depend on
+    where the experts sit, so a wire re-address and the equivalent weight
+    move clip by the same norm, bit for bit."""
+    total = sum_of_squares(grads, lambda p: grad_kind(p) != "expert")
+    for path, g in sorted(grads.items()):
+        if grad_kind(path) != "expert":
+            continue
+        # [reps, E_virtual / P] per-slot sums, gathered to [reps, E_virtual]
+        # in physical slot order, then read in logical expert order.
+        sq = torch.stack([torch.stack([torch.sum(torch.square(e.float())) for e in layer])
+                          for layer in g])
+        if plan.model_size > 1:
+            sq = cr.all_gather_raw(sq.t().contiguous(), cr.axis_group(mesh, plan.model_axis)).t()
+        slots = _physical_slots(expert_perm, wire_perm, sq.shape, g.device)
+        part = torch.sum(torch.gather(sq, 1, slots))
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def _physical_slots(expert_perm, wire_perm, shape, device) -> torch.Tensor:
+    """``[reps, Ev]`` physical slot of each logical expert: its slot under
+    ``expert_perm``, then its device block moved by the layer's wire map."""
+    reps, ev = shape
+    if expert_perm is None:
+        return torch.arange(ev, device=device).expand(reps, ev)
+    slots = torch.as_tensor(expert_perm, device=device).long().reshape(reps, ev)
+    if wire_perm is not None:
+        wire = torch.as_tensor(wire_perm, device=device).long().reshape(reps, -1)
+        epd = ev // wire.shape[1]
+        slots = torch.gather(wire, 1, slots // epd) * epd + slots % epd
+    return slots
+
+
+def init_ef_residual(params, plan: ShardingPlan):
+    """This rank's error-feedback residuals for ``dp_compress=True``: an f32
+    ``[1, *shape]`` zero per leaf — the rank's shard of the reference's
+    ``[D, *shape]`` residual (leading dim = the DP degree, sharded over the
+    batch axes)."""
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return torch.zeros((1, *tree.shape), dtype=torch.float32, device=tree.device)
+
+    return zeros(params)
+
+
+def _make_runtime_grad_fn(cfg, plan: ShardingPlan, mesh, compress: bool = False):
+    """Per-shard gradients on a data-only mesh, reduced with the CommRuntime
+    hierarchical AllReduce (``dp_comm="runtime"``); ``compress`` runs the
+    int8 codec with per-shard error feedback.  The MoE aux losses are
+    per-shard values averaged, as the reference's ``shard_map`` body."""
+    if mesh is None or not plan.batch_axes or plan.model_size > 1:
+        raise ValueError(
+            "dp_comm='runtime' requires a data-parallel mesh without a model "
+            f"axis (got mesh={mesh is not None}, plan={plan})"
+        )
+    if plan.fsdp_axis is not None:
+        raise ValueError(
+            "dp_comm='runtime' replicates parameters and is incompatible with FSDP "
+            "sharding; build the plan with make_plan(mesh, fsdp=False)"
+        )
+    local_plan = ShardingPlan((), None, 1, None, 1)
+    reduce_op = cr.AllReduce(cr.CommSpec.for_grad_reduce(plan, mesh))
+
+    def grad_fn(params, batch, expert_perm, residual=None):
+        metrics, grads = _local_grads(params, batch, cfg, local_plan, None, expert_perm, None)
+        new_residual = None
+        if compress:
+            res_of = dict(_flat(residual))
+            red, res = {}, {}
+            for k, g in grads.items():
+                target = g.float() + res_of[k][0]
+                total, local = reduce_op.compressed(target, mean=True)
+                red[k] = total.to(g.dtype)
+                res[k] = (target - local)[None]
+            grads, new_residual = red, _unflat(res, residual)
+        else:
+            grads = {k: reduce_op(g, mean=True) for k, g in grads.items()}
+        out = {k: reduce_op(v, mean=True) for k, v in metrics.items()
+               if k not in ("expert_load", "dropped_fraction")}
+        if "expert_load" in metrics:
+            # Loads are counts: SUM over shards; the drop fraction averages.
+            out["expert_load"] = reduce_op(metrics["expert_load"])
+            out["dropped_fraction"] = reduce_op(metrics["dropped_fraction"], mean=True)
+        return out, grads, new_residual
+
+    return grad_fn
+
+
+def _local_grads(params, batch, cfg, plan, mesh, expert_perm, wire_perm):
+    """``(metrics, grads)``: the loss terms and expert loads, and every
+    leaf's gradient by its path (zeros for a leaf the loss does not
+    reach)."""
+    leaves = dict(_flat(params))
+    wrt = [k for k, t in leaves.items() if t.requires_grad]
+    with torch.enable_grad():
+        loss, (ce, aux) = loss_fn(params, batch, cfg, plan, mesh, expert_perm, wire_perm)
+        got = torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True)
+    grads = dict(zip(wrt, got))
+    for k, t in leaves.items():
+        if grads.get(k) is None:
+            grads[k] = torch.zeros_like(t)
+    out = {"loss": loss, "ce": ce, "balance_loss": aux.balance_loss, "z_loss": aux.z_loss}
+    if cfg.is_moe:
+        out["expert_load"] = aux.moe_stats  # [repeats, E]
+        out["dropped_fraction"] = aux.dropped_fraction  # [repeats]
+    return {k: v.detach() for k, v in out.items()}, grads
+
+
 def make_train_step(
     cfg,
     plan: ShardingPlan,
@@ -94,44 +258,55 @@ def make_train_step(
     dp_comm: str = "auto",
     dp_compress: bool = False,
 ):
-    """``(params, opt_state, batch, expert_perm, wire_perm) -> (params,
-    opt_state, metrics)``, updating ``params`` and ``opt_state`` in place.
-    ``microbatches > 1`` accumulates gradients over batch slices in a
-    Python loop."""
+    """``(params, opt_state, batch, expert_perm, wire_perm[, ef_residual]) ->
+    (params, opt_state, metrics[, ef_residual])``, updating ``params`` and
+    ``opt_state`` in place.  ``microbatches > 1`` accumulates gradients over
+    batch slices in a Python loop.  Over a mesh ``batch`` is this rank's
+    data slice; the loss and cross entropy reported are the global batch's
+    (averaged over the data axis)."""
     if dp_comm not in ("auto", "runtime"):
         raise ValueError(f"unknown dp_comm mode {dp_comm!r}")
-    if dp_comm != "auto" or dp_compress:
-        raise NotImplementedError(
-            "dp_comm='runtime' and dp_compress come with the multi-device slice"
+    if dp_compress and dp_comm != "runtime":
+        raise ValueError("dp_compress=True requires dp_comm='runtime'")
+    if dp_compress and microbatches > 1:
+        raise ValueError(
+            "dp_compress=True supports microbatches=1 only (the error-feedback "
+            "residual is a per-step state, not a per-slice one)"
         )
+    runtime_grads = (
+        _make_runtime_grad_fn(cfg, plan, mesh, compress=dp_compress)
+        if dp_comm == "runtime" else None
+    )
+    on_mesh = mesh is not None and (plan.model_size > 1 or plan.data_size > 1)
 
-    def grad_once(params, batch, expert_perm, wire_perm):
-        """``(metrics, grads)``: the loss terms and expert loads, and every
-        leaf's gradient by its path (zeros for a leaf the loss does not
-        reach)."""
-        leaves = dict(_flat(params))
-        wrt = [k for k, t in leaves.items() if t.requires_grad]
-        with torch.enable_grad():
-            loss, (ce, aux) = loss_fn(params, batch, cfg, plan, mesh, expert_perm, wire_perm)
-            got = torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True)
-        grads = dict(zip(wrt, got))
-        for k, t in leaves.items():
-            if grads.get(k) is None:
-                grads[k] = torch.zeros_like(t)
-        out = {"loss": loss, "ce": ce, "balance_loss": aux.balance_loss, "z_loss": aux.z_loss}
-        if cfg.is_moe:
-            out["expert_load"] = aux.moe_stats  # [repeats, E]
-            out["dropped_fraction"] = aux.dropped_fraction  # [repeats]
-        return {k: v.detach() for k, v in out.items()}, grads
+    def grad_once(params, batch, expert_perm, wire_perm, residual=None):
+        if runtime_grads is not None:
+            if wire_perm is not None:
+                raise ValueError(
+                    "wire_perm needs a model axis; dp_comm='runtime' runs on a DP-only mesh"
+                )
+            return runtime_grads(params, batch, expert_perm, residual)
+        metrics, grads = _local_grads(params, batch, cfg, plan, mesh, expert_perm, wire_perm)
+        if on_mesh:
+            grads = reduce_grads(grads, plan, mesh)
+            for ax in plan.batch_axes:
+                n = cr.axis_size(mesh, ax)
+                if n > 1:
+                    for k in ("loss", "ce"):
+                        metrics[k] = cr.all_reduce(metrics[k], cr.axis_group(mesh, ax)) / float(n)
+        return metrics, grads, None
 
     def add_slice(acc, part, m):
         # ``acc + part / m`` in slice order, as the reference's scan sums
         # from zeros (and 0 + v / m is v / m exactly).
         return {k: v / m if acc is None else acc[k] + v / m for k, v in part.items()}
 
-    def train_step(params, opt_state, batch, expert_perm=None, wire_perm=None):
+    def train_step(params, opt_state, batch, expert_perm=None, wire_perm=None,
+                   ef_residual=None):
+        new_residual = None
         if microbatches <= 1:
-            metrics, grads = grad_once(params, batch, expert_perm, wire_perm)
+            metrics, grads, new_residual = grad_once(params, batch, expert_perm, wire_perm,
+                                                     ef_residual)
         else:
             b = batch["tokens"].shape[0]
             m = microbatches
@@ -140,22 +315,27 @@ def make_train_step(
             labs = batch["labels"].reshape(m, b // m, -1)
             metrics = grads = None
             for i in range(m):
-                mi, gi = grad_once(params, {"tokens": toks[i], "labels": labs[i]}, expert_perm,
-                                   wire_perm)
+                mi, gi, _ = grad_once(params, {"tokens": toks[i], "labels": labs[i]},
+                                      expert_perm, wire_perm)
                 metrics, grads = add_slice(metrics, mi, m), add_slice(grads, gi, m)
+        gnorm = (_mesh_grad_norm(grads, plan, mesh, expert_perm, wire_perm)
+                 if on_mesh and runtime_grads is None else None)
         params, opt_state, opt_metrics = adamw_update(params, _unflat(grads, params), opt_state,
-                                                      opt_cfg)
+                                                      opt_cfg, grad_norm=gnorm)
+        if dp_compress:
+            return params, opt_state, {**metrics, **opt_metrics}, new_residual
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
 
 
-def init_all(seed: int, cfg, plan: ShardingPlan, opt_cfg: AdamWConfig, *, device=None):
+def init_all(seed: int, cfg, plan: ShardingPlan, opt_cfg: AdamWConfig, *, device=None,
+             mesh=None):
     """``(params, specs, opt_state)``: seeded parameters with
     ``requires_grad`` on every floating leaf (the f32 router included) and
-    zero AdamW moments.  ``specs`` is None: sharding specs come with the
-    multi-device slice."""
-    params = tfm.init_model(seed, cfg, plan, device=device)
+    zero AdamW moments; over a ``mesh`` the rank's shard of them.  ``specs``
+    is None: layouts are explicit in the port."""
+    params = tfm.init_model(seed, cfg, plan, device=device, mesh=mesh)
     for _, t in _flat(params):
         if t.is_floating_point():
             t.requires_grad_(True)

@@ -19,9 +19,20 @@ Checkpoints (:mod:`repro_torch.train.checkpoint`) carry the parameters,
 the AdamW state and, in ``extra``, the placement state; ``maybe_restore``
 copies them into the trainer's own tensors.
 
+Over a ``("data", "model")`` mesh (``Trainer(mesh=)``, one process per
+rank): each rank takes its data-axis slice of the global batch, holds its
+model-axis shard of the expert slots, and runs the step of
+:mod:`repro_torch.train.train_step`.  Every rank computes the same plans
+from the same reduced loads (checked after each reconfiguration: an
+all-gather of a hash of the slot maps and wire perms).  A plan that moves
+whole device blocks is installed as a wire re-address (no weight moves);
+any other moves the expert slots across ranks.  ``dp_comm="runtime"`` and
+``dp_compress`` run on a data-only mesh, the trainer carrying the
+error-feedback residual.
+
 Not ported yet, each raising ``NotImplementedError``: pipeline stages
-(``pp_stages > 1``) and the runtime DP reduction with its compression
-(the multi-device slice) and the cached autotuner (the evaluation slice).
+(``pp_stages > 1``), ZeRO-3 parameter sharding (a plan with
+``fsdp_axis``) and the cached autotuner (the evaluation slice).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import commruntime as cr
 from repro_torch.core.controlplane import (
     ControlPlane,
     LayerPlan,
@@ -45,7 +57,7 @@ from repro_torch.obs import metrics, trace
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.train_step import init_all, make_train_step
+from repro_torch.train.train_step import init_all, init_ef_residual, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer", "permute_expert_weights"]
 
@@ -84,10 +96,18 @@ class Trainer:
         device=None,
     ):
         if tcfg.pp_stages > 1:
-            raise NotImplementedError("pipeline stages (pp_stages > 1) come with the multi-device slice")
-        if tcfg.dp_comm != "auto" or tcfg.dp_compress:
             raise NotImplementedError(
-                "dp_comm='runtime' and dp_compress come with the multi-device slice"
+                "pipeline stages (pp_stages > 1) come with pipeline parallelism (ROADMAP.md §1)"
+            )
+        if plan.fsdp_axis is not None:
+            raise NotImplementedError(
+                "ZeRO-3 parameter sharding comes with a later slice; build the plan with "
+                "make_plan(mesh, fsdp=False)"
+            )
+        if mesh is not None and mesh.size() > 1 and tcfg.ckpt_every:
+            raise NotImplementedError(
+                "checkpoints of a sharded trainer come with checkpoints across meshes "
+                "(ROADMAP.md §1)"
             )
         if tcfg.autotune_cache:
             raise NotImplementedError("the cached autotuner comes with the evaluation slice")
@@ -98,12 +118,13 @@ class Trainer:
         self.mesh = mesh
         self.device = resolve_device(device)
         self.params, self.specs, self.opt_state = init_all(
-            seed, cfg, plan, opt_cfg, device=self.device
+            seed, cfg, plan, opt_cfg, device=self.device, mesh=mesh
         )
         self.step_fn = make_train_step(
             cfg, plan, opt_cfg, mesh=mesh, microbatches=tcfg.num_microbatches,
             dp_comm=tcfg.dp_comm, dp_compress=tcfg.dp_compress,
         )
+        self.ef_residual = init_ef_residual(self.params, plan) if tcfg.dp_compress else None
         self.step = 0
         self.metrics_log: list[dict] = []
         self._ema_step_time: float | None = None
@@ -129,7 +150,7 @@ class Trainer:
                 replication=r,
                 min_gain_fraction=tcfg.reconfig_min_gain,
             )
-            self._applier = PlacementApplier(self.controlplane, model_size=max(plan.model_size, 1))
+            self._applier = self._new_applier()
             self.expert_perm = self.controlplane.perm_stack()
         self.reconfig_count = 0
 
@@ -147,10 +168,19 @@ class Trainer:
         was swapped after construction: tests and the smoke run inject a
         multi-device ControlPlane directly)."""
         if self._applier is None or self._applier.cp is not self.controlplane:
-            self._applier = PlacementApplier(
-                self.controlplane, model_size=max(self.plan.model_size, 1)
-            )
+            self._applier = self._new_applier()
         return self._applier
+
+    def _new_applier(self) -> PlacementApplier:
+        return PlacementApplier(self.controlplane, model_size=max(self.plan.model_size, 1),
+                                mesh=self.mesh, axis=self.plan.model_axis)
+
+    @property
+    def is_main(self) -> bool:
+        """True on the rank that logs (rank 0, or the only process)."""
+        import torch.distributed as dist
+
+        return self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
 
     def maybe_restore(self) -> bool:
         """Restore the newest checkpoint under ``ckpt_dir`` into this
@@ -185,10 +215,38 @@ class Trainer:
         return self._tid
 
     # -- MixNet reconfiguration ------------------------------------------------
+    def _wire_capable(self) -> bool:
+        """Wire re-addressing needs the mixnet data plane and a control-plane
+        device space that IS the model axis (one slot block per device)."""
+        cp = self.controlplane
+        p = max(self.plan.model_size, 1)
+        return (
+            self.cfg.moe is not None
+            and self.cfg.moe.backend == "mixnet"
+            and p > 1
+            and cp is not None
+            and cp.num_devices == p
+        )
+
+    def _check_plans_agree(self) -> None:
+        """Every rank must hold the same slot maps and wire perms: an
+        all-gather of their hash, raising on disagreement."""
+        import hashlib
+
+        h = hashlib.sha256(np.asarray(self.controlplane.perm_stack(), np.int64).tobytes())
+        if self.wire_perm is not None:
+            h.update(np.asarray(self.wire_perm, np.int64).tobytes())
+        got = cr.all_gather_objects(h.hexdigest())
+        if len(set(got)) != 1:
+            raise RuntimeError(f"ranks disagree on the placement after a reconfiguration: {got}")
+
     def _apply_layer_plans(self, plans: list[LayerPlan]) -> bool:
         """Actuate per-layer placement plans through the shared
-        :class:`PlacementApplier`; expert weights move in place."""
-        ap = self._bound_applier()  # wire re-addressing (P > 1) comes with the multi-device slice
+        :class:`PlacementApplier` (wire re-address for whole-device-block
+        plans, the expert weights moved in place otherwise)."""
+        ap = self._bound_applier()
+        # Re-evaluated per call: tests toggle _wire_capable on the instance.
+        ap.wire_capable = self._wire_capable()
         tid = self._track_id() if self._tr.enabled else None
         with self._tr.span("train.reconfig", tid=tid, cat="reconfig", step=self.step) as sp:
             with torch.no_grad():
@@ -197,6 +255,8 @@ class Trainer:
         if changed:
             self.expert_perm = self.controlplane.perm_stack()
             self.reconfig_count = self.controlplane.reconfig_count
+        if self.mesh is not None:
+            self._check_plans_agree()
         return changed
 
     def _reconfigure_step(self, expert_load: np.ndarray):
@@ -230,22 +290,40 @@ class Trainer:
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def _local_rows(self, a: np.ndarray) -> np.ndarray:
+        """This rank's data-axis slice of a global ``[B, ...]`` batch."""
+        if self.mesh is None:
+            return a
+        for ax in self.plan.batch_axes:
+            n = cr.axis_size(self.mesh, ax)
+            if a.shape[0] % n:
+                raise ValueError(f"batch {a.shape[0]} not divisible by the {ax} axis ({n})")
+            b = a.shape[0] // n
+            i = cr.axis_index(self.mesh, ax)
+            a = a[i * b:(i + 1) * b]
+        return a
+
     def train(self, data_iter) -> list[dict]:
         t = self.tcfg
         while self.step < t.total_steps:
             batch_np = next(data_iter)
             batch = {
-                "tokens": self._tensor(batch_np.tokens, torch.int32),
-                "labels": self._tensor(batch_np.labels, torch.int32),
+                "tokens": self._tensor(self._local_rows(batch_np.tokens), torch.int32),
+                "labels": self._tensor(self._local_rows(batch_np.labels), torch.int32),
             }
             perm = self._tensor(self.expert_perm, torch.int32) if self.expert_perm is not None else None
             wire = self._tensor(self.wire_perm, torch.int32) if self.wire_perm is not None else None
             tid = self._track_id() if self._tr.enabled else None
             t0 = time.perf_counter()
             with self._tr.span("train.step", tid=tid, cat="train", step=self.step + 1) as sp:
-                self.params, self.opt_state, step_metrics = self.step_fn(
-                    self.params, self.opt_state, batch, perm, wire
-                )
+                if self.tcfg.dp_compress:
+                    self.params, self.opt_state, step_metrics, self.ef_residual = self.step_fn(
+                        self.params, self.opt_state, batch, perm, wire, self.ef_residual
+                    )
+                else:
+                    self.params, self.opt_state, step_metrics = self.step_fn(
+                        self.params, self.opt_state, batch, perm, wire
+                    )
                 # The host read of the metrics ends the step on the device.
                 step_metrics = {k: v.detach().cpu().numpy() for k, v in step_metrics.items()}
                 sp.set(loss=float(step_metrics.get("loss", 0.0)))

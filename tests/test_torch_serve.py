@@ -138,15 +138,18 @@ def test_slices_not_ported_yet_raise(port_model, tmp_path):
     assert eng.restore_checkpoint(str(tmp_path), eng.save_checkpoint(str(tmp_path))) == 0
     # The mixnet backend came with the training slice: prefill (the dense
     # cache's admission) runs it, decode the dense path, as in the
-    # reference.  Only its multi-device pieces still raise.
+    # reference.  Its chunked overlap pipeline came with the multi-device
+    # slice: at P = 1 it serves the serial path's tokens.
     dense = ServeConfig(**SCFG, paged=False)
     mix = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, backend="mixnet"))
-    rep = ServeEngine(params, mix, PLAN, dense, device="cpu").run(*_requests(1)[::-1])
-    assert rep.completed == 1
     chunked = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, backend="mixnet", overlap_chunks=2))
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        ServeEngine(params, chunked, PLAN, dense, device="cpu").run(*_requests(1)[::-1])
+    toks = []
+    for c in (mix, chunked):
+        eng = ServeEngine(params, c, PLAN, dense, device="cpu")
+        assert eng.run(*_requests(1)[::-1]).completed == 1
+        toks.append([list(r.out) for r in eng.batcher.finished])
+    assert toks[0] == toks[1]
 
 
 def test_checkpoint_roundtrip_mid_reconfig_bit_identical(tmp_path):
