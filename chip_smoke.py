@@ -144,6 +144,19 @@ Phases, one printed line (or more) each:
    bit-identical across ranks, losses within 1e-4 relative of one device;
    per-rank step times, wire and host-staged bytes per step, peak memory,
    launches; kernels 4, 5 and 7 timed at one rank's shapes;
+14b. pipeline — Mixtral-8x7B at its published widths, depth 2, as two
+   pipeline stages of two model ranks (a ``(2, 2)`` ``("stage",
+   "model")`` mesh, the same four ranks on the card): first, in this
+   process, the flat one-device trainer with 4 microbatches the ranks are
+   held to; then 4 steps of 4 x 256 tokens in 4 microbatches of 1 x 256
+   through ``Trainer(pp_stages=2)``, with a plan per stage applied before
+   the first (layer 0: a weight move across stage 0's ranks; layer 1: a
+   wire re-address of stage 1's), launches counted per rank.  Losses
+   within 1e-4 relative of one device and equal on every rank, each plan
+   counted on its own stage, non-expert parameters bit-identical in each
+   stage's model group; per-rank step times, stage-to-stage, wire and
+   host-staged bytes, peak memory, launches, the GPipe bubble fraction
+   (not measurable on one card); kernel 7 timed at a stage rank's shape;
 15. the kernels of one decode tick of each serve, the sha256 of each
    serve's tokens (to set beside another tree's), the kernels line (JSON),
    the card line, and the result line ``{"ok": true, "device": {...}}``.
@@ -289,6 +302,10 @@ KERNEL_ROWS = {
                                    "src/repro/kernels/grouped_matmul.py:116"),
     "moe_combine_rank": ("src/repro_torch/csrc/moe_dispatch.cu",
                          "src/repro/kernels/moe_dispatch.py:89"),
+    # Kernel 7 at a stage rank's shapes of the (2, 2) pipeline run (4 local
+    # experts, one 1 x 256 microbatch received), with rank 0's launches.
+    "grouped_matmul_blocks_stage": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                    "src/repro/kernels/grouped_matmul.py:116"),
 }
 # End-to-end numbers the serve phases leave for the summary line (measured,
 # not claimed: they move with the host).
@@ -1912,7 +1929,7 @@ SHAPE_ROWS = {
     "rmsnorm_decode_d": "rmsnorm", "rmsnorm_grok": "rmsnorm", "rmsnorm_mixtral": "rmsnorm",
     "ssd_chunk_prefill_256": "ssd_chunk", "ssd_chunk_generate": "ssd_chunk",
     "moe_dispatch_rank_pack": "moe_dispatch", "grouped_matmul_blocks_rank": "grouped_matmul_blocks",
-    "moe_combine_rank": "moe_combine",
+    "moe_combine_rank": "moe_combine", "grouped_matmul_blocks_stage": "grouped_matmul_blocks",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
@@ -2877,12 +2894,12 @@ def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wir
     return tr
 
 
-def multi_steps(torch, tr, cfg, seed: int, on_step=None):
-    """MULTI_STEPS ``Trainer.train`` calls on the 2 x 256 global batch of
-    ``SyntheticLM``; ``on_step(i)`` after each, outside nothing."""
+def multi_steps(torch, tr, cfg, seed: int, on_step=None, batch: int = 2):
+    """MULTI_STEPS ``Trainer.train`` calls on the ``batch`` x 256 global
+    batch of ``SyntheticLM``; ``on_step(i)`` after each, outside nothing."""
     from repro_torch.data.pipeline import SyntheticLM
 
-    data = iter(SyntheticLM(cfg.vocab_size, seq_len=256, global_batch=2, seed=seed))
+    data = iter(SyntheticLM(cfg.vocab_size, seq_len=256, global_batch=batch, seed=seed))
     for s in range(1, MULTI_STEPS + 1):
         tr.tcfg.total_steps = s
         tr.train(data)
@@ -2978,25 +2995,19 @@ def multi_run(torch, cr, cfg, seed: int, mesh, device, *, plans: bool, wire: boo
     return res
 
 
-def rank_kernel_rows(torch, cfg, seed: int) -> dict:
-    """Kernels 4, 5 and 7 at the shapes one rank of the (1, 4) run launches:
-    128 tokens a rank routed top-2 over 8 experts, 2 of them local; the
-    received layout [P * 256, D] (every source's dropless send buffer for
-    this rank) packed into the 2-expert blocks, the blocks through kernel 7,
-    the return trip's rows combined back to the rank's tokens (bf16 out)."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import moe_dispatch as kmd
-    from repro_torch.kernels import ref
+def received_layout(torch, cfg, seed: int, p: int, tl: int):
+    """The receive side of one rank's dropless dispatch over a model axis of
+    ``p``: ``p`` sources each route ``tl`` tokens top-k over the experts
+    (``E / p`` of them local); the ``[p * n]`` received expert ids by
+    source, their dropless block plan, and source 0's own send plan and
+    routing.  Returns ``(randn, valid, counts, plan, own)``, ``randn`` the
+    generator's draw for what the caller makes next."""
     from repro_torch.models import routing
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + 41)
-    bf16 = torch.bfloat16
-    d, f = cfg.d_model, cfg.moe.d_ff
-    e, k, p = cfg.moe.num_experts, cfg.moe.top_k, MULTI_RANKS
-    epd, tl = e // p, 2 * 256 // p
-    n = tl * k
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    epd, n = e // p, tl * k
     randn = lambda *shape, dt=torch.float32: torch.randn(shape, generator=g, device=dev).to(dt)
     with torch.no_grad():
         recv, own = [], None
@@ -3015,6 +3026,26 @@ def rank_kernel_rows(torch, cfg, seed: int) -> dict:
         valid = re >= 0
         rank2, counts2 = routing.bucket_ranks(re, epd, valid=valid)
         plan2 = routing.dropless_plan(re, rank2, counts2, valid, epd, 8)
+    return randn, valid, counts2, plan2, own
+
+
+def rank_kernel_rows(torch, cfg, seed: int) -> dict:
+    """Kernels 4, 5 and 7 at the shapes one rank of the (1, 4) run launches:
+    128 tokens a rank routed top-2 over 8 experts, 2 of them local; the
+    received layout [P * 256, D] (every source's dropless send buffer for
+    this rank) packed into the 2-expert blocks, the blocks through kernel 7,
+    the return trip's rows combined back to the rank's tokens (bf16 out)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.kernels import ref
+
+    bf16 = torch.bfloat16
+    d, f = cfg.d_model, cfg.moe.d_ff
+    e, k, p = cfg.moe.num_experts, cfg.moe.top_k, MULTI_RANKS
+    epd, tl = e // p, 2 * 256 // p
+    n = tl * k
+    randn, valid, counts2, plan2, own = received_layout(torch, cfg, seed + 41, p, tl)
     rows = {}
     rx = randn(p * n, d, dt=bf16)
     rx[~valid] = 0
@@ -3202,6 +3233,216 @@ def multi_rank_phase(torch, seed: int) -> dict:
     return {"rows": rows, "counts": [run["counts"] for run in wire_run]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14b: pipeline-parallel MixNet training, four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+PIPE_STAGES, PIPE_MODEL = 2, 2  # the ("stage", "model") mesh
+PIPE_BATCH, PIPE_MICRO = 4, 4  # 4 x 256 a step in 4 microbatches of 1 x 256: M > S
+# One plan per stage, each landing on the stage that owns its layer: layer 0
+# swaps slots 0 and 4 (across stage 0's two ranks: a weight move), layer 1
+# swaps the two device blocks (a wire re-address of stage 1's ranks).
+PIPE_PLANS = ((0, (4, 1, 2, 3, 0, 5, 6, 7)), (1, (4, 5, 6, 7, 0, 1, 2, 3)))
+
+
+def pipe_trainer(torch, cfg, seed: int, plan, mesh, device):
+    """A ``Trainer`` with PIPE_MICRO microbatches, pipelined over ``mesh``
+    (None: the flat trainer on one device), the two plans of PIPE_PLANS
+    applied before the first step (on one device both by weight moves)."""
+    import numpy as np
+
+    from repro_torch.core.controlplane import ControlPlane, LayerPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tr = Trainer(cfg, AdamWConfig(lr=MULTI_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
+                 TrainerConfig(total_steps=0, reconfig_every=10**6, num_microbatches=PIPE_MICRO,
+                               pp_stages=PIPE_STAGES if mesh is not None else 1),
+                 plan, mesh=mesh, seed=seed, device=device)
+    tr.controlplane = ControlPlane(num_layers=cfg.num_layers, num_experts=cfg.moe.num_experts,
+                                   num_devices=PIPE_MODEL)
+    tr._apply_layer_plans([LayerPlan(layer, True, perm=np.array(perm))
+                           for layer, perm in PIPE_PLANS])
+    return tr
+
+
+def stage_kernel_row(torch, cfg, seed: int) -> dict:
+    """Kernel 7 at a stage rank's shape: one 1 x 256 microbatch over the
+    stage's model axis of 2 (128 tokens a rank, top-2 over 8 experts, 4 of
+    them local), every source's dropless send buffer for this rank packed
+    into the 4-expert blocks."""
+    from repro_torch.kernels import ref
+
+    bf16 = torch.bfloat16
+    d, f = cfg.d_model, cfg.moe.d_ff
+    e, k, p = cfg.moe.num_experts, cfg.moe.top_k, PIPE_MODEL
+    epd, tl = e // p, 256 // p
+    randn, valid, counts2, plan2, _ = received_layout(torch, cfg, seed + 43, p, tl)
+    rx = randn(p * tl * k, d, dt=bf16)
+    rx[~valid] = 0
+    packed = ref.moe_dispatch(rx, plan2.src)
+    nb = plan2.block_experts.shape[0]
+    dy = randn(nb, 8, f, dt=bf16)
+    dy[(plan2.src < 0).reshape(nb, 8)] = 0
+    rows = {}
+    blocks_rows(torch, rows, "_stage", packed.reshape(nb, 8, d),
+                (randn(epd, d, f) * d**-0.5).to(bf16), dy, plan2.block_experts, counts2,
+                f", {epd} local experts (a pipeline stage rank)", parts=("",))
+    return rows
+
+
+def pipe_rank_main(rank: int, seed: int, port: int, out_path: str) -> None:
+    """One of the four ranks of the ``(2, 2)`` ``("stage", "model")`` run:
+    MULTI_STEPS pipelined steps, launches counted (reset just before the
+    first step, read just after the last); rank 0 also times kernel 7 at a
+    stage rank's shape and writes every rank's results."""
+    import datetime
+
+    import torch
+
+    from repro_torch.core import commruntime as cr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
+    from repro_torch.obs import metrics
+    from repro_torch.parallel.sharding import make_plan, stage_layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, _, backend = init_distributed(
+        "auto", rank=rank, world_size=MULTI_RANKS, init_method=f"tcp://localhost:{port}",
+        device_type=MULTI_DEVICE, timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    device = local_device(rank, MULTI_DEVICE)
+    mesh = make_mesh((PIPE_STAGES, PIPE_MODEL), ("stage", "model"))
+    plan = make_plan(mesh, fsdp=False)
+    cfg = multi_cfg(2)
+    t_rank = time.perf_counter()
+    tr = pipe_trainer(torch, cfg, seed, plan, mesh, device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_rank
+    torch.cuda.reset_peak_memory_stats()
+    stage_bytes = lambda: metrics.default().value(  # noqa: E731
+        "comm.link_bytes", op="p2p", link="cross_region")
+    wires, stage, staged, call_ms = [], [], [], []
+    marks = [cr.wire_bytes(), stage_bytes(), cr.host_staged_bytes(), time.perf_counter()]
+
+    def on_step(_):
+        now = [cr.wire_bytes(), stage_bytes(), cr.host_staged_bytes(), time.perf_counter()]
+        wires.append([a - b for a, b in zip(dataclasses.astuple(now[0]),
+                                             dataclasses.astuple(marks[0]))])
+        stage.append(now[1] - marks[1])
+        staged.append(now[2] - marks[2])
+        call_ms.append(1e3 * (now[3] - marks[3]))
+        marks[:] = now
+
+    ops.reset_launch_counts()
+    losses = multi_steps(torch, tr, cfg, seed, on_step, batch=PIPE_BATCH)
+    counts = ops.launch_counts()
+    res = dict(rank=rank, backend=backend, device=str(device), losses=losses,
+               step_ms=[1e3 * m["step_time_s"] for m in tr.metrics_log], call_ms=call_ms,
+               wire_bytes=wires, stage_bytes=stage, staged_bytes=staged,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, counts=counts,
+               digests=multi_digests(tr), init_s=t_init,
+               stage=stage_layers(mesh, cfg.num_layers)[0],
+               applied_here=tr._bound_applier().applied_here,
+               wire_perm=None if tr.wire_perm is None else tr.wire_perm.tolist(),
+               params=sum(t.numel() for _, t in _flat_tree(tr.params)))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_rank
+    rows = stage_kernel_row(torch, cfg, seed) if rank == 0 else None
+    gathered = cr.all_gather_objects(res)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps({"ranks": gathered, "rows": rows}))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def pipeline_phase(torch, seed: int) -> dict:
+    """Four ranks on the one card as two pipeline stages of two model ranks
+    (``torch.multiprocessing``, spawn), Mixtral-8x7B at its published
+    widths, depth 2 (one layer a stage), MULTI_STEPS steps of PIPE_BATCH x
+    256 in PIPE_MICRO microbatches, held to the flat one-device trainer made
+    here first (and freed before the spawn)."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.parallel.sharding import make_plan
+
+    t_phase = time.perf_counter()
+    cfg = multi_cfg(2)
+    tr = pipe_trainer(torch, cfg, seed, make_plan(None), None, MULTI_DEVICE)
+    ref = multi_steps(torch, tr, cfg, seed, batch=PIPE_BATCH)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    print(f"pipeline: one-device reference, Mixtral-8x7B full width, depth 2, {PIPE_MICRO} "
+          f"microbatches, the two plans by weight moves: {['%.6f' % v for v in ref]}", flush=True)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out = pathlib.Path(tempfile.mkdtemp(dir=REPO / "build")) / "pipeline.json"
+    mp.spawn(pipe_rank_main, args=(seed, port, str(out)), nprocs=MULTI_RANKS, join=True)
+    got = json.loads(out.read_text())
+    out.unlink()
+    ranks = got["ranks"]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    err = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref))
+    bubble = (PIPE_STAGES - 1) / (PIPE_MICRO + PIPE_STAGES - 1)
+    staged = sum(sum(r["staged_bytes"]) for r in ranks)
+    # What was measured first, then the checks.
+    print(f"pipeline: ({PIPE_STAGES}, {PIPE_MODEL}) (\"stage\", \"model\") mesh, backend "
+          f"{ranks[0]['backend']} ({MULTI_RANKS} ranks share {ranks[0]['device']}); losses "
+          f"{['%.6f' % v for v in ranks[0]['losses']]}; max rel diff from one device "
+          f"{err:.3e} (limit {MULTI_LOSS_REL})", flush=True)
+    print(f"pipeline: per-rank median step ms (steps 2-{MULTI_STEPS}, trainer's clock) "
+          f"{['%.1f' % med(r['step_ms'][1:]) for r in ranks]}; stage-to-stage MB a step "
+          f"(p2p cross_region: stage 0 sends the forward activations, stage 1 the backward "
+          f"gradients and the loss) {['%.3f' % (med(r['stage_bytes']) / 1e6) for r in ranks]}; "
+          f"wire MB a step by rank (LinkBytes scale_up / scale_out / cross_region, "
+          f"comm.link_bytes, step 2) "
+          f"{['/'.join('%.2f' % (v / 1e6) for v in r['wire_bytes'][1]) for r in ranks]}; "
+          f"host-staged MB a step (rank 0) {['%.2f' % (b / 1e6) for b in ranks[0]['staged_bytes']]}"
+          f" ({staged / 1e6:.1f} MB over all ranks); peak GB per rank "
+          f"{['%.2f' % r['peak_gb'] for r in ranks]}; parameters per rank "
+          f"{[r['params'] for r in ranks]}", flush=True)
+    print(f"pipeline: kernel launches per rank: "
+          f"{[{k: r['counts'][k] for k in MULTI_KERNELS} for r in ranks]}", flush=True)
+    print(f"pipeline: GPipe bubble fraction (S - 1) / (M + S - 1) = {bubble:.3f} (S = "
+          f"{PIPE_STAGES}, M = {PIPE_MICRO}), by the schedule, not measured: the four ranks "
+          f"share one card, so a stage's idle time is another's busy time", flush=True)
+    print(f"pipeline: phase {time.perf_counter() - t_phase:.1f} s (reference {t_ref:.1f} s; "
+          f"ranks {['%.1f' % r['seconds'] for r in ranks]} s; init "
+          f"{['%.1f' % r['init_s'] for r in ranks]} s)", flush=True)
+    for r in ranks:
+        assert r["losses"] == ranks[0]["losses"], "ranks disagree on the loss"
+        want = {"weight": 1, "wire": 0} if r["stage"] == 0 else {"weight": 0, "wire": 1}
+        assert r["applied_here"] == want, \
+            f"rank {r['rank']} (stage {r['stage']}): applied {r['applied_here']}, want {want}"
+        assert r["wire_perm"] == [[0, 1], [1, 0]], r["wire_perm"]
+        twin = ranks[r["rank"] ^ 1]  # the other rank of the stage's model group
+        for key, dg in r["digests"].items():
+            if "#" not in key:
+                assert dg == twin["digests"][key], f"{key}: differs across a stage's model group"
+        missing = [k for k in MULTI_KERNELS if not r["counts"][k]]
+        assert not missing, f"rank {r['rank']}: kernels never launched on the pipeline: {missing}"
+        assert all(math.isfinite(v) for v in r["losses"])
+    assert err <= MULTI_LOSS_REL, f"losses {ranks[0]['losses']} vs one device {ref}: {err:.3e}"
+    print(f"pipeline: checks held: losses within {MULTI_LOSS_REL} of one device and equal on "
+          f"all {MULTI_RANKS} ranks; 1 weight move on stage 0, 1 wire re-address on stage 1; "
+          f"non-expert parameters bit-identical in each stage's model group; every kernel of "
+          f"{MULTI_KERNELS} launched on every rank", flush=True)
+    E2E["pipeline (2, 2) median step ms per rank"] = [med(r["step_ms"][1:]) for r in ranks]
+    E2E["pipeline (2, 2) stage bytes per step per rank"] = [med(r["stage_bytes"]) for r in ranks]
+    rows = got["rows"]
+    rows["grouped_matmul_blocks_stage"]["launches"] = ranks[0]["counts"]["grouped_matmul_blocks"]
+    return {"rows": rows, "counts": [r["counts"] for r in ranks]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and workload seed")
@@ -3352,6 +3593,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     multi = multi_rank_phase(torch, args.seed)
     rows.update(multi["rows"])
+    pipe = pipeline_phase(torch, args.seed)
+    rows.update(pipe["rows"])
 
     # launches: each kernel's count from the path it belongs to — the
     # capacity training run for kernel 6 and its backward, the dropless run
@@ -3379,12 +3622,13 @@ def main(argv=None) -> int:
                               "train_capacity": counts_cap[name],
                               "serve_mamba2": counts_mamba[name], "generate": counts_gen[name],
                               "fleet": counts_fleet[name],
-                              "multi_rank": [c[name] for c in multi["counts"]]},
+                              "multi_rank": [c[name] for c in multi["counts"]],
+                              "pipeline": [c[name] for c in pipe["counts"]]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 41, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 42, [r["name"] for r in line]
     spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "

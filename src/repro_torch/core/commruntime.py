@@ -73,7 +73,7 @@ def axis_index(mesh, axis: str | None) -> int:
 
 def axis_group(mesh, axis: str):
     grp = mesh.get_group(axis)
-    _GROUP_LINK[id(grp)] = "cross_region" if axis in ("pod", "data") else "scale_out"
+    _GROUP_LINK[id(grp)] = "cross_region" if axis in ("pod", "data", "stage") else "scale_out"
     return grp
 
 
@@ -130,9 +130,10 @@ def host_staged_bytes() -> float:
 
 _LINKS = ("scale_up", "scale_out", "cross_region")
 # The link class each process group's traffic rides (``LinkBytes``): a batch
-# axis the DP ring (cross_region), the model axis and the delegation's
-# inter-group stage the regional fabric (scale_out), its intra-group stage
-# scale_up.
+# axis (the DP ring) and a pipeline's stage hops the EPS fabric
+# (cross_region, as ``commruntime.py:392`` of the reference), the model
+# axis and the delegation's inter-group stage the regional fabric
+# (scale_out), its intra-group stage scale_up.
 _GROUP_LINK: dict[int, str] = {}
 
 

@@ -130,7 +130,7 @@ EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
 
 
 def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int, *, mesh=None,
-                           axis: str | None = None):
+                           axis: str | None = None, layers: tuple[int, int] | None = None):
     """Move every MoE block's stacked expert tensors into their new slots.
 
     ``inv_stack`` is ``[L, E_virtual]`` of per-layer *inverse* permutations
@@ -147,8 +147,13 @@ def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int, *, m
 
     Over a mesh whose ``axis`` shards the slots (each rank holds ``[L,
     E_virtual / P, ...]``), the slots a plan moves across ranks travel in one
-    all-to-all over the axis per layer and leaf (:func:`_exchange_slots`)."""
+    all-to-all over the axis per layer and leaf (:func:`_exchange_slots`).
+
+    ``layers=(lo, hi)``: ``params`` holds the repeats ``[lo, hi)`` of the
+    stack (a pipeline stage's), so only those rows of ``inv_stack`` apply."""
     inv_stack = np.asarray(inv_stack)
+    if layers is not None:
+        inv_stack = inv_stack[layers[0]:layers[1]]
     reps = inv_stack.shape[0]
     if mesh is not None and axis is not None:
         if cr.axis_size(mesh, axis) > 1:
@@ -608,12 +613,15 @@ class PlacementApplier:
     """
 
     def __init__(self, cp: ControlPlane, *, model_size: int = 1, wire_capable: bool = False,
-                 mesh=None, axis: str | None = None):
+                 mesh=None, axis: str | None = None, layers: tuple[int, int] | None = None):
         self.cp = cp
         self.model_size = max(model_size, 1)
         # Over a mesh the expert slots shard over ``axis``: the weight path
-        # exchanges the slots a plan moves across ranks.
-        self.mesh, self.axis = mesh, axis
+        # exchanges the slots a plan moves across ranks.  On a pipeline
+        # stage the weights hold the layers ``[lo, hi)`` only: a plan for
+        # another stage's layer moves nothing here, but the perm stack and
+        # the wire maps stay whole on every rank.
+        self.mesh, self.axis, self.layers = mesh, axis, layers
         # Wire re-addressing needs the mixnet data plane and a control-plane
         # device space that IS the model axis (one slot block per device).
         self.wire_capable = (
@@ -623,6 +631,9 @@ class PlacementApplier:
         )
         self.wire_perm: np.ndarray | None = None
         self.wire_reconfig_count = 0
+        # Plans for the layers these weights hold, by how they were realized
+        # (on a pipeline stage: that stage's share of the counts above).
+        self.applied_here = {"wire": 0, "weight": 0}
 
     def apply(self, params, plans: list[LayerPlan]):
         """Actuate ``plans``; returns ``(params, changed)``."""
@@ -652,6 +663,7 @@ class PlacementApplier:
                 d_cur = self.wire_perm[p.layer]
                 self.wire_perm[p.layer] = d_cur[inverse_permutation(devp)]
                 self.wire_reconfig_count += 1
+                self._count_here(p.layer, "wire")
                 metrics.counter("placement.applies", mode="wire").inc()
                 continue
             inv = inverse_permutation(p.perm)
@@ -668,13 +680,18 @@ class PlacementApplier:
                 self.wire_perm[p.layer] = np.arange(p_axis)
             inv_stack[p.layer] = inv
             gather_needed = True
+            self._count_here(p.layer, "weight")
             metrics.counter("placement.applies", mode="weight_gather").inc()
         if gather_needed:
             params = permute_expert_weights(params, inv_stack, ev, mesh=self.mesh,
-                                            axis=self.axis)
+                                            axis=self.axis, layers=self.layers)
         for p in live:
             cp.apply(p)
         return params, True
+
+    def _count_here(self, layer: int, how: str) -> None:
+        if self.layers is None or self.layers[0] <= layer < self.layers[1]:
+            self.applied_here[how] += 1
 
     # -- state round-trip -----------------------------------------------------
     def state_dict(self) -> dict:

@@ -60,18 +60,28 @@ def params_from_numpy(tree, cfg=None, device="cpu", *, trainable: bool = False):
 _EXPERT_LEAVES = frozenset({"w_in", "w_gate", "w_out"})
 
 
-def shard_params(tree, plan, mesh, rank: int | None = None):
+def shard_params(tree, plan, mesh, rank: int | None = None, cfg=None):
     """A rank's shard of a global numpy tree (the JAX package's, converted):
     the expert leaves (``moe/w_in``, ``moe/w_gate``, ``moe/w_out``, stacked
     ``[reps, E_virtual, ...]``) keep the rank's ``E_virtual / P`` slots of the
-    model axis; every other leaf stays whole.  ``rank`` is the global rank
-    (default: this process's); the result is still numpy, for
-    :func:`params_from_numpy`, so a card only ever receives its shard."""
-    if mesh is None or plan.model_axis is None or plan.model_size <= 1:
+    model axis; over a mesh with a ``"stage"`` axis (``cfg`` given) the rank
+    keeps its stage's repeats and ends
+    (``models.transformer.stage_params``); every other leaf stays whole.
+    ``rank`` is the global rank (default: this process's); the result is
+    still numpy, for :func:`params_from_numpy`, so a card only ever
+    receives its shard."""
+    if mesh is None:
         return tree
-    names = list(mesh.mesh_dim_names)
-    coords = (mesh.mesh == (mesh.get_rank() if rank is None else rank)).nonzero()[0].tolist()
-    m, p = coords[names.index(plan.model_axis)], plan.model_size
+    if cfg is not None and "stage" in mesh.mesh_dim_names:
+        from repro_torch.models.transformer import stage_params
+        from repro_torch.parallel.sharding import stage_layers
+
+        tree = stage_params(tree, cfg, *stage_layers(mesh, cfg.pattern_repeats, rank=rank))
+    if plan.model_axis is None or plan.model_size <= 1:
+        return tree
+    from repro_torch.parallel.sharding import mesh_coord
+
+    m, p = mesh_coord(mesh, plan.model_axis, rank), plan.model_size
 
     def cut(node, path):
         if isinstance(node, dict):

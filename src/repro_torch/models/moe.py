@@ -457,7 +457,7 @@ _LATER = "comes with a later item of the multi-device port (ROADMAP.md §1)"
 
 
 def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm=None,
-                gate_weights=None):
+                gate_weights=None, per_shard=False):
     """``expert_perm``: THIS layer's ``[E_virtual]`` expert->slot map;
     ``wire_perm``: its optional ``[P]`` device map; ``gate_weights``: an
     optional ``[B, S]`` per-token telemetry weight.
@@ -469,14 +469,16 @@ def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm
     reference's telemetry reductions, and all-gathers the output back.  A
     data-only mesh (model size 1) runs the layer on the whole batch,
     all-gathered over the data axis, as the reference's layer sees it, and
-    keeps the rank's rows."""
+    keeps the rank's rows; with ``per_shard`` it runs on the rank's rows
+    with per-shard aux losses, as the reference's pipeline stage body
+    (``pp_step.py:217-221``) does."""
     weights = (params["router"], params["w_in"], params["w_gate"], params["w_out"])
     if mesh is None or (plan.model_size <= 1 and plan.data_size <= 1):
         out, load, balance, z, drop = _moe_mixnet_local(
             weights, x, cfg, plan, expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
         )
         return out, MoEStats(load, balance, z, drop)
-    if plan.model_size <= 1:
+    if plan.model_size <= 1 and not per_shard:
         ax = plan.batch_axes[-1]
         b = x.shape[0]
         xg = cr.all_gather(x, mesh, ax)
@@ -487,6 +489,12 @@ def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm
         i = cr.axis_index(mesh, ax)
         return out[i * b:(i + 1) * b], MoEStats(load, balance, z, drop)
     s = x.shape[1]
+    if plan.model_size <= 1:  # per_shard on a data-only mesh
+        out, load, balance, z, drop = _moe_mixnet_local(
+            weights, x, cfg, plan, expert_perm, tuple(plan.batch_axes), wire_perm=wire_perm,
+            token_axes=tuple(plan.batch_axes), gate_weights=gate_weights, mesh=mesh,
+        )
+        return out, MoEStats(load, balance, z, drop)
     sharded = sharding.seq_sharded(plan, s)
     axis_names = tuple(plan.batch_axes) + (plan.model_axis,)
     token_axes = tuple(plan.batch_axes) + ((plan.model_axis,) if sharded else ())
@@ -516,11 +524,14 @@ def moe_apply(
     backend: str | None = None,
     mode: str | None = None,
     gate_weights: torch.Tensor | None = None,
+    per_shard: bool = False,
 ):
     """``expert_perm``: this layer's ``[Ev]`` expert->slot map;
     ``wire_perm``: optional ``[P]`` device map, composed into the slot
     addressing (the dense backends hit the physically resident weights);
-    ``gate_weights``: optional ``[B, S]`` telemetry weight per token."""
+    ``gate_weights``: optional ``[B, S]`` telemetry weight per token;
+    ``per_shard``: over a data-only mesh, the rank's rows alone (a
+    pipeline stage's layer, :func:`_moe_mixnet`)."""
     e = cfg.moe
     if e.draft_mode == "topk1" and e.top_k > 1:
         # Speculative draft: narrow the routed fan-out to the gate's single
@@ -562,6 +573,7 @@ def moe_apply(
     elif backend == "mixnet":
         out, stats = _moe_mixnet(
             params, x, cfg, plan, mesh, perm, wire_perm=wire_perm, gate_weights=gate_weights,
+            per_shard=per_shard,
         )
     elif backend == "einsum":
         out, stats = _moe_einsum(params, x, cfg, plan, expert_perm=perm,

@@ -34,10 +34,11 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
+from repro_torch.parallel.sharding import ShardingPlan, stage_layers, virtual_experts
 
 __all__ = [
-    "init_model", "model_apply", "logits_from_features", "init_caches",
+    "init_model", "stage_params", "model_apply", "embed", "apply_layers", "LayerOutputs",
+    "final_norm", "logits_from_features", "init_caches",
     "init_paged_caches", "paged_supported", "pad_caches", "ForwardAux",
     "chunked_cross_entropy",
 ]
@@ -66,7 +67,9 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) ->
     """Seeded parameters drawn directly on ``device`` (the card unless the
     caller asks for the CPU) in ``cfg.dtype``.  Over a ``mesh`` every rank
     draws the same values and keeps its model-axis shard of the expert
-    leaves, so the ranks together hold the one-device draw."""
+    leaves, so the ranks together hold the one-device draw.  Over a mesh
+    with a ``"stage"`` axis a rank also keeps only its stage's repeats
+    (:func:`stage_params`): the generator is consumed in the same order."""
     cfg.validate()
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -95,7 +98,35 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) ->
     params["final_norm"] = L.init_rms_norm(d, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (d, cfg.vocab_size), dtype, dev, d**-0.5)
-    return params
+    s, n, lo, hi = stage_layers(mesh, reps)
+    return params if n == 1 else stage_params(params, cfg, s, n, lo, hi, clone=True)
+
+
+def stage_params(params: dict, cfg, s: int, n: int, lo: int, hi: int, *, clone=False) -> dict:
+    """Stage ``s`` of ``n``'s part of a whole parameter tree: the block
+    repeats ``[lo, hi)`` (in the canonical ``[repeats, ...]`` layout), the
+    embedding on the first stage, the final norm and LM head on the last
+    (both ends on a stage that is both; a tied head is refused).  Works on
+    tensors (``clone`` copies the slices so the whole leaves can go) and
+    on numpy trees alike."""
+    if n > 1 and cfg.tie_embeddings:
+        raise NotImplementedError("pipeline stages with a tied LM head (the embedding)")
+
+    def rows(node):
+        if isinstance(node, dict):
+            return {k: rows(v) for k, v in node.items()}
+        part = node[lo:hi]
+        return part.clone() if clone else part
+
+    out = {}
+    if s == 0:
+        out["embed"] = params["embed"]
+    out["blocks"] = rows(params["blocks"])
+    if s == n - 1:
+        out["final_norm"] = params["final_norm"]
+        if "lm_head" in params:
+            out["lm_head"] = params["lm_head"]
+    return out
 
 
 def _model_index(mesh, plan: ShardingPlan) -> int:
@@ -226,7 +257,7 @@ def _remat(fn, remat: str):
 
 def _apply_block(
     kind, p, x, cfg, plan, mode, cache, t, expert_perm, positions,
-    wire_perm=None, gate_weights=None, page_table=None, writes=None, mesh=None,
+    wire_perm=None, gate_weights=None, page_table=None, writes=None, mesh=None, per_shard=False,
 ):
     if kind == "ssm":
         # norm1 + SSD only (no norm2, no MLP), as the reference.  Every slot
@@ -250,7 +281,7 @@ def _apply_block(
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y, stats = moe_mod.moe_apply(
         p["moe"], h2, cfg, plan, mesh=mesh, expert_perm=expert_perm, wire_perm=wire_perm,
-        mode=mode, gate_weights=gate_weights,
+        mode=mode, gate_weights=gate_weights, per_shard=per_shard,
     )
     return x + y, ac, stats
 
@@ -286,9 +317,7 @@ def model_apply(
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
-    x = x * (cfg.d_model**0.5)
-    positions = batch.get("positions")
+    x = embed(params, tokens, cfg)
     reps = cfg.pattern_repeats
     names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
     if expert_perm is None and cfg.is_moe:
@@ -307,8 +336,71 @@ def model_apply(
             page=first.shape[2] if page_table is not None else None, device=dev,
         )
 
-    block_params = {n: _layers(params["blocks"][n], reps) for n in names}
-    prefill_caches: dict = {n: [] for n in names}
+    x, out = apply_layers(
+        params["blocks"], x, cfg, plan, mesh=mesh, mode=mode, caches=caches, t=t,
+        expert_perm=expert_perm, wire_perm=wire_perm, positions=batch.get("positions"),
+        gate_weights=gate_weights, page_table=page_table, writes=writes,
+    )
+    new_caches = caches
+    if mode == "prefill":
+        new_caches = {
+            n: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+            for n, cs in out.caches.items()
+        }
+    x = final_norm(params, x, cfg)
+    moe = out.loads[0] is not None
+    aux = ForwardAux(
+        moe_stats=torch.stack(out.loads) if moe else None,
+        balance_loss=torch.stack(out.balance).mean(),
+        z_loss=torch.stack(out.z).mean(),
+        dropped_fraction=torch.stack(out.drops) if moe else None,
+    )
+    return x, aux, new_caches
+
+
+def embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """``[B, S]`` tokens -> the scaled ``[B, S, D]`` embeddings in
+    ``cfg.dtype`` (the first half of :func:`model_apply`, on its own for a
+    pipeline's first stage)."""
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    return x * (cfg.d_model**0.5)
+
+
+def final_norm(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The final norm of the block stack's output: the features the LM head
+    reads (:func:`logits_from_features`, :func:`chunked_cross_entropy`),
+    on its own for a pipeline's last stage."""
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+@dataclasses.dataclass
+class LayerOutputs:
+    """Per-repeat results of :func:`apply_layers`, one entry a repeat."""
+
+    balance: list  # [] scalars: the repeat's mean balance loss over its MoE blocks
+    z: list
+    loads: list  # [E] loads of its first MoE block, or None
+    drops: list
+    caches: dict  # prefill: name -> one cache dict a repeat
+
+
+def apply_layers(
+    blocks: dict, x, cfg, plan: ShardingPlan, *, mesh=None, mode: str = "train", caches=None,
+    t=None, expert_perm=None, wire_perm=None, positions=None, gate_weights=None,
+    page_table=None, writes=None, per_shard: bool = False,
+):
+    """The block loop of :func:`model_apply` over the repeats that
+    ``blocks`` holds (its leaves' leading dim): the whole stack, or a
+    pipeline stage's contiguous slice of it.  ``expert_perm`` /
+    ``wire_perm`` (and ``caches``) hold the same repeats' rows.
+    ``per_shard``: the MoE layers run on this rank's rows even over a
+    data-only mesh (see ``moe.moe_apply``), as a pipeline stage does.
+    Returns ``(x, LayerOutputs)``."""
+    names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
+    reps = blocks[names[0]]["norm1"].shape[0]
+    block_params = {n: _layers(blocks[n], reps) for n in names}
+    out = LayerOutputs([], [], [], [], {n: [] for n in names})
+    dev = x.device
 
     def group(x, li):
         """One repeat of the block pattern.  Returns its output and stats
@@ -322,6 +414,7 @@ def model_apply(
                 cache_i, t, None if expert_perm is None else expert_perm[li], positions,
                 wire_perm=None if wire_perm is None else wire_perm[li],
                 gate_weights=gate_weights, page_table=page_table, writes=writes, mesh=mesh,
+                per_shard=per_shard,
             )
             ncs.append(nc)
             if st is not None:
@@ -336,31 +429,16 @@ def model_apply(
     run = group
     if mode == "train" and torch.is_grad_enabled():
         run = _remat(lambda x, li: group(x, li)[:5], cfg.remat)
-    loads, bal, zl, drops = [], [], [], []
     for li in range(reps):
         x, b_, z_, load, drop, *rest = run(x, li)
         if mode == "prefill":
             for n, nc in zip(names, rest[0]):
-                prefill_caches[n].append(nc)
-        bal.append(b_)
-        zl.append(z_)
-        loads.append(load)
-        drops.append(drop)
-    new_caches = caches
-    if mode == "prefill":
-        new_caches = {
-            n: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
-            for n, cs in prefill_caches.items()
-        }
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    moe = loads[0] is not None
-    aux = ForwardAux(
-        moe_stats=torch.stack(loads) if moe else None,
-        balance_loss=torch.stack(bal).mean(),
-        z_loss=torch.stack(zl).mean(),
-        dropped_fraction=torch.stack(drops) if moe else None,
-    )
-    return x, aux, new_caches
+                out.caches[n].append(nc)
+        out.balance.append(b_)
+        out.z.append(z_)
+        out.loads.append(load)
+        out.drops.append(drop)
+    return x, out
 
 
 def logits_from_features(params, x, cfg):

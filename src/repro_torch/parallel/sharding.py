@@ -5,7 +5,10 @@ Port of :mod:`repro.parallel.sharding`.  A mesh is a
 which axes shard the batch (DP), which is the regional model axis (EP for
 the MoE layers) and whether parameters shard over the data axis (ZeRO-3,
 which the trainer refuses until a later slice: build the plan with
-``make_plan(mesh, fsdp=False)``).
+``make_plan(mesh, fsdp=False)``).  A pipeline's ``"stage"`` axis (and any
+other name) is invisible to the plan, as in the reference: inside a stage
+the batch and model axes mean what they mean without one.
+:func:`stage_layers` gives a rank's stage and the repeats it holds.
 
 Layouts are explicit in the port, so :func:`constrain` is the identity.  In
 place of ``shard_map``'s token spec for the MoE region (``moe.py:503-520``
@@ -27,7 +30,7 @@ from repro_torch.core import commruntime as cr
 
 __all__ = [
     "ShardingPlan", "make_plan", "virtual_experts", "constrain", "seq_sharded", "token_slice",
-    "token_gather",
+    "token_gather", "mesh_coord", "stage_layers",
 ]
 
 
@@ -70,6 +73,31 @@ def make_plan(mesh=None, *, fsdp: bool = True) -> ShardingPlan:
         fsdp_axis="data" if (fsdp and "data" in names) else None,
         data_size=int(sizes.get("data", 1)),
     )
+
+
+def mesh_coord(mesh, axis: str, rank: int | None = None) -> int:
+    """Global rank ``rank``'s (default: this process's) index along
+    ``axis`` of ``mesh``."""
+    if rank is None:
+        return int(mesh.get_local_rank(axis))
+    coords = (mesh.mesh == rank).nonzero()[0].tolist()
+    return int(coords[list(mesh.mesh_dim_names).index(axis)])
+
+
+def stage_layers(mesh, reps: int, axis: str = "stage", rank: int | None = None
+                 ) -> tuple[int, int, int, int]:
+    """``(stage, stages, lo, hi)``: a rank's pipeline stage over ``axis``
+    and the block repeats ``[lo, hi)`` it holds, the contiguous slice
+    ``[s * reps / S, (s + 1) * reps / S)``; ``(0, 1, 0, reps)`` without a
+    stage axis."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 0, 1, 0, reps
+    n = int(mesh.size(list(mesh.mesh_dim_names).index(axis)))
+    if reps % n:
+        raise ValueError(f"{reps} block repeats not divisible by {n} stages")
+    s = mesh_coord(mesh, axis, rank)
+    per = reps // n
+    return s, n, s * per, (s + 1) * per
 
 
 def virtual_experts(num_experts: int, model_size: int) -> tuple[int, int]:

@@ -30,9 +30,16 @@ any other moves the expert slots across ranks.  ``dp_comm="runtime"`` and
 ``dp_compress`` run on a data-only mesh, the trainer carrying the
 error-feedback residual.
 
-Not ported yet, each raising ``NotImplementedError``: pipeline stages
-(``pp_stages > 1``), ZeRO-3 parameter sharding (a plan with
-``fsdp_axis``) and the cached autotuner (the evaluation slice).
+Pipeline stages (``pp_stages > 1``, a mesh with a ``"stage"`` axis): each
+rank holds its stage's repeats and runs the GPipe step of
+:mod:`repro_torch.train.pp_step` over ``num_microbatches``.  Every rank
+keeps the whole perm stack and wire maps and observes the canonical
+``[repeats, E]`` loads, so every rank plans alike; a plan moves weights,
+or re-addresses the wire, only in the stage that owns its layer.
+
+Not ported yet, each raising ``NotImplementedError``: ZeRO-3 parameter
+sharding (a plan with ``fsdp_axis``), checkpoints of a trainer over more
+than one rank, and the cached autotuner (the evaluation slice).
 """
 
 from __future__ import annotations
@@ -55,8 +62,9 @@ from repro_torch.core.controlplane import (
 )
 from repro_torch.obs import metrics, trace
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
+from repro_torch.parallel.sharding import ShardingPlan, stage_layers, virtual_experts
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.pp_step import local_microbatch_rows, make_pp_train_step
 from repro_torch.train.train_step import init_all, init_ef_residual, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer", "permute_expert_weights"]
@@ -95,9 +103,10 @@ class Trainer:
         seed: int = 0,
         device=None,
     ):
-        if tcfg.pp_stages > 1:
-            raise NotImplementedError(
-                "pipeline stages (pp_stages > 1) come with pipeline parallelism (ROADMAP.md §1)"
+        if tcfg.pp_stages > 1 and (tcfg.dp_comm != "auto" or tcfg.dp_compress):
+            raise ValueError(
+                "pp_stages > 1 composes with dp_comm='auto' only (the runtime DP reduction "
+                "needs a DP-only mesh)"
             )
         if plan.fsdp_axis is not None:
             raise NotImplementedError(
@@ -120,10 +129,14 @@ class Trainer:
         self.params, self.specs, self.opt_state = init_all(
             seed, cfg, plan, opt_cfg, device=self.device, mesh=mesh
         )
-        self.step_fn = make_train_step(
-            cfg, plan, opt_cfg, mesh=mesh, microbatches=tcfg.num_microbatches,
-            dp_comm=tcfg.dp_comm, dp_compress=tcfg.dp_compress,
-        )
+        if tcfg.pp_stages > 1:
+            self.step_fn = make_pp_train_step(cfg, plan, opt_cfg, mesh, pp_stages=tcfg.pp_stages,
+                                              microbatches=tcfg.num_microbatches)
+        else:
+            self.step_fn = make_train_step(
+                cfg, plan, opt_cfg, mesh=mesh, microbatches=tcfg.num_microbatches,
+                dp_comm=tcfg.dp_comm, dp_compress=tcfg.dp_compress,
+            )
         self.ef_residual = init_ef_residual(self.params, plan) if tcfg.dp_compress else None
         self.step = 0
         self.metrics_log: list[dict] = []
@@ -172,8 +185,9 @@ class Trainer:
         return self._applier
 
     def _new_applier(self) -> PlacementApplier:
+        _, _, lo, hi = stage_layers(self.mesh, self.cfg.pattern_repeats)
         return PlacementApplier(self.controlplane, model_size=max(self.plan.model_size, 1),
-                                mesh=self.mesh, axis=self.plan.model_axis)
+                                mesh=self.mesh, axis=self.plan.model_axis, layers=(lo, hi))
 
     @property
     def is_main(self) -> bool:
@@ -291,9 +305,12 @@ class Trainer:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def _local_rows(self, a: np.ndarray) -> np.ndarray:
-        """This rank's data-axis slice of a global ``[B, ...]`` batch."""
+        """This rank's data-axis slice of a global ``[B, ...]`` batch (each
+        microbatch's, microbatch-major, for the pipelined step)."""
         if self.mesh is None:
             return a
+        if self.tcfg.pp_stages > 1:
+            return local_microbatch_rows(a, self.plan, self.mesh, self.tcfg.num_microbatches)
         for ax in self.plan.batch_axes:
             n = cr.axis_size(self.mesh, ax)
             if a.shape[0] % n:
