@@ -157,6 +157,20 @@ Phases, one printed line (or more) each:
    stage's model group; per-rank step times, stage-to-stage, wire and
    host-staged bytes, peak memory, launches, the GPipe bubble fraction
    (not measurable on one card); kernel 7 timed at a stage rank's shape;
+14c. evaluation — around the multi-rank phase: first, on the host, the
+   paper's headline through the port's netsim (Mixtral-8x7B on 128
+   servers, MixNet against fat-tree at 100 and 400 Gbps, 5 iterations;
+   MixNet's performance per dollar over fat-tree's must exceed 1.2 and 1.9
+   and grow with the rate; every number the simulator's A100 cluster, not
+   the card), ``autotune.tune`` over the full search space into a cache
+   under build/, and a cache miss on the card (the config stays, the miss
+   is counted); then, in the four ranks after their runs, the (1, 4) wire
+   run again with ``TrainerConfig(autotune_cache=, autotune_key=)``: the
+   trainer must take the cache's knobs, and its losses and every parameter
+   must equal the one-chunk run's (the wire run when the tuned dispatch is
+   dropless) bit for bit, every kernel launched on every rank; per-rank
+   step times tuned against one chunk, wire bytes, launches, kernel 7 at
+   one tuned chunk's received layout;
 15. the kernels of one decode tick of each serve, the sha256 of each
    serve's tokens (to set beside another tree's), the kernels line (JSON),
    the card line, and the result line ``{"ok": true, "device": {...}}``.
@@ -305,6 +319,10 @@ KERNEL_ROWS = {
     # Kernel 7 at a stage rank's shapes of the (2, 2) pipeline run (4 local
     # experts, one 1 x 256 microbatch received), with rank 0's launches.
     "grouped_matmul_blocks_stage": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                    "src/repro/kernels/grouped_matmul.py:116"),
+    # Kernel 7 at one chunk's received layout of the tuned (1, 4) run (the
+    # evaluation phase's), with rank 0's launches there.
+    "grouped_matmul_blocks_chunk": ("src/repro_torch/csrc/grouped_matmul.cu",
                                     "src/repro/kernels/grouped_matmul.py:116"),
 }
 # End-to-end numbers the serve phases leave for the summary line (measured,
@@ -1930,6 +1948,7 @@ SHAPE_ROWS = {
     "ssd_chunk_prefill_256": "ssd_chunk", "ssd_chunk_generate": "ssd_chunk",
     "moe_dispatch_rank_pack": "moe_dispatch", "grouped_matmul_blocks_rank": "grouped_matmul_blocks",
     "moe_combine_rank": "moe_combine", "grouped_matmul_blocks_stage": "grouped_matmul_blocks",
+    "grouped_matmul_blocks_chunk": "grouped_matmul_blocks",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
@@ -2869,12 +2888,14 @@ def multi_cfg(layers: int):
         c.moe, a2a_group=2, dispatch="dropless", balance_loss=0.0))
 
 
-def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wire: bool = True):
+def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wire: bool = True,
+                  **tcfg_kw):
     """A ``Trainer`` over ``mesh`` (None: one device) with the two plans of
     MULTI_PLANS applied before the first step when ``plans``: the AdamW
     moments stay in their slots (as the reference's), so a weight move
     after a step would give the weight run other moments than the wire
-    run's; before the first step both are zero."""
+    run's; before the first step both are zero.  ``tcfg_kw``: more
+    ``TrainerConfig`` fields (the evaluation phase's autotune cache)."""
     import numpy as np
 
     from repro_torch.core.controlplane import ControlPlane, LayerPlan
@@ -2882,8 +2903,8 @@ def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wir
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     tr = Trainer(cfg, AdamWConfig(lr=MULTI_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
-                 TrainerConfig(total_steps=0, reconfig_every=10**6), plan, mesh=mesh, seed=seed,
-                 device=device)
+                 TrainerConfig(total_steps=0, reconfig_every=10**6, **tcfg_kw), plan, mesh=mesh,
+                 seed=seed, device=device)
     if plans:
         tr.controlplane = ControlPlane(num_layers=cfg.num_layers,
                                        num_experts=cfg.moe.num_experts, num_devices=4)
@@ -2950,17 +2971,19 @@ def multi_digests(tr) -> dict:
 
 
 def multi_run(torch, cr, cfg, seed: int, mesh, device, *, plans: bool, wire: bool = True,
-              count: bool = False) -> dict:
+              count: bool = False, **tcfg_kw) -> dict:
     """One rank's run: MULTI_STEPS steps, each ``train`` call clocked whole,
     the wire bytes and host-staged bytes of each step, peak memory, the
     launch counts when ``count`` (reset just before the first step, read
-    just after the last), and the digests of the final parameters."""
+    just after the last), the digests of the final parameters, and the MoE
+    knobs the trainer ran with (``tcfg_kw``: more ``TrainerConfig``
+    fields)."""
     from repro_torch.kernels import ops
     from repro_torch.parallel.sharding import make_plan
 
     plan = make_plan(mesh, fsdp=False)
     t0 = time.perf_counter()
-    tr = multi_trainer(torch, cfg, seed, plan, mesh, device, plans=plans, wire=wire)
+    tr = multi_trainer(torch, cfg, seed, plan, mesh, device, plans=plans, wire=wire, **tcfg_kw)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -2988,7 +3011,8 @@ def multi_run(torch, cr, cfg, seed: int, mesh, device, *, plans: bool, wire: boo
                digest_s=time.perf_counter() - t0,
                wire_perm=None if tr.wire_perm is None else tr.wire_perm.tolist(),
                wire_reconfigs=tr.wire_reconfig_count, reconfigs=tr.reconfig_count,
-               params=sum(t.numel() for _, t in _flat_tree(tr.params)))
+               params=sum(t.numel() for _, t in _flat_tree(tr.params)),
+               overlap_chunks=tr.cfg.moe.overlap_chunks, dispatch=tr.cfg.moe.dispatch)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -3085,11 +3109,41 @@ def rank_kernel_rows(torch, cfg, seed: int) -> dict:
     return rows
 
 
-def multi_rank_main(rank: int, seed: int, port: int, out_path: str) -> None:
+def chunk_kernel_row(torch, cfg, seed: int, tc: int) -> dict:
+    """Kernel 7 at one chunk's shapes of the tuned (1, 4) run: ``tc``
+    tokens a rank and chunk routed top-2 over 8 experts, 2 of them local;
+    every source's dropless send buffer of the chunk for this rank packed
+    into the 2-expert blocks."""
+    from repro_torch.kernels import ref
+
+    bf16 = torch.bfloat16
+    d, f = cfg.d_model, cfg.moe.d_ff
+    e, k, p = cfg.moe.num_experts, cfg.moe.top_k, MULTI_RANKS
+    epd = e // p
+    randn, valid, counts2, plan2, _ = received_layout(torch, cfg, seed + 47, p, tc)
+    rx = randn(p * tc * k, d, dt=bf16)
+    rx[~valid] = 0
+    packed = ref.moe_dispatch(rx, plan2.src)
+    nb = plan2.block_experts.shape[0]
+    dy = randn(nb, 8, f, dt=bf16)
+    dy[(plan2.src < 0).reshape(nb, 8)] = 0
+    rows = {}
+    blocks_rows(torch, rows, "_chunk", packed.reshape(nb, 8, d),
+                (randn(epd, d, f) * d**-0.5).to(bf16), dy, plan2.block_experts, counts2,
+                f", {epd} local experts (one chunk of {tc} tokens a rank, the tuned run)",
+                parts=("",))
+    return rows
+
+
+def multi_rank_main(rank: int, seed: int, port: int, out_path: str, tuned: str = "") -> None:
     """One of the four ranks (``torch.multiprocessing`` spawn): the (1, 4)
     run through the wire path (the main path, launches counted) and forced
-    through the weight path, then the (2, 2) run; rank 0 also times kernels
-    4, 5 and 7 at its shapes and writes every rank's results."""
+    through the weight path, then the (2, 2) run; with ``tuned`` (the JSON
+    of the evaluation phase's cache path and key) the (1, 4) wire run again
+    with ``TrainerConfig(autotune_cache=, autotune_key=)`` (launches
+    counted; with a tuned dispatch other than dropless also its one-chunk
+    run); rank 0 also times kernels 4, 5 and 7 at its shapes (7 also at one
+    tuned chunk's) and writes every rank's results."""
     import datetime
 
     import torch
@@ -3112,9 +3166,28 @@ def multi_rank_main(rank: int, seed: int, port: int, out_path: str) -> None:
                               wire=False)
     res["mesh22"] = multi_run(torch, cr, multi_cfg(1), seed, mesh22, device, plans=False)
     res["seconds"] = time.perf_counter() - t0
+    tc = None
+    if tuned:
+        from repro_torch.core.overlap import chunk_count
+
+        t0 = time.perf_counter()
+        tuned = json.loads(tuned)
+        res["tuned"] = multi_run(torch, cr, multi_cfg(2), seed, mesh14, device, plans=True,
+                                 count=True, autotune_cache=tuned["cache"],
+                                 autotune_key=tuned["key"])
+        if res["tuned"]["dispatch"] != "dropless":
+            cfg1 = multi_cfg(2)
+            cfg1 = dataclasses.replace(cfg1, moe=dataclasses.replace(
+                cfg1.moe, dispatch=res["tuned"]["dispatch"]))
+            res["tuned_one_chunk"] = multi_run(torch, cr, cfg1, seed, mesh14, device, plans=True)
+        res["tuned_seconds"] = time.perf_counter() - t0
+        tl = 2 * 256 // MULTI_RANKS  # a rank's tokens a layer: its sequence slice of 2 x 256
+        tc = tl // chunk_count(tl, res["tuned"]["overlap_chunks"])
     rows = None
     if rank == 0:
         rows = rank_kernel_rows(torch, multi_cfg(2), seed)
+        if tc is not None:
+            rows.update(chunk_kernel_row(torch, multi_cfg(2), seed, tc))
     gathered = cr.all_gather_objects(res)
     if rank == 0:
         pathlib.Path(out_path).write_text(json.dumps({"ranks": gathered, "rows": rows}))
@@ -3122,12 +3195,14 @@ def multi_rank_main(rank: int, seed: int, port: int, out_path: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def multi_rank_phase(torch, seed: int) -> dict:
+def multi_rank_phase(torch, seed: int, tuned: dict | None = None) -> dict:
     """Four ranks on the one card (``torch.multiprocessing``, spawn; the
     kernels were built in this process before): the (1, 4) mesh with
     ``a2a_group=2`` at depth 2 (wire and weight runs) and the (2, 2) mesh at
     depth 1, MULTI_STEPS steps each, held to the one-device runs made here
-    first (and freed before the spawn)."""
+    first (and freed before the spawn).  ``tuned``: the evaluation phase's
+    cache path and key; the ranks also run the tuned (1, 4) run, which
+    :func:`evaluation_card_checks` holds to the wire run."""
     import socket
     import tempfile
 
@@ -3145,7 +3220,8 @@ def multi_rank_phase(torch, seed: int) -> dict:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
     out = pathlib.Path(tempfile.mkdtemp(dir=REPO / "build")) / "multi_rank.json"
-    mp.spawn(multi_rank_main, args=(seed, port, str(out)), nprocs=MULTI_RANKS, join=True)
+    mp.spawn(multi_rank_main, args=(seed, port, str(out), json.dumps(tuned) if tuned else ""),
+             nprocs=MULTI_RANKS, join=True)
     got = json.loads(out.read_text())
     out.unlink()
     ranks = got["ranks"]
@@ -3230,7 +3306,143 @@ def multi_rank_phase(torch, seed: int) -> dict:
                          ("grouped_matmul_blocks_rank", "grouped_matmul_blocks"),
                          ("moe_combine_rank", "moe_combine")):
         rows[name]["launches"] = wire_run[0]["counts"][kernel]
-    return {"rows": rows, "counts": [run["counts"] for run in wire_run]}
+    return {"rows": rows, "counts": [run["counts"] for run in wire_run], "ranks": ranks}
+
+
+# ---------------------------------------------------------------------------
+# phase 14c: the evaluation plane, and the trainer consuming a tuned cache
+# ---------------------------------------------------------------------------
+
+
+EVAL_SERVERS = 128  # the paper's 128-server cluster (tests/test_netsim.py's)
+EVAL_ITERS = 5
+EVAL_GBPS = 400  # the autotuned link rate
+SIM = "simulated: the flow-level netsim's A100 cluster, not the card"
+
+
+def evaluation_host_phase(torch, seed: int) -> dict:
+    """(a) The paper's headline through the port's netsim: Mixtral-8x7B on
+    128 servers, MixNet against fat-tree at 100 and 400 Gbps, 5 iterations
+    (the first dropped); the cost-efficiency ratio must clear the
+    reference's own thresholds.  (b) ``autotune.tune`` over the full
+    search space into a cache file under build/.  Then a cache miss on the
+    card: a trainer whose key is absent keeps its config and counts
+    ``autotune.cache_miss``.  Host-side numpy but the miss; returns the
+    cache path, the key and the tuned knobs."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.paper_models import MIXTRAL_8X7B
+    from repro_torch.core import autotune
+    from repro_torch.core import cost as costm
+    from repro_torch.core.fabric import FabricConfig, make_fabric
+    from repro_torch.core.netsim import simulate_training
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.obs import metrics
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    ratios = {}
+    for gbps in (100, 400):
+        iters, cost = {}, {}
+        for name in ("mixnet", "fat-tree"):
+            fab = make_fabric(name, FabricConfig(num_servers=EVAL_SERVERS, link_gbps=gbps))
+            res = simulate_training(MIXTRAL_8X7B, fab, iterations=EVAL_ITERS, seed=seed,
+                                    use_copilot=(name == "mixnet"))
+            iters[name] = float(np.mean([r.total for r in res[1:]]))
+            cost[name] = costm.fabric_cost(name, EVAL_SERVERS, gbps)
+        ratios[gbps] = (costm.cost_efficiency(iters["mixnet"], cost["mixnet"])
+                        / costm.cost_efficiency(iters["fat-tree"], cost["fat-tree"]))
+        print(f"evaluation ({SIM}): {MIXTRAL_8X7B.name} on {EVAL_SERVERS} servers at {gbps} G, "
+              f"mean iteration s (iterations 2-{EVAL_ITERS}) mixnet {iters['mixnet']!r}, "
+              f"fat-tree {iters['fat-tree']!r}; fabric_cost USD mixnet {cost['mixnet']!r}, "
+              f"fat-tree {cost['fat-tree']!r}; performance per dollar mixnet / fat-tree "
+              f"{ratios[gbps]!r}", flush=True)
+    t_head = time.perf_counter() - t0
+    assert ratios[100] > 1.2 and ratios[400] > 1.9 and ratios[400] > ratios[100], ratios
+    cache = pathlib.Path(tempfile.mkdtemp(dir=REPO / "build")) / "autotune_cache.json"
+    t0 = time.perf_counter()
+    tuned = autotune.tune(MIXTRAL_8X7B, "mixnet", EVAL_GBPS, cache_path=str(cache), seed=seed)
+    t_tune = time.perf_counter() - t0
+    print(f"evaluation: autotune.tune({MIXTRAL_8X7B.name}, mixnet, {EVAL_GBPS} G) over the full "
+          f"SEARCH_SPACE ({len(autotune.SEARCH_SPACE)} knobs) -> {cache.relative_to(REPO)}: "
+          f"key {tuned.key!r}, knobs {json.dumps(tuned.knobs, sort_keys=True)}, goodput "
+          f"{tuned.goodput_tok_s!r} tokens/s against the default's "
+          f"{tuned.default_goodput_tok_s!r} ({SIM}), speedup {tuned.speedup!r}; "
+          f"{t_tune:.2f} s of host time (the headline {t_head:.2f} s)", flush=True)
+    assert tuned.speedup >= 1.0 - 1e-9 and autotune.load_cached(str(cache), tuned.key) == tuned
+    # A miss on the card: the configured constants stay, the counter counts.
+    cfg = ModelConfig("tiny-moe8", "moe", 2, 64, 4, 2, 0, 128, dtype="bfloat16", remat="none",
+                      moe=MoEConfig(num_experts=8, top_k=2, d_ff=64, backend="mixnet",
+                                    overlap_chunks=2))
+    misses = metrics.counter("autotune.cache_miss").value
+    tr = Trainer(cfg, AdamWConfig(), TrainerConfig(autotune_cache=str(cache),
+                                                   autotune_key="absent|key"),
+                 make_plan(None), seed=seed, device=MULTI_DEVICE)
+    assert tr.cfg == cfg, "a cache miss changed the model config"
+    assert metrics.counter("autotune.cache_miss").value == misses + 1
+    del tr
+    print("evaluation: a cache miss on the card (key 'absent|key') kept the configured "
+          "constants (overlap_chunks 2, dropless) and counted autotune.cache_miss once",
+          flush=True)
+    return {"cache": str(cache), "key": tuned.key, "knobs": tuned.knobs}
+
+
+def evaluation_card_checks(torch, tuned: dict, multi: dict) -> dict:
+    """(c) The tuned four-rank (1, 4) run the multi-rank phase made: the
+    trainer took the cache's knobs; its losses and every parameter equal,
+    bit for bit, the run with the same dispatch at one chunk (the wire run
+    when the tuned dispatch is dropless); every kernel of MULTI_KERNELS
+    launched on every rank.  Prints each rank's median step, tuned against
+    that run, and the wire bytes by link class."""
+    from repro_torch.core.overlap import chunk_count
+
+    ranks = multi["ranks"]
+    tuned_run = [r["tuned"] for r in ranks]
+    ref_key = "wire" if tuned["knobs"]["moe_dispatch"] == "dropless" else "tuned_one_chunk"
+    ref_run = [r[ref_key] for r in ranks]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    tl = 2 * 256 // MULTI_RANKS
+    chunks = chunk_count(tl, tuned_run[0]["overlap_chunks"])
+    print(f"evaluation (card): tuned (1, 4) run, knobs overlap_chunks "
+          f"{tuned_run[0]['overlap_chunks']} ({chunks} chunks of {tl // chunks} of a rank's "
+          f"{tl} tokens a layer), dispatch {tuned_run[0]['dispatch']}; losses "
+          f"{['%.6f' % v for v in tuned_run[0]['losses']]}; per-rank median step ms (steps "
+          f"2-{MULTI_STEPS}) tuned {['%.1f' % med(r['step_ms'][1:]) for r in tuned_run]} against "
+          f"one chunk ({ref_key} run) {['%.1f' % med(r['step_ms'][1:]) for r in ref_run]}; wire "
+          f"MB per step, rank 0 (scale_up / scale_out / cross_region) tuned "
+          f"{['/'.join('%.2f' % (v / 1e6) for v in b) for b in tuned_run[0]['wire_bytes']]}, one "
+          f"chunk {['/'.join('%.2f' % (v / 1e6) for v in b) for b in ref_run[0]['wire_bytes']]}; "
+          f"host-staged MB per step (rank 0) "
+          f"{['%.2f' % (b / 1e6) for b in tuned_run[0]['staged_bytes']]}; peak GB per rank "
+          f"{['%.2f' % r['peak_gb'] for r in tuned_run]}; launches per rank "
+          f"{[{k: run['counts'][k] for k in MULTI_KERNELS} for run in tuned_run]}; the ranks' "
+          f"tuned runs {['%.1f' % r['tuned_seconds'] for r in ranks]} s", flush=True)
+    for r in range(MULTI_RANKS):
+        run = tuned_run[r]
+        assert run["overlap_chunks"] == tuned["knobs"]["overlap_chunks"], run["overlap_chunks"]
+        assert run["dispatch"] == tuned["knobs"]["moe_dispatch"], run["dispatch"]
+        assert run["losses"] == ref_run[r]["losses"], \
+            f"rank {r}: tuned losses {run['losses']} != one chunk's {ref_run[r]['losses']}"
+        diff = [k for k, v in run["digests"].items() if ref_run[r]["digests"][k] != v]
+        assert not diff, f"rank {r}: the tuned run's parameters differ from one chunk's: {diff}"
+        missing = [k for k in MULTI_KERNELS if not run["counts"][k]]
+        assert not missing, f"rank {r}: kernels never launched in the tuned run: {missing}"
+    assert chunks > 1, "the tuned run did not chunk: nothing was held"
+    print(f"evaluation: checks held: the tuned run ({chunks} chunks) equals the one-chunk "
+          f"{ref_key} run bit for bit on all {MULTI_RANKS} ranks (losses and every parameter); "
+          f"every kernel of {MULTI_KERNELS} launched on every rank", flush=True)
+    E2E["evaluation tuned (1, 4) median step ms per rank"] = [med(r["step_ms"][1:])
+                                                              for r in tuned_run]
+    E2E["evaluation one-chunk (1, 4) median step ms per rank"] = [med(r["step_ms"][1:])
+                                                                  for r in ref_run]
+    E2E["evaluation tuned (1, 4) wire bytes per step, rank 0"] = tuned_run[0]["wire_bytes"]
+    multi["rows"]["grouped_matmul_blocks_chunk"]["launches"] = \
+        tuned_run[0]["counts"]["grouped_matmul_blocks"]
+    return {"counts": [run["counts"] for run in tuned_run]}
 
 
 # ---------------------------------------------------------------------------
@@ -3591,7 +3803,11 @@ def main(argv=None) -> int:
     serve_checkpoint_phase(torch, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    multi = multi_rank_phase(torch, args.seed)
+    tuned = evaluation_host_phase(torch, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi = multi_rank_phase(torch, args.seed, tuned)
+    counts_eval = evaluation_card_checks(torch, tuned, multi)["counts"]
     rows.update(multi["rows"])
     pipe = pipeline_phase(torch, args.seed)
     rows.update(pipe["rows"])
@@ -3623,12 +3839,13 @@ def main(argv=None) -> int:
                               "serve_mamba2": counts_mamba[name], "generate": counts_gen[name],
                               "fleet": counts_fleet[name],
                               "multi_rank": [c[name] for c in multi["counts"]],
-                              "pipeline": [c[name] for c in pipe["counts"]]},
+                              "pipeline": [c[name] for c in pipe["counts"]],
+                              "evaluation": [c[name] for c in counts_eval]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 42, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 43, [r["name"] for r in line]
     spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "

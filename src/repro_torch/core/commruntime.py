@@ -27,8 +27,13 @@ buffers, counted in ``comm.host_staged_bytes``.  Every executed collective
 records its per-device wire bytes by link class in ``comm.link_bytes``
 (:func:`wire_bytes`).
 
-``cost`` and :meth:`CommSpec.from_fabric` price phases against a
-``core/fabric.py`` fabric, which comes with the evaluation slice: they raise.
+The analytic side is the reference's, shared with the flow-level simulator
+(:mod:`repro_torch.core.netsim`): :meth:`CommSpec.from_fabric` derives a
+cost-only spec from a :mod:`repro_torch.core.fabric` topology, every op's
+``cost`` prices one phase against the fabric's link rates (recording its
+bytes in ``comm.link_bytes``), and :attr:`AllToAll.lowering` selects the
+priced a2a schedule (hier / flat / ring) without changing what ``__call__``
+executes.
 """
 
 from __future__ import annotations
@@ -50,9 +55,6 @@ __all__ = [
     "all_gather_objects", "host_staged_bytes", "wire_bytes", "all_gather_raw",
     "reduce_scatter_raw", "all_to_all_rows", "psum", "psum_scatter", "all_gather",
 ]
-
-_FABRIC = "pricing against a fabric needs core/fabric.py, which comes with the evaluation slice"
-
 
 # ---------------------------------------------------------------------------
 # mesh axes, groups, host staging
@@ -616,7 +618,18 @@ class CommSpec:
 
     @classmethod
     def from_fabric(cls, fabric, num_servers_region: int | None = None) -> "CommSpec":
-        raise NotImplementedError(_FABRIC)
+        """Cost-only spec whose region/group factorization comes from the
+        fabric topology: groups = servers of the OCS region, group width =
+        the intra-server scale-up domain (NVSwitch)."""
+        cfg = fabric.cfg
+        region = num_servers_region or cfg.num_servers
+        gps = max(cfg.gpus_per_server, 1)
+        return cls(
+            axis=None,
+            axis_size=region * gps,
+            group_size=gps,
+            outer_size=max(cfg.num_servers, 1),
+        )
 
     def reconfigure(self, dest_perm=None, src_perm=None) -> "CommSpec":
         """New spec with updated wire re-addressing (None clears a side)."""
@@ -757,16 +770,32 @@ class _OpBase:
     def _live(self) -> bool:
         return self.spec.axis is not None and self.spec.axis_size > 1
 
-    def cost(self, fabric, *args, **kwargs) -> float:
-        raise NotImplementedError(_FABRIC)
-
 
 @dataclasses.dataclass(frozen=True)
 class AllToAll(_OpBase):
     """EP all-to-all over ``[P, ...]`` send layouts (chunks by destination
     in, by source out): flat, or the delegation lowering when the spec is
     hierarchical; the spec's wire perms (or per-call overrides) re-address
-    the chunks."""
+    the chunks.
+
+    ``lowering`` selects the *priced* wire schedule only (what netsim and
+    the autotuner search over; ``__call__`` always runs the spec's
+    lowering):
+
+    * ``"hier"``: the delegation lowering (default), per-server aggregation
+      amortizes per-message overheads;
+    * ``"flat"``: the same bytes as ``group_size`` x more per-GPU messages,
+      each remote server paying the per-message propagation latency;
+    * ``"ring"``: store-and-forward, R - 1 sequential neighbour hops each
+      carrying the residual full payload over one p2p link.
+    """
+
+    lowering: str = "hier"
+
+    def __post_init__(self):
+        if self.lowering not in ("hier", "flat", "ring"):
+            raise ValueError(
+                f"unknown a2a lowering {self.lowering!r}; expected 'hier', 'flat', or 'ring'")
 
     def __call__(self, x, *, dest_perm=None, src_perm=None):
         dest_perm, src_perm = self._perms(dest_perm, src_perm)
@@ -821,6 +850,28 @@ class AllToAll(_OpBase):
             raise ValueError(f"dest_perm length {perm.shape[0]} != demand dim {demand.shape[1]}")
         return demand[:, perm]
 
+    def cost(self, fabric, demand: np.ndarray) -> float:
+        """Completion seconds of one a2a phase with ``demand`` bytes between
+        servers, priced on ``fabric``'s link rates under ``lowering``."""
+        demand = np.asarray(self.route_demand(demand))
+        r = demand.shape[0]
+        # Wire bytes this phase moves between servers (the diagonal stays
+        # local).
+        offdiag = float(demand.sum())
+        if demand.ndim == 2 and demand.shape[0] == demand.shape[1]:
+            offdiag -= float(np.trace(demand))
+        record_link_bytes("a2a", LinkBytes(scale_out=max(offdiag, 0.0)))
+        if self.lowering == "ring" and r > 1:
+            per_hop = float(max(demand.sum(axis=1).max(), demand.sum(axis=0).max()))
+            return (r - 1) * fabric.p2p_time(per_hop)
+        base = fabric.alltoall_time(demand)
+        if self.lowering == "flat" and r > 1:
+            # Same wire bytes, group_size x more messages: each GPU pays the
+            # per-message latency for every remote server it talks to.
+            msgs = max(self.spec.group_size, 1) * (r - 1)
+            return base + msgs * fabric.cfg.propagation_delay_s
+        return base
+
 
 @dataclasses.dataclass(frozen=True)
 class AllToAllStage:
@@ -834,6 +885,13 @@ class AllToAllStage:
     op: AllToAll
     index: int
     count: int
+
+    @property
+    def link_class(self) -> str:
+        """Which LinkBytes class this stage's traffic rides."""
+        if self.count == 2 and self.index == 0:
+            return "scale_up"
+        return "scale_out"
 
     def __call__(self, x, *, dest_perm=None, src_perm=None, async_op: bool = False):
         s = self.op.spec
@@ -919,6 +977,15 @@ class AllReduce(_OpBase):
             return LinkBytes(scale_up=inner, cross_region=ring)
         return LinkBytes(cross_region=2.0 * nbytes * (i - 1) / i)
 
+    def cost(self, fabric, bytes_per_server: float, num_servers: int | None = None, *,
+             compress_ratio: float = 1.0) -> float:
+        """Seconds of one reduction of ``bytes_per_server`` on ``fabric``
+        (``compress_ratio`` prices the int8 wire)."""
+        n = num_servers or (self.spec.outer_size if self.spec.outer_size > 1 else None)
+        record_link_bytes("allreduce",
+                          self.bytes_on_link(bytes_per_server, compress_ratio=compress_ratio))
+        return fabric.allreduce_time(bytes_per_server * compress_ratio, n)
+
 
 @dataclasses.dataclass(frozen=True)
 class AllGather(_OpBase):
@@ -939,6 +1006,13 @@ class AllGather(_OpBase):
 
     def bytes_on_link(self, nbytes: float) -> LinkBytes:
         return LinkBytes(scale_out=nbytes * max(self.spec.axis_size - 1, 0))
+
+    def cost(self, fabric, shard_bytes: float) -> float:
+        p = self.spec.axis_size
+        if p <= 1:
+            return 0.0
+        record_link_bytes("allgather", self.bytes_on_link(shard_bytes))
+        return (p - 1) * fabric.p2p_time(shard_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -965,6 +1039,13 @@ class ReduceScatter(_OpBase):
         if p <= 1:
             return LinkBytes()
         return LinkBytes(scale_out=nbytes * (p - 1) / p)
+
+    def cost(self, fabric, nbytes: float) -> float:
+        p = self.spec.axis_size
+        if p <= 1:
+            return 0.0
+        record_link_bytes("reducescatter", self.bytes_on_link(nbytes))
+        return (p - 1) * fabric.p2p_time(nbytes / p)
 
 
 class _PermuteFn(torch.autograd.Function):
@@ -1017,3 +1098,9 @@ class Permute(_OpBase):
         if self.spec.axis_size <= 1:
             return LinkBytes()
         return LinkBytes(scale_out=nbytes)
+
+    def cost(self, fabric, nbytes: float) -> float:
+        if self.spec.axis_size <= 1:
+            return 0.0
+        record_link_bytes("permute", self.bytes_on_link(nbytes))
+        return fabric.p2p_time(nbytes)

@@ -1,25 +1,32 @@
-"""Runtime-reconfiguration control plane, placement mode (paper Fig 20,
-DESIGN.md §3).
+"""Unified runtime-reconfiguration control plane (paper Fig 20, DESIGN.md
+§3), port of :mod:`repro.core.controlplane`.
 
-Port of :mod:`repro.core.controlplane` for the serving engine: the
-monitor -> solve -> reconfigure loop whose decisions are per-layer
-expert->slot permutations, applied to the stacked expert weights and
-threaded to the router::
+One engine drives the monitor -> COPILOT -> solve -> reconfigure loop for
+both consumers of runtime reconfiguration:
 
-    engine.observe(layer, load)   # every tick, every MoE layer (monitor)
-    engine.end_step()             # advance the window
+  * the flow-level simulator (:mod:`repro_torch.core.netsim`), where a
+    decision is a per-layer OCS cross-map actuated through
+    ``fabric.prepare`` with the hide-or-block semantics of §5.1 (OCS mode,
+    a bound ``fabric``), and
+  * the trainer and the serving engine, where a decision is a per-layer
+    expert->slot permutation applied to the stacked expert weights and
+    threaded to the router (placement mode)::
+
+    engine.observe(layer, load)   # every step, every MoE layer (monitor)
+    engine.end_step()             # advance the window + batched COPILOT refit
     plan = engine.plan(layer)     # per-layer decision (solve + hysteresis)
-    engine.apply(plan)            # actuate: compose into the perm stack
+    engine.apply(plan)            # actuate: OCS cross-map or perm stack
 
-Failure handling (§5.4) emits failover plans through the same path.
-``end_step`` refits COPILOT (:mod:`repro_torch.core.copilot`) across all
-layers in one batched call, as the reference does; the OCS mode (a bound
-``fabric``) raises ``NotImplementedError`` until its slice.
+Failure handling (§5.4) goes through the same engine: in OCS mode the bound
+fabric masks the failed server's circuits, in placement mode the engine
+emits failover plans.  ``end_step`` refits COPILOT
+(:mod:`repro_torch.core.copilot`) across all layers in one batched call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -335,11 +342,14 @@ class FailureHandler:
 
 
 class ControlPlane:
-    """The reconfiguration engine (one per reconfigurable region), in
-    placement mode: plans carry expert permutations over the current slot
-    occupancy and ``apply`` composes them into the per-layer ``perm_stack``
-    the model's router consumes.  ``fabric`` (OCS mode) raises
-    ``NotImplementedError`` until its slice."""
+    """The shared reconfiguration engine (one per reconfigurable region).
+
+    OCS mode (``fabric`` bound): plans carry demand matrices and ``apply``
+    actuates them through ``fabric.prepare`` with hide-or-block accounting.
+    Placement mode (no fabric): plans carry expert permutations over the
+    current slot occupancy and ``apply`` composes them into the per-layer
+    ``perm_stack`` the model's router consumes.
+    """
 
     def __init__(
         self,
@@ -354,21 +364,23 @@ class ControlPlane:
         reconfig_cost_bytes: float = 0.0,
         use_copilot: bool = True,
         fit_steps: int = 150,
+        batched_refit: bool = True,
         num_regions: int = 0,
     ):
-        if fabric is not None:
-            raise NotImplementedError("the OCS (fabric) mode comes with the evaluation slice")
         self.num_layers = num_layers
         self.num_experts = num_experts
         self.num_devices = max(num_devices, 1)
         self.replication = max(replication, 1)
         self.num_virtual = num_experts * self.replication
         self.experts_per_device = max(self.num_virtual // self.num_devices, 1)
+        self.fabric = fabric
         self.min_gain_fraction = min_gain_fraction
         self.reconfig_cost_bytes = reconfig_cost_bytes
         self.monitor = TrafficMonitor(num_layers, num_experts, window=window)
         self.copilot = (
-            CopilotPredictor(num_layers, num_experts, fit_steps=fit_steps)
+            CopilotPredictor(
+                num_layers, num_experts, fit_steps=fit_steps, batched_refit=batched_refit
+            )
             if use_copilot and num_layers > 1
             else None
         )
@@ -394,6 +406,28 @@ class ControlPlane:
             else None
         )
 
+    @classmethod
+    def for_simulation(
+        cls,
+        model,
+        fabric,
+        *,
+        num_servers_region: int | None = None,
+        gpus_per_server: int = 8,
+        use_copilot: bool = True,
+        fit_steps: int = 60,
+    ) -> "ControlPlane":
+        """Engine for one simulated PP stage's EP region (netsim consumer)."""
+        region = num_servers_region or max(model.gpus_per_stage // gpus_per_server, 2)
+        return cls(
+            num_layers=model.layers_per_stage,
+            num_experts=model.num_experts,
+            num_devices=region,
+            fabric=fabric,
+            use_copilot=use_copilot,
+            fit_steps=fit_steps,
+        )
+
     # -- lifecycle: observe ---------------------------------------------------
     def observe(self, layer: int, expert_load, device_matrix=None) -> None:
         """Record one layer's realized expert load for this step."""
@@ -417,7 +451,8 @@ class ControlPlane:
     # -- lifecycle: predict ---------------------------------------------------
     def predict_load(self, layer: int) -> np.ndarray | None:
         """COPILOT forecast of ``layer``'s load from layer-1's latest
-        observation (§B.1).  None when unavailable."""
+        observation (§B.1): what the FP's first all-to-all is planned from,
+        before the gate of ``layer`` has run.  None when unavailable."""
         if self.copilot is None or layer < 1:
             return None
         prev = self.monitor.loads(layer - 1)
@@ -458,12 +493,23 @@ class ControlPlane:
     ) -> LayerPlan:
         """Per-layer reconfiguration decision.
 
-        ``demand`` is ``[D, E_virtual]`` bytes device->slot; when omitted it
-        is proxied from the monitor's latest load for the layer, mapped
-        through the current slot occupancy.  The plan passes the
-        hide-or-block hysteresis only when the predicted byte gain beats the
-        permutation's own cost.
+        OCS mode: ``demand`` is the region's ``[S, S]`` inter-server matrix
+        (observed or COPILOT-predicted) and the plan carries it to the
+        fabric; Algorithm 1 runs inside ``fabric.prepare``.
+
+        Placement mode: ``demand`` is ``[D, E_virtual]`` bytes device->slot;
+        when omitted it is proxied from the monitor's latest load for the
+        layer, mapped through the current slot occupancy.  The plan passes
+        the hide-or-block hysteresis only when the predicted byte gain beats
+        the permutation's own cost.
         """
+        if self.fabric is not None:
+            if demand is None:
+                raise ValueError("OCS mode requires an explicit demand matrix")
+            return LayerPlan(
+                layer, True, demand=np.asarray(demand, dtype=np.float64),
+                predicted=predicted, reason="ocs cross-map",
+            )
         if demand is None:
             demand = self._demand_proxy(layer)
         if demand is None:
@@ -521,15 +567,24 @@ class ControlPlane:
         return perm
 
     # -- lifecycle: apply -----------------------------------------------------
-    def apply(self, plan: LayerPlan) -> float:
-        """Actuate a plan; returns the blocking seconds (always 0 here).
+    def apply(self, plan: LayerPlan, *, hide_window: float = math.inf) -> float:
+        """Actuate a plan; returns the *blocking* seconds (0 when hidden).
 
-        Composes the layer's permutation into ``perm_stack``; the caller
-        moves the expert weights with the matching inverse permutation
-        (:class:`PlacementApplier`).
+        OCS mode mirrors §5.1's hide-or-block: only the part of the
+        reconfiguration delay that does not fit in ``hide_window`` (the
+        pipelined compute between the phase's all-to-alls) stalls the pipe.
+        Placement mode composes the layer's permutation into ``perm_stack``;
+        the caller moves the expert weights with the matching inverse
+        permutation (:class:`PlacementApplier`).
         """
         if not plan.reconfigure:
             return 0.0
+        if self.fabric is not None:
+            overflow = max(0.0, self.fabric.cfg.reconfig_delay_s - hide_window)
+            blocked = self.fabric.prepare(plan.demand, can_hide=overflow <= 0.0)
+            self.reconfig_count += 1
+            metrics.counter("controlplane.reconfigs", mode="ocs").inc()
+            return min(blocked, overflow)
         base = self.layer_perms[plan.layer]
         self.layer_perms[plan.layer] = plan.perm[base]
         self.reconfig_count += 1
@@ -571,11 +626,19 @@ class ControlPlane:
 
     # -- failures (§5.4) ------------------------------------------------------
     def fail_device(self, device: int) -> list[LayerPlan]:
-        """A device drops out of the region: returns per-layer failover
-        plans (bounded remap permutations) for the consumer to apply through
-        the standard decide/apply path."""
+        """A server/device drops out of the region.
+
+        OCS mode: the bound fabric loses the server's optical circuits (EPS
+        fallback, ``MixNetFabric.fail_server_ocs``) and subsequent plans
+        route around it; no placement plans.  Placement mode: returns
+        per-layer failover plans (bounded remap permutations) for the
+        consumer to apply through the standard decide/apply path.
+        """
         if self.failures is not None:
             self.failures.fail_device(device)
+        if self.fabric is not None:
+            self.fabric.fail_server_ocs(device)
+            return []
         if self.failures is None:
             raise ValueError("placement-mode failures need >= 2 devices")
         perm = self.failures.swap_remap()
@@ -584,9 +647,18 @@ class ControlPlane:
             for l in range(self.num_layers)
         ]
 
+    def fail_nic(self, server: int, failed_nics: int = 1) -> None:
+        """Partial NIC failure: the server keeps running with fewer optical
+        links (OCS mode only; the fabric reroutes over the rest + EPS)."""
+        if self.fabric is None:
+            raise ValueError("NIC failures only exist in OCS (fabric) mode")
+        self.fabric.fail_server_nic(server, failed_nics)
+
     def restore_device(self, device: int) -> None:
         if self.failures is not None:
             self.failures.restore_device(device)
+        if self.fabric is not None:
+            self.fabric.restore_server_ocs(device)
 
     def failover_slots(self) -> np.ndarray:
         """§5.4 elastic remap (overflow slots allowed) — exposed for

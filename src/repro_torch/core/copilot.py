@@ -14,8 +14,9 @@ solved by projected gradient descent with the reference's step size and its
 50-step bisection simplex projection, batched over layers in numpy float32
 (what the reference computes on the CPU with JAX's 64-bit mode off).  It is host-side control logic on small ``[L, E, E]``
 tensors and runs on the CPU whatever device the model is on.
-``rollout`` is the fleet's steering predictor; the Fig. 19 accuracy
-helpers come with the evaluation slice.
+``rollout`` is the fleet's steering predictor; :func:`topk_accuracy` and
+the two Fig. 19 baselines (``baseline_unchanged``, ``baseline_random``)
+score the predictions.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["fit_transition_matrices", "CopilotPredictor"]
+__all__ = ["fit_transition_matrices", "topk_accuracy", "CopilotPredictor"]
 
 
 def _project_columns_to_simplex(p: np.ndarray, iters: int = 50) -> np.ndarray:
@@ -70,6 +71,13 @@ def fit_transition_matrices(x, y, weights, p_init, steps: int = 200, lr: float =
     return torch.from_numpy(np.ascontiguousarray(p, dtype=f32))
 
 
+def topk_accuracy(pred: np.ndarray, truth: np.ndarray, k: int) -> float:
+    """Fraction of the true top-k experts recovered in the predicted top-k."""
+    pred_top = set(np.argsort(-np.asarray(pred))[:k].tolist())
+    true_top = set(np.argsort(-np.asarray(truth))[:k].tolist())
+    return len(pred_top & true_top) / max(k, 1)
+
+
 @dataclasses.dataclass
 class CopilotState:
     """Per-layer transition matrices ``[L-1, E, E]`` plus the fit count."""
@@ -93,12 +101,17 @@ class CopilotPredictor:
         window: int = 8,
         decay: float = 0.7,
         fit_steps: int = 150,
+        batched_refit: bool = True,
     ):
         self.num_layers = num_layers
         self.num_experts = num_experts
         self.window = window
         self.decay = decay
         self.fit_steps = fit_steps
+        if not batched_refit:
+            raise NotImplementedError(
+                "the per-layer refit loop (the reference's copilot_refit benchmark yardstick) "
+                "is not ported; the batched refit is the one every caller runs")
         eye_mix = np.full((num_experts, num_experts), 1.0 / num_experts)
         self.state = CopilotState(transitions=np.tile(eye_mix, (max(num_layers - 1, 1), 1, 1)))
 
@@ -154,3 +167,15 @@ class CopilotPredictor:
             x = x / max(float(x.sum()), 1e-12)
             mixes.append(x)
         return np.stack(mixes)
+
+    # Baselines from Fig. 19 -------------------------------------------------
+    @staticmethod
+    def baseline_unchanged(observed_load: np.ndarray) -> np.ndarray:
+        """'Unchanged topology': assume layer l+1 loads == layer l loads."""
+        x = np.asarray(observed_load, dtype=np.float64)
+        return x / max(x.sum(), 1e-12)
+
+    def baseline_random(self, rng: np.random.Generator) -> np.ndarray:
+        """'Uniform bandwidth allocation': random/uniform expectation."""
+        p = rng.random(self.num_experts)
+        return p / p.sum()

@@ -291,8 +291,21 @@ def _moe_mixnet_local(
 
     a2a = AllToAll(CommSpec.from_plan(plan, group_size=e.a2a_group, mesh=mesh))
     chunks = chunk_count(tl, e.overlap_chunks)
+    # The tapped weights live in ``taps``, not on ``serial_dw``: the taps'
+    # autograd nodes hold ``serial_dw``, and a reference back would be a cycle.
+    serial_dw, taps = None, {}
+    if chunks > 1 and dropless and torch.is_grad_enabled() and (
+            w_in.requires_grad or w_gate.requires_grad or w_out.requires_grad):
+        serial_dw = _SerialOrderDW(p_axis, n, ev_local, e.dispatch_block)
 
-    def expert_ffn_block(rx, re):
+    def gmm(x, w, be, chunk, key):
+        if serial_dw is None:
+            return ops.grouped_matmul(x, w, block_experts=be)
+        if key not in taps:
+            taps[key] = serial_dw.tap(w, key)
+        return serial_dw.gmm(x, taps[key], be, key, chunk)
+
+    def expert_ffn_block(rx, re, chunk=None):
         """Received rows -> per-expert pack -> grouped GEMMs -> unpacked
         rows aligned with the receive layout, and the kept count."""
         valid = re >= 0
@@ -304,9 +317,11 @@ def _moe_mixnet_local(
             packed = ops.moe_dispatch(rx, plan2.src, inverse=plan2.slot)
             packed = packed.reshape(-1, e.dispatch_block, d)
             be = plan2.block_experts
-            h = ops.grouped_matmul(packed, w_in, block_experts=be)
-            gt = ops.grouped_matmul(packed, w_gate, block_experts=be)
-            ye = ops.grouped_matmul(act(gt) * h, w_out, block_experts=be)
+            if serial_dw is not None:
+                serial_dw.add_chunk(chunk, re, plan2.slot)
+            h = gmm(packed, w_in, be, chunk, "w_in")
+            gt = gmm(packed, w_gate, be, chunk, "w_gate")
+            ye = gmm(act(gt) * h, w_out, be, chunk, "w_out")
         else:
             c2 = routing.capacity(re.shape[0], 1, ev_local, e.capacity_factor)
             plan2 = routing.capacity_plan(re, rank2, valid, ev_local, c2)
@@ -413,13 +428,13 @@ def _mixnet_chunked(
             st["e"] = disp_stages[1](st["e"].wait(), async_op=True)
         return st
 
-    def s_ffn(st, _):
+    def s_ffn(st, k):
         if fused:
             recv_x, recv_e = fuse_unpack(st["x"].wait(), d)
         else:
             recv_x, recv_e = st["x"].wait(), st["e"].wait()[..., 0]
         back, kept_c = expert_ffn_block(recv_x.reshape(p_axis * cp_c, d),
-                                        recv_e.reshape(p_axis * cp_c))
+                                        recv_e.reshape(p_axis * cp_c), k)
         back = back.reshape(p_axis, cp_c, d)
         last = len(ret_stages) == 1
         back = ret_stages[0](back, src_perm=wire_src if last else None, async_op=True)
@@ -451,6 +466,138 @@ def _mixnet_chunked(
     out = torch.cat([res[0] for res in results], dim=0)
     kept = sum(res[1] for res in results)
     return out, kept
+
+
+class _SerialOrderDW:
+    """Expert weight gradients of the chunked dropless pipeline, computed in
+    the serial path's row order.
+
+    Chunking splits each expert's received rows over the chunks' GEMMs, so
+    per-chunk weight gradients summed by autograd round differently from
+    the serial path's one product over all of the expert's rows: the
+    trained weights would drift from the serial run's in their low bits.
+    Here every chunk's GEMM (:class:`_ChunkGMM`) returns its input gradient
+    only and leaves its ``(x, dy)`` rows; once every chunk's backward has run,
+    the weight's tap (:class:`_WeightTap`) places those rows where the
+    serial path packs them (source-major, chunk-minor: a source's serial
+    send buffer is its chunks' buffers one after another) and takes the
+    weight gradient in one product over that layout, bit for bit the serial
+    path's."""
+
+    def __init__(self, p_axis: int, cp: int, experts: int, block: int):
+        self.p_axis, self.cp, self.experts, self.block = p_axis, cp, experts, block
+        self.chunks: dict = {}  # chunk -> (received expert ids, received -> packed row)
+        self.rows: dict = {}  # weight key -> {chunk: (x, dy)}
+        self._layout = None
+
+    def add_chunk(self, chunk: int, re: torch.Tensor, slot: torch.Tensor) -> None:
+        self.chunks[chunk] = (re, slot)
+
+    def tap(self, w, key: str):
+        """``w`` behind its tap: pass it to :meth:`gmm` with the same key."""
+        self.rows[key] = {}
+        return _WeightTap.apply(w, self, key)
+
+    def gmm(self, x, w_tapped, be, key: str, chunk: int):
+        return _ChunkGMM.apply(x, w_tapped, be, self, key, chunk)
+
+    def layout(self):
+        """(serial block->expert map, and per chunk its packed rows and the
+        serial packed rows they land on), built once."""
+        if self._layout is None:
+            p, cp = self.p_axis, self.cp
+            dev = next(iter(self.chunks.values()))[0].device
+            re_serial = torch.full((p, cp), -1, dtype=torch.int32, device=dev)
+            fill = torch.zeros(p, dtype=torch.long, device=dev)
+            placed = {}
+            for k in sorted(self.chunks):
+                re, slot = self.chunks[k]
+                re = re.reshape(p, -1)
+                valid = re >= 0
+                # Serial position of each valid row: after the source's rows
+                # of the earlier chunks, in its own order.
+                pos = fill[:, None] + torch.cumsum(valid.long(), 1) - 1
+                src_rows = torch.arange(p, device=dev)[:, None].expand_as(re)
+                re_serial[src_rows[valid], pos[valid]] = re[valid]
+                placed[k] = (slot.reshape(p, -1)[valid].long(), src_rows[valid] * cp + pos[valid])
+                fill += valid.sum(1)
+            re_flat = re_serial.reshape(p * cp)
+            valid = re_flat >= 0
+            rank2, counts2 = routing.bucket_ranks(re_flat, self.experts, valid=valid)
+            plan2 = routing.dropless_plan(re_flat, rank2, counts2, valid, self.experts, self.block)
+            rows = {k: (chunk_rows, plan2.slot.long()[serial_idx])
+                    for k, (chunk_rows, serial_idx) in placed.items()}
+            self._layout = (plan2.block_experts, plan2.num_rows, rows)
+        return self._layout
+
+    def weight_grad(self, w: torch.Tensor, key) -> torch.Tensor:
+        be, num_rows, rows = self.layout()
+        parts = self.rows.pop(key)
+        x0, dy0 = next(iter(parts.values()))
+        xs = x0.new_zeros((num_rows, x0.shape[-1]))
+        dys = dy0.new_zeros((num_rows, dy0.shape[-1]))
+        for k, (x, dy) in parts.items():
+            chunk_rows, serial_rows = rows[k]
+            xs[serial_rows] = x.reshape(-1, x.shape[-1])[chunk_rows]
+            dys[serial_rows] = dy.reshape(-1, dy.shape[-1])[chunk_rows]
+        xs = xs.reshape(-1, self.block, xs.shape[-1])
+        dys = dys.reshape(-1, self.block, dys.shape[-1])
+        if xs.device.type == "cpu":
+            # The serial path's own autograd product on the CPU.
+            with torch.enable_grad():
+                wr = w.detach().requires_grad_()
+                y = ops.grouped_matmul(xs, wr, block_experts=be)
+                return torch.autograd.grad(y, wr, dys)[0]
+        from repro_torch.kernels.grouped_matmul import grouped_matmul_blocks_dw_cuda
+
+        return grouped_matmul_blocks_dw_cuda(xs, dys.contiguous(), be, w.shape[0])
+
+
+class _WeightTap(torch.autograd.Function):
+    """Identity on an expert weight whose backward is the serial-order
+    weight gradient (:class:`_SerialOrderDW`); it runs after every chunk's
+    GEMM backward, as all of them consume its output."""
+
+    @staticmethod
+    def forward(ctx, w, owner, key):
+        ctx.owner, ctx.key = owner, key
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(w)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, _):
+        w, = ctx.saved_tensors
+        return ctx.owner.weight_grad(w, ctx.key), None, None
+
+
+class _ChunkGMM(torch.autograd.Function):
+    """One chunk's dropless block GEMM: the op's forward; the backward gives
+    the input gradient and leaves ``(x, dy)`` for the weight's tap."""
+
+    @staticmethod
+    def forward(ctx, x, w, be, owner, key, chunk):
+        ctx.owner, ctx.key, ctx.chunk = owner, key, chunk
+        ctx.save_for_backward(x, w, be)
+        with torch.no_grad():
+            return ops.grouped_matmul(x, w, block_experts=be)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, be = ctx.saved_tensors
+        ctx.owner.rows[ctx.key][ctx.chunk] = (x, dy)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            if x.device.type == "cpu":
+                with torch.enable_grad():
+                    xr = x.detach().requires_grad_()
+                    y = ops.grouped_matmul(xr, w.detach(), block_experts=be)
+                    dx = torch.autograd.grad(y, xr, dy)[0]
+            else:
+                from repro_torch.kernels.grouped_matmul import grouped_matmul_blocks_dx_cuda
+
+                dx = grouped_matmul_blocks_dx_cuda(dy.contiguous(), w, be)
+        return dx, None, None, None, None, None
 
 
 _LATER = "comes with a later item of the multi-device port (ROADMAP.md §1)"

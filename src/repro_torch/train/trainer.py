@@ -37,9 +37,15 @@ keeps the whole perm stack and wire maps and observes the canonical
 ``[repeats, E]`` loads, so every rank plans alike; a plan moves weights,
 or re-addresses the wire, only in the stage that owns its layer.
 
+The cached autotuner (:mod:`repro_torch.core.autotune`): with
+``autotune_cache`` and ``autotune_key`` set, a hit replaces the constant
+comm knobs (``overlap_chunks`` and the dispatch mode, ``dp_compress`` where
+the mesh runs it) before the model is built; a miss prints a one-line
+warning, bumps ``autotune.cache_miss`` and keeps the configured constants.
+
 Not ported yet, each raising ``NotImplementedError``: ZeRO-3 parameter
-sharding (a plan with ``fsdp_axis``), checkpoints of a trainer over more
-than one rank, and the cached autotuner (the evaluation slice).
+sharding (a plan with ``fsdp_axis``) and checkpoints of a trainer over more
+than one rank.
 """
 
 from __future__ import annotations
@@ -85,6 +91,8 @@ class TrainerConfig:
     dp_compress: bool = False
     pp_stages: int = 1
     num_microbatches: int = 1
+    # Cached autotuner: a cache file written by autotune.tune (either
+    # package's) and the key to look up in it; see the module docstring.
     autotune_cache: str = ""
     autotune_key: str = ""
     # Straggler watchdog: warn when a step exceeds ema * factor.
@@ -118,8 +126,18 @@ class Trainer:
                 "checkpoints of a sharded trainer come with checkpoints across meshes "
                 "(ROADMAP.md §1)"
             )
-        if tcfg.autotune_cache:
-            raise NotImplementedError("the cached autotuner comes with the evaluation slice")
+        if tcfg.autotune_cache and tcfg.autotune_key:
+            from repro_torch.core import autotune
+
+            tuned = autotune.load_cached(tcfg.autotune_cache, tcfg.autotune_key)
+            if tuned is not None:
+                cfg, tcfg = autotune.apply_to_trainer(cfg, tcfg, tuned)
+            else:
+                metrics.counter("autotune.cache_miss").inc()
+                print(
+                    f"[trainer] autotune cache miss: key {tcfg.autotune_key!r} "
+                    f"not in {tcfg.autotune_cache} — using configured constants"
+                )
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg

@@ -1341,3 +1341,41 @@ def test_prefix_hit_equals_miss_on_the_card(dev, monkeypatch):
     (miss_logits, miss_toks), (hit_logits, hit_toks) = out[False], out[True]
     assert torch.equal(hit_logits, miss_logits), (hit_logits - miss_logits).abs().max()
     assert hit_toks == miss_toks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_chunked_trainer_equals_serial_on_the_card(dev, remat):
+    """The tuned ``overlap_chunks`` path trains bit for bit like one chunk:
+    the chunked pipeline's expert weight gradients are taken in the serial
+    path's row order (kernel 7's dW over the serial layout), so the losses
+    and every parameter after a few steps are the one-chunk trainer's."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    base = ModelConfig("t", "moe", 2, 256, 4, 2, 0, 512, dtype="bfloat16", remat=remat,
+                       moe=MoEConfig(num_experts=8, top_k=2, d_ff=512, backend="mixnet"))
+    runs = []
+    for chunks in (1, 4):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, overlap_chunks=chunks))
+        tr = Trainer(cfg, AdamWConfig(lr=1e-3), TrainerConfig(total_steps=3), make_plan(None),
+                     seed=0, device=dev)
+        tr.train(iter(SyntheticLM(512, seq_len=128, global_batch=2, seed=0)))
+        runs.append(([m["loss"] for m in tr.metrics_log],
+                     {k: v.detach().clone() for k, v in _flat_leaves(tr.params)}))
+    assert runs[0][0] == runs[1][0]
+    for name, leaf in runs[0][1].items():
+        assert torch.equal(leaf, runs[1][1][name]), name
+
+
+def _flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
