@@ -129,6 +129,24 @@ Phases, one printed line (or more) each:
    is removed;
 13. serve checkpoint — reduced grok-1 saved mid-reconfiguration and
    restored into a fresh engine gives bit-identical next tokens;
+13b. dense — gemma2-2b at its published widths and all 26 layers (local /
+   global attention with a 4096-token window, softcaps 50 and 30, head dim
+   256, GEGLU, a tied head), random weights from ``--seed``: kernels 2 (and
+   its backward, the f32-staged kernels at D = 256) and 8 (and its
+   backward) at its training shapes against their plain versions; 6
+   training steps of 2 x 256 tokens through ``Trainer`` (no control plane),
+   losses finite, peak memory under 80 GB; one reduced step (2 layers,
+   d_model 256, head dim 256, window 32 of 64 tokens, f32) on the card
+   against the CPU; the 8 chat requests served (paged), a prefix hit whose
+   admission logits and tokens equal a miss's bit for bit, decode against
+   prefill; one 4,608-token prompt (the window binds on the 13 local
+   layers): the prefill's logits (kernel 2) against its paged decode-mode
+   admission (kernel 3), and kernel 3 at that chunk against its plain
+   version and against kernel 2 on the same K/V; then deepseek-7b (all 30
+   layers), deepseek-67b and mistral-large-123b (depth cut to 2) each
+   served 4 requests and held decode against prefill; kernel 3 at
+   deepseek-7b's group of 1 and kernel 8 at mistral-large's D = 12288;
+   the phase's seconds and peak memory;
 14. multi-rank — Mixtral-8x7B at its published widths as four ranks
    sharing the card (``torch.multiprocessing``, spawn; gloo, with the
    collectives gloo refuses on CUDA tensors staged through host memory and
@@ -324,6 +342,24 @@ KERNEL_ROWS = {
     # evaluation phase's), with rank 0's launches there.
     "grouped_matmul_blocks_chunk": ("src/repro_torch/csrc/grouped_matmul.cu",
                                     "src/repro/kernels/grouped_matmul.py:116"),
+    # The dense phase: kernels 2 (and its backward: the f32-staged kernels at
+    # D = 256) and 8 (and its backward) at gemma2-2b's training shapes, with
+    # its launches; kernel 3 at gemma2's decode tick, at a 4,608-token
+    # admission chunk and at deepseek-7b's group of 1; kernel 8 at the
+    # mistral-large serve's shapes (D = 12288: the two-read kernel).
+    "flash_attention_gemma2": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:105"),
+    "flash_attention_bwd_gemma2": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:105"),
+    "rmsnorm_gemma2": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "rmsnorm_bwd_gemma2": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "paged_flash_decode_gemma2": ("src/repro_torch/csrc/paged_flash_decode.cu",
+                                  "src/repro/kernels/flash_attention.py:226"),
+    "paged_flash_decode_gemma2_admit": ("src/repro_torch/csrc/paged_flash_decode.cu",
+                                        "src/repro/kernels/flash_attention.py:226"),
+    "paged_flash_decode_group1": ("src/repro_torch/csrc/paged_flash_decode.cu",
+                                  "src/repro/kernels/flash_attention.py:226"),
+    "rmsnorm_mistral": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
 }
 # End-to-end numbers the serve phases leave for the summary line (measured,
 # not claimed: they move with the host).
@@ -788,10 +824,11 @@ def undo_placement(eng) -> None:
 
 
 def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: int,
-          max_len: int, page: int, device="cuda", **scfg_kw):
+          max_len: int, page: int, device="cuda", tag: str = "grok", **scfg_kw):
     """Serve ``reqs`` through ``ServeEngine``; ``scfg_kw``: more
     ``ServeConfig`` switches (``sample``, ``sample_seed``, ``spec_k``).  A
-    speculative serve's rounds are probed (``spec_probe``)."""
+    speculative serve's rounds are probed (``spec_probe``).  ``tag`` names
+    the model in the printed lines and the end-to-end numbers."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -822,7 +859,7 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
     rep = eng.run(reqs, gen)
     counts, shapes = ops.launch_counts(), ops.launch_shapes()
     toks = {r.rid: list(r.out) for r in eng.batcher.finished}
-    TOKENS_SHA256[f"grok-1 serve, {label}"] = tokens_sha256(toks)
+    TOKENS_SHA256[f"{tag} serve, {label}"] = tokens_sha256(toks)
     decode = sorted(ms for ms, pure in tick_ms if pure)
     admit = sorted(ms for ms, pure in tick_ms if not pure)
     med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")  # noqa: E731
@@ -834,12 +871,12 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
                 f"(n={len(probe['verify_ms'])}), one round launched {probe['draft_kernels']} "
                 f"kernels drafting {scfg.spec_k} tokens and {probe['verify_kernels']} verifying "
                 f"{scfg.spec_k + 1}; kernel 3 launches by (B, C) {shapes['paged_flash_decode']}")
-        E2E[f"grok spec round kernels (draft, verify), {label}"] = [probe["draft_kernels"],
+        E2E[f"{tag} spec round kernels (draft, verify), {label}"] = [probe["draft_kernels"],
                                                                      probe["verify_kernels"]]
-        E2E[f"grok verify ms, {label}"] = med(probe["verify_ms"])
-        E2E[f"grok draft ms, {label}"] = med(probe["draft_ms"])
-        E2E[f"grok acceptance, {label}"] = rep.spec_acceptance
-    print(f"serve {label}: completed={rep.completed}/{rep.requests} "
+        E2E[f"{tag} verify ms, {label}"] = med(probe["verify_ms"])
+        E2E[f"{tag} draft ms, {label}"] = med(probe["draft_ms"])
+        E2E[f"{tag} acceptance, {label}"] = rep.spec_acceptance
+    print(f"serve {tag} {label}: completed={rep.completed}/{rep.requests} "
           f"ticks={rep.ticks} tokens={rep.tokens_out} wall_s={rep.wall_s:.3f} "
           f"tokens_per_s={rep.tokens_per_s:.2f} mean_tick_ms={1e3 * rep.wall_s / rep.ticks:.3f} "
           f"decode_tick_ms median={med(decode):.3f} (n={len(decode)}) "
@@ -851,10 +888,10 @@ def serve(torch, params, cfg, plan, reqs, gen, *, reconfig_every: int, slots: in
     assert rep.completed == len(reqs), f"serve {label}: not every request completed"
     if eng.applier is not None:
         undo_placement(eng)
-    E2E[f"grok decode tick ms, {label}"] = med(decode)
-    E2E[f"grok tokens/s, {label}"] = rep.tokens_per_s
-    E2E[f"grok decode tick kernel launches, {label}"] = traced["launches"]
-    E2E[f"grok decode tick device ms, {label}"] = traced["device_ms"]
+    E2E[f"{tag} decode tick ms, {label}"] = med(decode)
+    E2E[f"{tag} tokens/s, {label}"] = rep.tokens_per_s
+    E2E[f"{tag} decode tick kernel launches, {label}"] = traced["launches"]
+    E2E[f"{tag} decode tick device ms, {label}"] = traced["device_ms"]
     return rep, toks, counts, shapes
 
 
@@ -1689,24 +1726,26 @@ def capacity_edge_cases(torch, g):
 # ---------------------------------------------------------------------------
 
 
-def step_card_vs_cpu(torch, seed: int, **moe_kw) -> float:
+def step_card_vs_cpu(torch, seed: int, cfg=None, **moe_kw) -> float:
     """Loss and every parameter's gradient of one step at a reduced width,
-    f32, on the card (kernels) and on the CPU (plain versions); ``moe_kw``
-    overrides the MoE config (the capacity layout).  Tolerance: the loss
-    within 1e-4 relative; each gradient within 1e-3 of its largest
-    magnitude (f32 sums in another order through two layers), and no
-    gradient may be zero on one side only (a cut gradient)."""
+    f32, on the card (kernels) and on the CPU (plain versions): Mixtral at
+    d_model 512, ``moe_kw`` overriding its MoE config (the capacity layout),
+    or ``cfg``.  Tolerance: the loss within 1e-4 relative; each gradient
+    within 1e-3 of its largest magnitude (f32 sums in another order through
+    two layers), and no gradient may be zero on one side only (a cut
+    gradient)."""
     from repro_torch.configs.paper_models import MIXTRAL_8X7B_CONFIG
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import make_plan
     from repro_torch.train.train_step import init_all, loss_fn
 
-    cfg = dataclasses.replace(
-        MIXTRAL_8X7B_CONFIG, num_layers=2, d_model=512, num_heads=4, num_kv_heads=2,
-        d_ff=1024, dtype="float32",
-        moe=dataclasses.replace(MIXTRAL_8X7B_CONFIG.moe, d_ff=1024, **moe_kw),
-    )
+    if cfg is None:
+        cfg = dataclasses.replace(
+            MIXTRAL_8X7B_CONFIG, num_layers=2, d_model=512, num_heads=4, num_kv_heads=2,
+            d_ff=1024, dtype="float32",
+            moe=dataclasses.replace(MIXTRAL_8X7B_CONFIG.moe, d_ff=1024, **moe_kw),
+        )
     plan = make_plan(None)
     params, _, _ = init_all(seed, cfg, plan, AdamWConfig(), device="cpu")
     b = next(iter(SyntheticLM(cfg.vocab_size, 64, 2, seed=seed)))
@@ -1732,8 +1771,10 @@ def step_card_vs_cpu(torch, seed: int, **moe_kw) -> float:
         err = (got - want).abs().max().item()
         assert err <= 1e-3 * scale + 1e-7, f"{name}: max |diff| {err} vs max |grad| {scale}"
         worst = max(worst, err / max(scale, 1e-30))
-    print(f"step: card vs cpu, dispatch={cfg.moe.dispatch} (capacity factor "
-          f"{cfg.moe.capacity_factor}), remat={cfg.remat}, at d_model {cfg.d_model}, "
+    what = (f"dispatch={cfg.moe.dispatch} (capacity factor {cfg.moe.capacity_factor})"
+            if cfg.is_moe else f"{cfg.name} (head dim {cfg.resolved_head_dim}, window "
+            f"{cfg.window_size}, softcaps {cfg.logit_softcap}/{cfg.final_softcap}, 64 tokens)")
+    print(f"step: card vs cpu, {what}, remat={cfg.remat}, at d_model {cfg.d_model}, "
           f"{cfg.num_layers} layers, "
           f"{len(g_cpu)} gradients: loss {loss_gpu.item():.6f} vs {loss_cpu.item():.6f}, "
           f"worst max|diff|/max|grad| = {worst:.3e}", flush=True)
@@ -1949,6 +1990,11 @@ SHAPE_ROWS = {
     "moe_dispatch_rank_pack": "moe_dispatch", "grouped_matmul_blocks_rank": "grouped_matmul_blocks",
     "moe_combine_rank": "moe_combine", "grouped_matmul_blocks_stage": "grouped_matmul_blocks",
     "grouped_matmul_blocks_chunk": "grouped_matmul_blocks",
+    "flash_attention_gemma2": "flash_attention", "flash_attention_bwd_gemma2": "flash_attention_bwd",
+    "rmsnorm_gemma2": "rmsnorm", "rmsnorm_bwd_gemma2": "rmsnorm_bwd",
+    "paged_flash_decode_gemma2": "paged_flash_decode",
+    "paged_flash_decode_gemma2_admit": "paged_flash_decode",
+    "paged_flash_decode_group1": "paged_flash_decode", "rmsnorm_mistral": "rmsnorm",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
@@ -2852,6 +2898,475 @@ def mamba_part(torch, seed: int, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 13b: dense models
+# ---------------------------------------------------------------------------
+
+DENSE_STEPS = 6
+DENSE_LONG = 4608  # one prompt past gemma2's 4096-token window
+# Served dense families and their depth: None keeps every layer.
+DENSE_SERVED = {"deepseek-7b": None, "deepseek-67b": 2, "mistral-large-123b": 2}
+DENSE_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+# Prefill (kernel 2) against paged decode-mode logits (kernel 3) over
+# gemma2's 26 bf16 layers: the two paths round every activation along
+# other sums; 5e-2 of the logits' largest magnitude, decode_vs_prefill's.
+DENSE_LOGIT_REL = 5e-2
+
+
+def dense_attention_rows(torch, cfg, seed: int) -> dict:
+    """Kernel 2 forward and backward at gemma2's training shape (q [2, 8,
+    256, 256] bf16, causal, its window of 4096 and softcap 50; at 256
+    positions the window does not bind), against the plain version and its
+    autograd.  SDPA takes no softcap: its time is SDPA's without one."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 26)
+    b, s, hq, hkv, d = 2, 256, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    kw = dict(causal=True, window=cfg.window_size, softcap=cfg.logit_softcap)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev).bfloat16()  # noqa: E731
+    q, kk, vv, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), randn(b, hq, s, d)
+    out, lse = kfa.flash_attention_cuda(q, kk, vv, return_lse=True, **kw)
+    kx, vx = (a.repeat_interleave(hq // hkv, dim=1) for a in (kk, vv))
+    pairs = sum(min(i + 1, cfg.window_size) for i in range(s))
+    shape = (f"q [{b}, {hq}, {s}, {d}], k/v [{b}, {hkv}, {s}, {d}] bf16 causal, window "
+             f"{cfg.window_size}, softcap {cfg.logit_softcap}; library: SDPA without softcap")
+    rows = {"flash_attention_gemma2": kernel_row(
+        torch, "flash_attention_gemma2",
+        check(torch, out, ref.flash_attention(q, kk, vv, **kw), BF16_TOL, "flash_attention gemma2"),
+        lambda: kfa.flash_attention_cuda(q, kk, vv, return_lse=True, **kw), 50,
+        time_ms(torch, lambda: ref.flash_attention(q, kk, vv, **kw), 10),
+        timed(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 50),
+        2 * (2 * b * hq + 2 * b * hkv) * s * d + b * hq * s * 4, 4.0 * d * pairs * hq * b,
+        "bfloat16", shape,
+    )}
+    want = _grads(torch, lambda a, c, e: ref.flash_attention(a, c, e, **kw), [q, kk, vv], do)
+    got = kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do, **kw)
+    err = max(check_rel(a, w, BF16_GRAD_REL, f"flash_attention_bwd gemma2 d{nm}")
+              for a, w, nm in zip(got, want, "qkv"))
+    ql, kl, vl = (a.detach().clone().requires_grad_() for a in (q, kk, vv))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    rows["flash_attention_bwd_gemma2"] = kernel_row(
+        torch, "flash_attention_bwd_gemma2", err,
+        lambda: kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do, **kw), 20,
+        time_ms(torch, lambda: ref.flash_attention_bwd(q, kk, vv, do, **kw), 5),
+        timed(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), 20),
+        (3 * b * hq * s * d + 4 * b * hkv * s * d + b * hq * s * d) * 2 + b * hq * s * 4,
+        10.0 * d * pairs * hq * b, "bfloat16", shape,
+    )
+    return rows
+
+
+def dense_norm_rows(torch, t: int, d: int, seed: int, suffix: str, backward: bool) -> dict:
+    """Kernel 8 (and its backward) at ``x [t, d]`` bf16 against the plain
+    version (and its autograd); ``F.rms_norm`` as the library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as krms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + d)
+    x = torch.randn((t, d), generator=g, device=dev).bfloat16()
+    dy = torch.randn((t, d), generator=g, device=dev).bfloat16()
+    w = (torch.randn((d,), generator=g, device=dev) * 0.1).bfloat16()
+    eps = 1e-6
+    want = ref.rmsnorm(x, w, eps)
+    w1 = (1.0 + w.float()).bfloat16()  # the library's weight, formed before timing
+    name = f"rmsnorm_{suffix}"
+    rows = {name: kernel_row(
+        torch, name, check(torch, krms.rmsnorm_cuda(x, w, eps), want, BF16_TOL, name),
+        lambda: krms.rmsnorm_cuda(x, w, eps), 200, time_ms(torch, lambda: ref.rmsnorm(x, w, eps), 50),
+        library_time(torch, lambda: F.rms_norm(x, (d,), w1, eps), want, BF16_TOL["rtol"], 200,
+                     f"{name} (F.rms_norm)"),
+        (2 * t * d + d) * 2, 4.0 * t * d, "bfloat16", f"x [{t}, {d}] bf16, w [{d}]", graph=True,
+    )}
+    if not backward:
+        return rows
+    want_dx, want_dw = _grads(torch, lambda a, c: ref.rmsnorm(a, c, eps), [x, w], dy)
+    gdx, gdw = krms.rmsnorm_bwd_cuda(x, w, dy, eps)
+    err = max(check(torch, gdx, want_dx, BF16_TOL, f"rmsnorm_bwd {suffix} dx"),
+              check_rel(gdw, want_dw, NORM_DW_REL, f"rmsnorm_bwd {suffix} dw"))
+    xp, wp = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    plain_out = ref.rmsnorm(xp, wp, eps)
+    xl, wl = x.detach().clone().requires_grad_(), w1.detach().clone().requires_grad_()
+    lib_out = F.rms_norm(xl, (d,), wl, eps)
+    name = f"rmsnorm_bwd_{suffix}"
+    rows[name] = kernel_row(
+        torch, name, err, lambda: krms.rmsnorm_bwd_cuda(x, w, dy, eps), 200,
+        time_ms(torch, lambda: torch.autograd.grad(plain_out, (xp, wp), dy, retain_graph=True), 20),
+        timed(torch, lambda: torch.autograd.grad(lib_out, (xl, wl), dy, retain_graph=True), 100),
+        (3 * t * d + 2 * d) * 2, 8.0 * t * d, "bfloat16", f"x, dy [{t}, {d}] bf16 -> dx, dw [{d}]",
+        graph=True,
+    )
+    return rows
+
+
+def paged_row(torch, name: str, q, kp, vp, table, tvec, *, window, softcap, iters: int,
+              plain_iters: int, what: str) -> dict:
+    """Kernel 3 at ``q [B, C, Hq, D]`` over pools ``[N, page, Hkv, D]``, row
+    c of slot b at position t_b + c, against the plain version; the library
+    call is the gathered view through SDPA with the causal (and window)
+    mask and no softcap."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import paged_flash_decode_cuda
+
+    kw = dict(window=window, softcap=softcap)
+    b, c, hq, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    out = paged_flash_decode_cuda(q, kp, vp, table, tvec, **kw)
+    err = check(torch, out, ref.paged_flash_decode(q, kp, vp, table, tvec, **kw), BF16_TOL, name)
+    pos = torch.arange(table.shape[1] * page, device=q.device)
+    qpos = tvec[:, None] + torch.arange(c, device=q.device)[None, :]  # [B, C]
+    mask = pos[None, None, :] <= qpos[:, :, None]
+    if window is not None:
+        mask &= (qpos[:, :, None] - pos[None, None, :]) < window
+    mask = mask[:, None]
+
+    def sdpa():
+        vk = ref.paged_gather_kv(kp, table).transpose(1, 2)
+        vv = ref.paged_gather_kv(vp, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), vk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+
+    t_list = tvec.tolist()
+    keys = [min(t + j + 1, window or t + j + 1) for t in t_list for j in range(c)]
+    kv_rows = sum(t + c if window is None else min(t + c, window + c - 1) for t in t_list)
+    return kernel_row(
+        torch, name, err, lambda: paged_flash_decode_cuda(q, kp, vp, table, tvec, **kw), iters,
+        time_ms(torch, lambda: ref.paged_flash_decode(q, kp, vp, table, tvec, **kw), plain_iters),
+        timed(torch, sdpa, max(plain_iters, 3)),
+        2 * b * c * hq * d * 2 + kv_rows * hkv * d * 2 * 2 + table.numel() * 4 + b * 4,
+        4.0 * hq * d * sum(keys), "bfloat16",
+        f"{what}: q [{b}, {c}, {hq}, {d}] bf16, pool [{kp.shape[0]}, {page}, {hkv}, {d}], "
+        f"t={t_list if b <= 8 else '...'}, window {window}, softcap {softcap}; library: gathered "
+        f"view + SDPA (mask, no softcap)",
+    )
+
+
+def dense_train(torch, cfg, seed: int) -> tuple[dict, dict]:
+    """Train ``cfg`` (gemma2-2b, every layer) ``DENSE_STEPS`` steps of 2 x
+    256 tokens through ``Trainer``, one ``train`` call per step; no control
+    plane (dense).  Losses finite, every dense training kernel launched,
+    peak memory (weights, gradients and moments included) under 80 GB."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    seq, batch = 256, 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, AdamWConfig(warmup_steps=2, total_steps=DENSE_STEPS),
+                 TrainerConfig(total_steps=DENSE_STEPS), make_plan(None), seed=seed,
+                 device="cuda")
+    assert tr.controlplane is None
+    nparams = sum(t.numel() for _, t in _flat_tree(tr.params))
+    torch.cuda.synchronize()
+    print(f"dense model: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+          f"{cfg.num_kv_heads}x{cfg.resolved_head_dim} d_ff={cfg.d_ff} {cfg.act} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers} (all) pattern={cfg.block_pattern} "
+          f"window={cfg.window_size} softcaps={cfg.logit_softcap}/{cfg.final_softcap} "
+          f"tied={cfg.tie_embeddings} remat={cfg.remat}: {nparams / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB with moments, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    data = iter(SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed))
+    call_ms = []
+    ops.reset_launch_counts()
+    for s in range(1, DENSE_STEPS + 1):
+        tr.tcfg.total_steps = s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(data)
+        torch.cuda.synchronize()
+        call_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in tr.metrics_log]
+    step_ms = [1e3 * m["step_time_s"] for m in tr.metrics_log]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    window_tps = batch * seq * (DENSE_STEPS - 1) / (sum(call_ms[1:]) / 1e3)
+    assert all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}"
+    missing = [nm for nm in DENSE_KERNELS if counts[nm] == 0]
+    assert not missing, f"kernels never launched while training {cfg.name}: {missing}"
+    assert peak < 80.0, f"{cfg.name} training peaked at {peak:.2f} GB"
+    print(f"dense train {cfg.name}: losses {['%.4f' % v for v in losses]}; {DENSE_STEPS} steps "
+          f"of {batch}x{seq} tokens: median step {med:.1f} ms (trainer's clock, steps "
+          f"2-{DENSE_STEPS}), {batch * seq / med * 1e3:.1f} tokens/s at that median; whole "
+          f"window (steps 2-{DENSE_STEPS}) {sum(call_ms[1:]):.1f} ms, {window_tps:.1f} tokens/s; "
+          f"peak memory {peak:.2f} GB (weights, gradients, moments and activations); per step "
+          f"ms {['%.1f' % v for v in step_ms]}; launches {counts}", flush=True)
+    E2E[f"{cfg.name} train median step ms"] = med
+    E2E[f"{cfg.name} train window tokens/s"] = window_tps
+    E2E[f"{cfg.name} train peak GB"] = peak
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(losses=losses, median_ms=med, peak_gb=peak)
+
+
+class _Patches:
+    """The part of pytest's ``monkeypatch`` that ``tests/_torch_prefix.py``
+    uses (``setattr``), undone by :meth:`undo`."""
+
+    def __init__(self):
+        self.saved = []
+
+    def setattr(self, obj, name, value):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def undo(self):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+
+def dense_prefix_check(torch, params, cfg) -> None:
+    """``tests/_torch_prefix.py``'s check (the card test's): prompt B (a
+    64-token prefix and its own tail) admitted into a fresh engine (a miss)
+    and after prompt A (the same prefix, another tail: a hit on 4 pages);
+    B's admission logits and its 10 greedy tokens must be the miss's bit
+    for bit."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _torch_prefix import admission_logits, prefix_hit_and_miss
+
+    patches = _Patches()
+    try:
+        out = prefix_hit_and_miss(params, cfg, "cuda", admission_logits(patches))
+    finally:
+        patches.undo()
+    (miss_logits, miss_toks), (hit_logits, hit_toks) = out[False], out[True]
+    assert torch.equal(hit_logits, miss_logits), \
+        f"a prefix hit's logits differ: {(hit_logits - miss_logits).abs().max()}"
+    assert hit_toks == miss_toks, f"a prefix hit's tokens differ: {hit_toks} vs {miss_toks}"
+
+
+def long_context_check(torch, params, cfg, seed: int) -> dict:
+    """One prompt of ``DENSE_LONG`` tokens, so gemma2's window binds on its
+    local layers: the last 8 positions' logits of one prefill (kernel 2,
+    windowed) against the same prompt admitted as one paged decode-mode
+    chunk from position 0 (kernel 3, as ``batching._admit_paged`` runs it),
+    within ``DENSE_LOGIT_REL``; the launches of each."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import make_plan
+
+    plan, dev, page = make_plan(None), torch.device("cuda"), 16
+    tokens = torch.as_tensor(np.random.default_rng(seed + 46).integers(
+        1, cfg.vocab_size - 1, size=(1, DENSE_LONG)).astype(np.int32), device=dev)
+    pages = -(-DENSE_LONG // page)
+    ms = {}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, _, _ = tfm.model_apply(params, {"tokens": tokens}, cfg, plan, mode="prefill")
+        full = tfm.logits_from_features(params, feats[:, -8:], cfg).float()
+        torch.cuda.synchronize()
+        ms["prefill"] = 1e3 * (time.perf_counter() - t0)
+        prefill_counts = ops.launch_counts()
+        del feats
+        caches = tfm.init_paged_caches(cfg, pages + 1, page, device=dev)
+        table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None, :]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        feats, _, _ = tfm.model_apply(params, {"tokens": tokens}, cfg, plan, mode="decode",
+                                      caches=caches, t=torch.zeros(1, dtype=torch.int32,
+                                                                    device=dev),
+                                      page_table=table)
+        paged = tfm.logits_from_features(params, feats[:, -8:], cfg).float()
+        torch.cuda.synchronize()
+        ms["admission"] = 1e3 * (time.perf_counter() - t0)
+        admit_counts = ops.launch_counts()
+    del caches, feats
+    assert torch.isfinite(full).all() and torch.isfinite(paged).all(), "non-finite logits"
+    scale = full.abs().max().item()
+    err = (paged - full).abs().max().item()
+    assert err <= DENSE_LOGIT_REL * scale, \
+        f"long context: admission logits differ from prefill: {err} vs scale {scale}"
+    assert prefill_counts["flash_attention"] == cfg.num_layers, prefill_counts
+    assert admit_counts["paged_flash_decode"] == cfg.num_layers, admit_counts
+    same = (paged.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"dense long context {cfg.name}: one {DENSE_LONG}-token prompt (window "
+          f"{cfg.window_size} binds on the {cfg.num_layers // 2} local layers): prefill (kernel 2, "
+          f"{prefill_counts['flash_attention']} launches) {ms['prefill']:.1f} ms vs paged "
+          f"decode-mode admission (kernel 3, {admit_counts['paged_flash_decode']} launches) "
+          f"{ms['admission']:.1f} ms; last 8 positions' logits max |diff| / max |logit| = "
+          f"{err / scale:.3e} (limit {DENSE_LOGIT_REL}), argmax agreement {same:.3f}", flush=True)
+    return dict(rel=err / scale, admit_launches=admit_counts["paged_flash_decode"], ms=ms)
+
+
+def dense_serve_family(torch, name: str, layers, seed: int, page: int) -> dict:
+    """``name`` at its published widths, ``layers`` of them (None: all):
+    the first 4 requests (4 new tokens each) through ``ServeEngine``
+    (paged), then ``decode_vs_prefill``; kernels 3 and 8 must launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+
+    cfg = get_config(name)
+    full = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    plan = make_plan(None)
+    gen, reqs = chat_requests(seed, cfg.vocab_size, 256)
+    t0 = time.perf_counter()
+    params = init_model(seed, cfg, plan, device="cuda")
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for _, t in _flat_tree(params))
+    print(f"dense model: {name} d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads}x"
+          f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers="
+          f"{cfg.num_layers}/{full}{'' if layers is None else ' (depth cut)'}: "
+          f"{nparams / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card, init {time.perf_counter() - t0:.1f} s", flush=True)
+    few = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, 4)) for r in reqs[:4]]
+    rep, toks, counts, shapes = serve(torch, params, cfg, plan, few, gen, reconfig_every=0,
+                                      slots=4, max_len=256, page=page, tag=name)
+    missing = [k for k in ("paged_flash_decode", "rmsnorm") if counts[k] == 0]
+    assert not missing, f"kernels never launched serving {name}: {missing}"
+    assert all(0 <= t < cfg.vocab_size for out in toks.values() for t in out)
+    probe = gen.prompt_tokens(reqs[0])
+    probe = probe if len(probe) >= 40 else probe.repeat(-(-40 // len(probe)))[:40]
+    rel = decode_vs_prefill(torch, params, cfg, plan, probe[:64].astype("int32"), page)
+    print(f"dense check {name}: paged decode vs full prefill logits, max |diff| / max |logit| = "
+          f"{rel:.3e} (limit 5e-2)", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, shapes=shapes, rel=rel, cfg=cfg)
+
+
+def dense_phase(torch, seed: int, page: int) -> dict:
+    """gemma2-2b at its published widths and all 26 layers: kernel rows at
+    its shapes, 6 training steps, one reduced step on the card against the
+    CPU, the 8 chat requests served, a prefix hit against a miss, decode
+    against prefill, a 4,608-token prompt; then deepseek-7b (every layer),
+    deepseek-67b and mistral-large-123b (2 layers each) served.  Returns the
+    kernel rows and the launch counts of each path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("gemma2-2b")
+    gen, reqs = chat_requests(seed, cfg.vocab_size, 256)
+    rows = dense_attention_rows(torch, cfg, seed)
+    rows.update(dense_norm_rows(torch, 512, cfg.d_model, seed, "gemma2", backward=True))
+    counts_train, trained = dense_train(torch, cfg, seed)
+    for nm, kernel in (("flash_attention_gemma2", "flash_attention"),
+                       ("flash_attention_bwd_gemma2", "flash_attention_bwd"),
+                       ("rmsnorm_gemma2", "rmsnorm"), ("rmsnorm_bwd_gemma2", "rmsnorm_bwd")):
+        rows[nm]["launches"] = counts_train[kernel]
+    small = dataclasses.replace(cfg, num_layers=2, d_model=256, d_ff=512, vocab_size=1024,
+                                window_size=32, dtype="float32")
+    step_card_vs_cpu(torch, seed, cfg=small)
+
+    plan = make_plan(None)
+    params = init_model(seed, cfg, plan, device="cuda")
+    rep, toks, counts_serve, shapes_serve = serve(torch, params, cfg, plan, reqs, gen,
+                                                  reconfig_every=0, slots=4, max_len=256,
+                                                  page=page, tag=cfg.name)
+    missing = [k for k in ("paged_flash_decode", "rmsnorm") if counts_serve[k] == 0]
+    assert not missing, f"kernels never launched serving {cfg.name}: {missing}"
+    assert rep.completed == len(reqs)
+    dense_prefix_check(torch, params, cfg)
+    probe = gen.prompt_tokens(reqs[0])
+    probe = probe if len(probe) >= 40 else probe.repeat(-(-40 // len(probe)))[:40]
+    rel = decode_vs_prefill(torch, params, cfg, plan, probe[:64].astype("int32"), page)
+    print(f"dense serve {cfg.name}: a prefix hit on 4 pages gives the miss's admission "
+          f"logits and 10 tokens bit for bit; paged decode vs full prefill logits, max |diff| / "
+          f"max |logit| = {rel:.3e} (limit 5e-2)", flush=True)
+    long = long_context_check(torch, params, cfg, seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Kernel 3 at the serve's decode tick, at the long prompt's admission
+    # chunk, and kernel 2 on the same K/V as that chunk (a dense layout).
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    cpu_g = torch.Generator().manual_seed(seed + 31)
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev).bfloat16()  # noqa: E731
+    slots, max_pages = 4, 256 // page
+    lengths = [min(r.prompt_len, 255) for r in reqs[:slots]]
+    table = page_table_for(torch, lengths, 1, page, max_pages, slots * max_pages, cpu_g).to(dev)
+    kp, vp = randn(slots * max_pages, page, hkv, d), randn(slots * max_pages, page, hkv, d)
+    rows["paged_flash_decode_gemma2"] = paged_row(
+        torch, "paged_flash_decode_gemma2", randn(slots, 1, hq, d), kp, vp, table,
+        torch.tensor(lengths, dtype=torch.int32, device=dev), window=cfg.window_size,
+        softcap=cfg.logit_softcap, iters=200, plain_iters=20, what="gemma2's decode tick")
+    rows["paged_flash_decode_gemma2"]["launches"] = counts_serve["paged_flash_decode"]
+    pages = -(-DENSE_LONG // page)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None, :]
+    kp, vp = randn(pages + 1, page, hkv, d), randn(pages + 1, page, hkv, d)
+    qa = randn(1, DENSE_LONG, hq, d)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    kw = dict(window=cfg.window_size, softcap=cfg.logit_softcap)
+    rows["paged_flash_decode_gemma2_admit"] = paged_row(
+        torch, "paged_flash_decode_gemma2_admit", qa, kp, vp, table, zero, iters=20,
+        plain_iters=2, what=f"a {DENSE_LONG}-token admission chunk", **kw)
+    rows["paged_flash_decode_gemma2_admit"]["launches"] = long["admit_launches"]
+    chunk = kfa.paged_flash_decode_cuda(qa, kp, vp, table, zero, **kw)
+    dense_k, dense_v = (p[1:].reshape(1, pages * page, hkv, d)[:, :DENSE_LONG].transpose(1, 2)
+                        .contiguous() for p in (kp, vp))
+    flash = kfa.flash_attention_cuda(qa.transpose(1, 2).contiguous(), dense_k, dense_v,
+                                     causal=True, **kw).transpose(1, 2)
+    agree = check(torch, chunk, flash, BF16_TOL, "kernel 3's admission chunk vs kernel 2")
+    plain = ref.flash_attention(qa.transpose(1, 2), dense_k, dense_v, causal=True, **kw)
+    err2 = check(torch, flash, plain.transpose(1, 2), BF16_TOL, "kernel 2 at the long prompt")
+    print(f"dense kernels: at {DENSE_LONG} positions (window {cfg.window_size}, softcap "
+          f"{cfg.logit_softcap}) kernel 2 against its plain version: max |diff| {err2:.3e}; "
+          f"kernel 3's admission chunk against kernel 2 on the same K/V: max |diff| "
+          f"{agree:.3e} (bf16 tolerance)", flush=True)
+    del plain
+    del kp, vp, qa, chunk, flash, dense_k, dense_v
+
+    served = {}
+    for name, layers in DENSE_SERVED.items():
+        served[name] = dense_serve_family(torch, name, layers, seed, page)
+    ds = served["deepseek-7b"]["cfg"]
+    hq, hkv, d = ds.num_heads, ds.num_kv_heads, ds.resolved_head_dim
+    table = page_table_for(torch, lengths, 1, page, max_pages, slots * max_pages, cpu_g).to(dev)
+    rows["paged_flash_decode_group1"] = paged_row(
+        torch, "paged_flash_decode_group1", randn(slots, 1, hq, d),
+        randn(slots * max_pages, page, hkv, d), randn(slots * max_pages, page, hkv, d), table,
+        torch.tensor(lengths, dtype=torch.int32, device=dev), window=None, softcap=None,
+        iters=200, plain_iters=20, what="deepseek-7b's decode tick (a group of 1)")
+    rows["paged_flash_decode_group1"]["launches"] = \
+        served["deepseek-7b"]["counts"]["paged_flash_decode"]
+    mistral = served["mistral-large-123b"]
+    shapes = {k: n for k, n in mistral["shapes"]["rmsnorm"].items()
+              if k[1] == mistral["cfg"].d_model}
+    timed_norms = {k: dense_norm_rows(torch, k[0], k[1], seed, "mistral", False)["rmsnorm_mistral"]
+                   for k in sorted(shapes)}
+    rows["rmsnorm_mistral"] = shape_row(timed_norms, shapes, "the mistral-large serve's norms",
+                                        "(T, D)")
+    seconds = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"dense phase: {seconds:.1f} s, peak memory {peak:.2f} GB; gemma2-2b trained "
+          f"(median step {trained['median_ms']:.1f} ms, peak {trained['peak_gb']:.2f} GB) and "
+          f"served (prefix hit = miss, decode vs prefill {rel:.3e}, {DENSE_LONG}-token admission "
+          f"vs prefill {long['rel']:.3e}); served: "
+          + ", ".join(f"{n} ({s['cfg'].num_layers} layers, decode vs prefill {s['rel']:.3e})"
+                      for n, s in served.items()), flush=True)
+    E2E["dense phase s"] = seconds
+    counts_dense_serve = {k: counts_serve[k] + sum(s["counts"][k] for s in served.values())
+                          for k in counts_serve}
+    return dict(rows=rows, train=counts_train, serve=counts_dense_serve)
+
+
+# ---------------------------------------------------------------------------
 # phase 14: multi-rank MixNet training, four ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -3655,6 +4170,22 @@ def pipeline_phase(torch, seed: int) -> dict:
     return {"rows": rows, "counts": [r["counts"] for r in ranks]}
 
 
+def chat_requests(seed: int, vocab: int, max_len: int):
+    """(generator, the ``REQUESTS`` chat requests) every serve takes: prompts
+    and outputs capped to fit ``max_len``; token ids below ``vocab``."""
+    from repro_torch.serve.workload import WorkloadGenerator
+
+    gen = WorkloadGenerator("chat", seed=seed, vocab_size=vocab)
+    out_cap = max(1, min(12, max_len // 4))
+    return gen, [
+        dataclasses.replace(
+            r, prompt_len=max(1, min(r.prompt_len, max_len - out_cap - 2)),
+            max_new_tokens=min(r.max_new_tokens, out_cap),
+        )
+        for r in gen.generate(REQUESTS)
+    ]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and workload seed")
@@ -3677,7 +4208,6 @@ def main(argv=None) -> int:
     from repro_torch.models.moe import resolve_draft_mode
     from repro_torch.models.transformer import init_model
     from repro_torch.parallel.sharding import make_plan
-    from repro_torch.serve.workload import WorkloadGenerator
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3693,15 +4223,7 @@ def main(argv=None) -> int:
     slots, max_len, page = 4, 256, 16
     cfg = dataclasses.replace(get_config("grok-1-314b"), num_layers=LAYERS)
     plan = make_plan(None)
-    gen = WorkloadGenerator("chat", seed=args.seed, vocab_size=cfg.vocab_size)
-    out_cap = max(1, min(12, max_len // 4))
-    reqs = [
-        dataclasses.replace(
-            r, prompt_len=max(1, min(r.prompt_len, max_len - out_cap - 2)),
-            max_new_tokens=min(r.max_new_tokens, out_cap),
-        )
-        for r in gen.generate(REQUESTS)
-    ]
+    gen, reqs = chat_requests(args.seed, cfg.vocab_size, max_len)
     prompt_lens = [r.prompt_len for r in reqs]
     rows = kernel_phase(torch, cfg, prompt_lens, slots, page, max_len, args.seed)
 
@@ -3803,6 +4325,10 @@ def main(argv=None) -> int:
     serve_checkpoint_phase(torch, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    dense = dense_phase(torch, args.seed, page)
+    rows.update(dense["rows"])
+    gc.collect()
+    torch.cuda.empty_cache()
     tuned = evaluation_host_phase(torch, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3840,12 +4366,14 @@ def main(argv=None) -> int:
                               "fleet": counts_fleet[name],
                               "multi_rank": [c[name] for c in multi["counts"]],
                               "pipeline": [c[name] for c in pipe["counts"]],
+                              "dense_train": dense["train"][name],
+                              "dense_serve": dense["serve"][name],
                               "evaluation": [c[name] for c in counts_eval]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 43, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 51, [r["name"] for r in line]
     spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "

@@ -1,11 +1,11 @@
-"""Shared neural layers — the GQA half: norms, RoPE, attention for prefill
-and decode over a dense or paged KV cache.
+"""Shared neural layers: norms, RoPE, GQA attention for prefill and decode
+over a dense or paged KV cache, and the dense MLP block.
 
 Port of :mod:`repro.models.layers`.  Layers are plain functions on tensors
 with the JAX package's layouts at the public functions (``wq [d, h, dh]``,
 caches ``[B, S, Hkv, dh]``, page pools ``[N, page, Hkv, dh]``).  Decode
 writes its chunk's K/V into the cache IN PLACE (index writes into the
-caller's tensors: no copy of a multi-GB cache per tick).  MLA, MLPs and the
+caller's tensors: no copy of a multi-GB cache per tick).  MLA and the
 sequence-parallel paths come with later slices.
 """
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
@@ -22,7 +23,7 @@ __all__ = [
     "rms_norm", "init_rms_norm", "rope_frequencies", "apply_rope",
     "init_attention", "attention_apply", "init_attention_cache",
     "init_paged_attention_cache", "DecodeWrites", "decode_writes", "normal", "decode_rows",
-    "DECODE_ROWS", "project_in", "project_out",
+    "DECODE_ROWS", "project_in", "project_out", "init_mlp", "mlp_apply",
 ]
 
 _NEG = -1e30
@@ -388,3 +389,52 @@ def init_paged_attention_cache(
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, cfg, *, reps: int, device) -> dict:
+    """Stacked ``[reps, ...]`` dense MLP weights: ``w_in [d, f]``, ``w_out
+    [f, d]`` and, for a gated activation, ``w_gate [d, f]``."""
+    d, f = cfg.d_model, cfg.d_ff
+    dtype = getattr(torch, cfg.dtype)
+    out = {
+        "w_in": normal(gen, (reps, d, f), dtype, device, d**-0.5),
+        "w_out": normal(gen, (reps, f, d), dtype, device, f**-0.5),
+    }
+    if cfg.act in ("silu", "swiglu", "geglu"):
+        out["w_gate"] = normal(gen, (reps, d, f), dtype, device, d**-0.5)
+    return out
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; PyTorch's default
+    # (erf) differs from it by up to ~1e-3.
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(params: dict, x: torch.Tensor, cfg, fixed_rows: bool = False) -> torch.Tensor:
+    """``x [B, S, D]`` through the dense MLP: gated (``act(x @ w_gate) * (x @
+    w_in)``, silu for silu/swiglu, gelu for geglu) when ``w_gate`` is there,
+    else ``gelu``/``silu`` of ``x @ w_in``; then ``@ w_out``.  The three
+    products are plain library matmuls, as the reference leaves them to
+    XLA.  ``fixed_rows``: on ``decode_rows`` blocks (decode mode), so a
+    row's bits do not depend on how many rows share the step."""
+    gated = "w_gate" in params
+    if gated:
+        act = F.silu if cfg.act in ("silu", "swiglu") else _gelu
+    else:
+        act = _gelu if cfg.act == "gelu" else F.silu
+
+    def rows(r):
+        h = r @ params["w_in"]
+        h = act(r @ params["w_gate"]) * h if gated else act(h)
+        return h @ params["w_out"]
+
+    if not fixed_rows:
+        return rows(x)
+    b, s, d = x.shape
+    return decode_rows(rows, x.reshape(b * s, d)).reshape(b, s, d)

@@ -294,9 +294,9 @@ def _moe_mixnet_local(
     # The tapped weights live in ``taps``, not on ``serial_dw``: the taps'
     # autograd nodes hold ``serial_dw``, and a reference back would be a cycle.
     serial_dw, taps = None, {}
-    if chunks > 1 and dropless and torch.is_grad_enabled() and (
+    if chunks > 1 and torch.is_grad_enabled() and (
             w_in.requires_grad or w_gate.requires_grad or w_out.requires_grad):
-        serial_dw = _SerialOrderDW(p_axis, n, ev_local, e.dispatch_block)
+        serial_dw = _SerialOrderDW(p_axis, cp, ev_local, e.dispatch_block)
 
     def gmm(x, w, be, chunk, key):
         if serial_dw is None:
@@ -469,8 +469,8 @@ def _mixnet_chunked(
 
 
 class _SerialOrderDW:
-    """Expert weight gradients of the chunked dropless pipeline, computed in
-    the serial path's row order.
+    """Expert weight gradients of the chunked pipeline, computed in the
+    serial path's row order.
 
     Chunking splits each expert's received rows over the chunks' GEMMs, so
     per-chunk weight gradients summed by autograd round differently from
@@ -481,8 +481,13 @@ class _SerialOrderDW:
     the weight's tap (:class:`_WeightTap`) places those rows where the
     serial path packs them (source-major, chunk-minor: a source's serial
     send buffer is its chunks' buffers one after another) and takes the
-    weight gradient in one product over that layout, bit for bit the serial
-    path's."""
+    weight gradient in one product over that layout's dropless blocks:
+    bit for bit the serial dropless path's.  In capacity mode the rows are
+    those the global stage-1 decisions keep (at most ``cp`` a source), so
+    the product does not depend on the chunk count; the serial capacity
+    path itself runs another layout (kernel 6, with its own stage-2
+    capacity), so chunked and one-chunk capacity runs need not keep the
+    same rows."""
 
     def __init__(self, p_axis: int, cp: int, experts: int, block: int):
         self.p_axis, self.cp, self.experts, self.block = p_axis, cp, experts, block

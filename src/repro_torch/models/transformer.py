@@ -1,6 +1,7 @@
 """Model assembly: embeddings -> stacked block weights looped over repeats
 -> final norm -> LM head.  Block patterns: attention-only (GQA) with MoE
-FFNs, and Mamba-2's SSD blocks (``"ssm"``, no MLP).
+FFNs or dense MLPs (``cfg.is_moe`` picks), and Mamba-2's SSD blocks
+(``"ssm"``, no MLP).
 
 Port of :mod:`repro.models.transformer`.  Parameters are the JAX package's
 tree as nested dicts of tensors, block weights stacked ``[reps, ...]`` per
@@ -50,6 +51,10 @@ def _is_ssm(cfg) -> bool:
 
 
 def _check_supported(cfg) -> None:
+    if cfg.sp_shardmap:
+        raise NotImplementedError(
+            f"{cfg.name}: sp_shardmap=True (the sequence-parallel MLP and output projection) "
+            f"{moe_mod._LATER}")
     if cfg.vision_patches or cfg.encoder_layers:
         raise NotImplementedError(f"{cfg.name}: encoder and vision inputs come with later slices")
     if _is_ssm(cfg):
@@ -59,8 +64,6 @@ def _check_supported(cfg) -> None:
             f"{cfg.name}: the port runs attention-only GQA and all-ssm block patterns so far "
             f"(got {cfg.block_pattern} / tail {cfg.tail_pattern} / mla={cfg.mla is not None})"
         )
-    if not cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: dense MLP blocks come with a later slice")
 
 
 def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) -> dict:
@@ -87,13 +90,17 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) ->
                 "ssm": ssm_mod.init_ssm(gen, cfg, plan, reps=reps, device=dev),
             }
             continue
-        blocks[f"{i}_{kind}"] = {
+        block = {
             "norm1": L.init_rms_norm(d, dtype, dev, reps),
             "attn": L.init_attention(gen, cfg, plan, reps=reps, device=dev),
             "norm2": L.init_rms_norm(d, dtype, dev, reps),
-            "moe": moe_mod.init_moe(gen, cfg, plan, reps=reps, device=dev,
-                                    model_index=_model_index(mesh, plan)),
         }
+        if cfg.is_moe:
+            block["moe"] = moe_mod.init_moe(gen, cfg, plan, reps=reps, device=dev,
+                                            model_index=_model_index(mesh, plan))
+        else:
+            block["mlp"] = L.init_mlp(gen, cfg, reps=reps, device=dev)
+        blocks[f"{i}_{kind}"] = block
     params["blocks"] = blocks
     params["final_norm"] = L.init_rms_norm(d, dtype, dev)
     if not cfg.tie_embeddings:
@@ -106,11 +113,11 @@ def stage_params(params: dict, cfg, s: int, n: int, lo: int, hi: int, *, clone=F
     """Stage ``s`` of ``n``'s part of a whole parameter tree: the block
     repeats ``[lo, hi)`` (in the canonical ``[repeats, ...]`` layout), the
     embedding on the first stage, the final norm and LM head on the last
-    (both ends on a stage that is both; a tied head is refused).  Works on
-    tensors (``clone`` copies the slices so the whole leaves can go) and
-    on numpy trees alike."""
-    if n > 1 and cfg.tie_embeddings:
-        raise NotImplementedError("pipeline stages with a tied LM head (the embedding)")
+    (both ends on a stage that is both).  A tied head is the embedding, so
+    the last stage holds the embedding too (``train.pp_step`` sums its two
+    stages' gradients, which keeps the copies equal).  Works on tensors
+    (``clone`` copies the slices so the whole leaves can go) and on numpy
+    trees alike."""
 
     def rows(node):
         if isinstance(node, dict):
@@ -119,7 +126,7 @@ def stage_params(params: dict, cfg, s: int, n: int, lo: int, hi: int, *, clone=F
         return part.clone() if clone else part
 
     out = {}
-    if s == 0:
+    if s == 0 or (s == n - 1 and cfg.tie_embeddings):
         out["embed"] = params["embed"]
     out["blocks"] = rows(params["blocks"])
     if s == n - 1:
@@ -279,6 +286,8 @@ def _apply_block(
     )
     x = x + y
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    if "mlp" in p:
+        return x + L.mlp_apply(p["mlp"], h2, cfg, fixed_rows=mode == "decode"), ac, None
     y, stats = moe_mod.moe_apply(
         p["moe"], h2, cfg, plan, mesh=mesh, expert_perm=expert_perm, wire_perm=wire_perm,
         mode=mode, gate_weights=gate_weights, per_shard=per_shard,
@@ -396,6 +405,7 @@ def apply_layers(
     ``per_shard``: the MoE layers run on this rank's rows even over a
     data-only mesh (see ``moe.moe_apply``), as a pipeline stage does.
     Returns ``(x, LayerOutputs)``."""
+    _check_supported(cfg)
     names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
     reps = blocks[names[0]]["norm1"].shape[0]
     block_params = {n: _layers(blocks[n], reps) for n in names}

@@ -9,7 +9,11 @@ Port of :mod:`repro.train.pp_step`.  One process per rank of a
   ...]`` leaf layout with its model-axis shard of the experts
   (``models.transformer.init_model`` over the mesh); stage 0 also holds
   ``embed``, the last stage ``final_norm`` and ``lm_head``.  A leaf a stage
-  does not hold is not in its parameters, so not in its AdamW state.
+  does not hold is not in its parameters, so not in its AdamW state.  A
+  tied head is the embedding: the last stage holds a copy, and after the
+  backward the two ends exchange their parts of its gradient (the lookup's
+  and the head's) and sum them in one order, so both copies take the same
+  update and stay equal, as PP(1)'s one embedding.
 * **Inside a stage the data plane is the flat step's.**  Every microbatch
   runs ``transformer.apply_layers`` over the stage's repeats with their
   rows of ``expert_perm``/``wire_perm``: attention on the whole local
@@ -108,6 +112,20 @@ def local_microbatch_rows(a, plan: ShardingPlan, mesh, microbatches: int):
         i = cr.axis_index(mesh, ax)
         a = a[:, i * k:(i + 1) * k]
     return a.reshape(-1, *a.shape[2:])
+
+
+def _tied_embed_grad(lookup, head, pipe: GPipe) -> torch.Tensor:
+    """A tied embedding's gradient on the first and the last stage: the
+    lookup's part plus the head's, summed in that order on both, so the two
+    copies (and PP(1)'s one) take the same bits.  Over more than one stage
+    the ends swap their parts in one p2p exchange over the stage axis."""
+    if pipe.stages > 1:
+        mine = lookup if pipe.first else head
+        other = torch.empty(mine.shape, dtype=mine.dtype, device=mine.device)
+        peer = pipe.stages - 1 if pipe.first else 0
+        cr._exchange({peer: mine}, {peer: other}, pipe.group)
+        lookup, head = (mine, other) if pipe.first else (other, mine)
+    return lookup + head
 
 
 def _repeat_squares(grads: dict, plan, mesh, perm, wire) -> list:
@@ -225,6 +243,8 @@ def make_pp_train_step(
         if pipe.last:
             feats_in = torch.cat([y.detach() for y in ys]).requires_grad_()
             ends = [k for k in ("/final_norm", "/lm_head") if k in wrt]
+            if cfg.tie_embeddings and "/embed" in wrt:
+                ends.append("/embed")
             with torch.enable_grad():
                 feats = tfm.final_norm(params, feats_in, cfg)
                 ce = tfm.chunked_cross_entropy(params, feats, labels, cfg)
@@ -241,8 +261,13 @@ def make_pp_train_step(
         got, in_grads = pipe.backward([leaves[k] for k in blocks], out_grads,
                                       aux_terms if cfg.is_moe else None)
         grads.update(zip(blocks, got))
+        head = grads.pop("/embed", None)  # the tied head's part, on the last stage
+        lookup = None
         if pipe.first and "/embed" in wrt:
-            grads["/embed"], = torch.autograd.grad(x_emb, leaves["/embed"], torch.cat(in_grads))
+            lookup, = torch.autograd.grad(x_emb, leaves["/embed"], torch.cat(in_grads))
+        if "/embed" in wrt:
+            grads["/embed"] = (_tied_embed_grad(lookup, head, pipe) if cfg.tie_embeddings
+                               else lookup)
         for k, t in leaves.items():
             if grads.get(k) is None:
                 grads[k] = torch.zeros_like(t)

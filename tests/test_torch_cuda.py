@@ -1379,3 +1379,103 @@ def _flat_leaves(tree, prefix=""):
             yield from _flat_leaves(v, f"{prefix}/{k}")
         else:
             yield f"{prefix}/{k}", v
+
+
+# ---------------------------------------------------------------------------
+# The dense models' shapes and options: gemma2's D = 256 with 8 / 4 heads,
+# softcap 50 and a window that binds (its bf16 backward takes the
+# f32-staged kernels above D = 128), kernel 3 at D = 256 with the window and
+# at deepseek-7b's group of 1 (Hq = Hkv: one valid row of a CTA's 8), the
+# norm at the dense widths (12288 bf16 takes the two-pass kernels); chunked
+# capacity dispatch trains the same bits at any chunk count.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gemma2_shape_with_window_and_softcap(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(256)
+    s, d, kw = 600, 256, dict(causal=True, window=256, softcap=50.0)
+    q = (torch.randn((2, 8, s, d), generator=g, device=dev) * 2).to(dtype)
+    k = (torch.randn((2, 4, s, d), generator=g, device=dev) * 2).to(dtype)
+    v = torch.randn((2, 4, s, d), generator=g, device=dev).to(dtype)
+    do = torch.randn((2, 8, s, d), generator=g, device=dev).to(dtype)
+    # f32: sums of 256-wide products over up to 256 keys in another order
+    # than the plain version's, so 1e-4 (GRAD_TOLS) rather than TOLS' 1e-5.
+    tol = GRAD_TOLS[dtype] if dtype == torch.float32 else TOLS[dtype]
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, **kw).float(),
+                               ref.flash_attention(q, k, v, **kw).float(), **tol)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    FlashAttentionFn.apply(*a, True, kw["window"], kw["softcap"]).backward(do)
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention(*b, **kw).backward(do)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad.float(), y.grad.float(), **GRAD_TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,kw", [
+    (8, 4, 256, dict(window=40, softcap=50.0)),  # gemma2's local layers
+    (8, 4, 256, dict(softcap=50.0)),  # its global layers
+    (32, 32, 128, {}),  # deepseek-7b: a group of 1
+])
+@pytest.mark.parametrize("c", [1, 5])
+def test_paged_flash_decode_dense_model_shapes(dev, dtype, hq, hkv, d, kw, c):
+    g = torch.Generator(device=dev).manual_seed(hq + d + c)
+    lengths = [77, 20, 3, 130]
+    table = _table(lengths, c, 16, 10, 48, seed=c).to(dev)
+    t = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((4, c, hq, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((48, 16, hkv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((48, 16, hkv, d), generator=g, device=dev).to(dtype)
+    got = paged_flash_decode_cuda(q, kp, vp, table, t, **kw)
+    torch.testing.assert_close(got.float(), ref.paged_flash_decode(q, kp, vp, table, t, **kw)
+                               .float(), **TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2304, 8192, 12288])
+def test_rmsnorm_dense_model_widths(dev, dtype, d):
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = (torch.randn((512, d), generator=g, device=dev) * 3).to(dtype)
+    w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dtype)
+    dy = torch.randn((512, d), generator=g, device=dev).to(dtype)
+    torch.testing.assert_close(rmsnorm_cuda(x, w, 1e-6), ref.rmsnorm(x, w, 1e-6))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want_dx, want_dw = torch.autograd.grad(ref.rmsnorm(xg, wg, 1e-6), (xg, wg), dy)
+    dx, dw = rmsnorm_bwd_cuda(x, w, dy, 1e-6)
+    torch.testing.assert_close(dx, want_dx)
+    torch.testing.assert_close(dw.float(), want_dw.float(), **GRAD_TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_chunked_capacity_trainer_same_at_any_chunk_count_on_the_card(dev):
+    """Capacity dispatch through the chunked pipeline at a factor that drops
+    at stage 1: 2 and 4 chunks train the same losses and parameters bit for
+    bit (each expert weight's gradient is one kernel-7 dW over the rows
+    stage 1 keeps, in serial order)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    base = ModelConfig("t", "moe", 2, 256, 4, 2, 0, 512, dtype="bfloat16", remat="full",
+                       moe=MoEConfig(num_experts=8, top_k=2, d_ff=512, backend="mixnet",
+                                     dispatch="capacity", capacity_factor=0.5))
+    runs = []
+    for chunks in (2, 4):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, overlap_chunks=chunks))
+        tr = Trainer(cfg, AdamWConfig(lr=1e-3), TrainerConfig(total_steps=3), make_plan(None),
+                     seed=0, device=dev)
+        tr.train(iter(SyntheticLM(512, seq_len=128, global_batch=2, seed=0)))
+        assert all(float(m["dropped_fraction"].max()) > 0 for m in tr.metrics_log)
+        runs.append(([m["loss"] for m in tr.metrics_log],
+                     {k: v.detach().clone() for k, v in _flat_leaves(tr.params)}))
+    assert runs[0][0] == runs[1][0]
+    for name, leaf in runs[0][1].items():
+        assert torch.equal(leaf, runs[1][1][name]), name

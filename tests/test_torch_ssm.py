@@ -245,9 +245,12 @@ def test_model_prefill_then_decode_matches_jax(model, s):
 
 
 def test_transformer_still_refuses_other_families():
-    for arch in ("deepseek-7b", "recurrentgemma-9b", "deepseek-v2-236b", "whisper-base"):
+    for arch in ("recurrentgemma-9b", "deepseek-v2-236b", "whisper-base"):
         with pytest.raises(NotImplementedError):
             tfm.init_model(0, get_reduced(arch), PLAN, device="cpu")
+    # The dense families run since the dense slice (tests/test_torch_dense.py).
+    assert "mlp" in tfm.init_model(0, get_reduced("deepseek-7b"), PLAN,
+                                   device="cpu")["blocks"]["0_global"]
 
 
 # ---------------------------------------------------------------------------

@@ -77,12 +77,13 @@ def _close(got, want, **tol):
     np.testing.assert_allclose(got, np.asarray(want), **(tol or TOL))
 
 
-def _tiny(cfg_cls, moe_cls, dispatch="dropless", layers=2, capacity_factor=2.0, remat="none"):
+def _tiny(cfg_cls, moe_cls, dispatch="dropless", layers=2, capacity_factor=2.0, remat="none",
+          **moe_kw):
     """The tiny mixnet config of the JAX trainer tests (test_train.py)."""
     return cfg_cls(
         "tiny-moe8", "moe", layers, 32, 4, 2, 0, 64, dtype="float32", remat=remat,
         moe=moe_cls(num_experts=8, top_k=2, d_ff=32, capacity_factor=capacity_factor,
-                    backend="mixnet", dispatch=dispatch),
+                    backend="mixnet", dispatch=dispatch, **moe_kw),
     )
 
 
@@ -256,8 +257,21 @@ def test_grouped_matmul_capacity_backward_matches_jax():
 
 @pytest.mark.parametrize("dispatch", ["dropless", "capacity"])
 def test_moe_mixnet_local_value_and_grad_match_jax(dispatch):
-    jcfg = _tiny(JModelConfig, JMoEConfig, dispatch)
-    cfg = _tiny(ModelConfig, MoEConfig, dispatch)
+    _mixnet_local_against_jax(dispatch)
+
+
+def test_moe_mixnet_chunked_capacity_matches_jax():
+    """Capacity dispatch through the chunked pipeline (4 chunks of 4 tokens)
+    at P = 1 with a capacity factor of 0.5, so stage 1 drops half the
+    choices: output, dropped fraction and every gradient against the JAX
+    package's chunked capacity layer."""
+    drop = _mixnet_local_against_jax("capacity", capacity_factor=0.5, overlap_chunks=4)
+    assert float(drop) == 0.5
+
+
+def _mixnet_local_against_jax(dispatch, **kw):
+    jcfg = _tiny(JModelConfig, JMoEConfig, dispatch, **kw)
+    cfg = _tiny(ModelConfig, MoEConfig, dispatch, **kw)
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 8, 32)).astype(np.float32)
     ws = [
@@ -286,6 +300,7 @@ def test_moe_mixnet_local_value_and_grad_match_jax(dispatch):
     _close(drop, jdrop)
     for g, w in zip(grads, jg):
         _close(g, w)
+    return drop
 
 
 # ---------------------------------------------------------------------------
@@ -657,6 +672,72 @@ def test_remat_through_the_kernel_functions(monkeypatch, remat):
     for name in ("topk_gating_bwd_cuda", "flash_attention_bwd_cuda", "grouped_matmul_dx_cuda",
                  "grouped_matmul_dw_cuda", "moe_combine_bwd_cuda", "rmsnorm_bwd_cuda"):
         assert counts[name] == none[name], (name, counts, none)
+
+
+@pytest.mark.parametrize("chunks", [2, 4])
+def test_chunked_capacity_weight_grad_is_one_serial_order_product(monkeypatch, chunks):
+    """The chunked capacity pipeline through the card's autograd Functions,
+    each kernel wrapper faked by its plain version: every expert weight's
+    gradient equals, bit for bit, one product over the rows stage 1 keeps,
+    laid out in serial order and packed into the dropless blocks (built
+    here by hand from the routing plans), whatever the chunk count; the
+    input and router gradients and the output agree with it too."""
+    for mod, name, fn in (
+        (ktg, "topk_gating_cuda", tref.topk_gating),
+        (ktg, "topk_gating_bwd_cuda", tref.topk_gating_bwd),
+        (kmd, "moe_dispatch_cuda", tref.moe_dispatch),
+        (kmd, "moe_combine_cuda",
+         lambda y, sl, w, out_dtype=torch.float32: tref.moe_combine(y, sl, w).to(out_dtype)),
+        (kmd, "moe_combine_bwd_cuda",
+         lambda d, y, sl, w, inv, need_dw=True: tref.moe_combine_bwd(d, y, sl, w, inv)),
+        (kgm, "grouped_matmul_blocks_cuda", tref.grouped_matmul_blocks),
+        (kgm, "grouped_matmul_blocks_dx_cuda",
+         lambda dy, w, be: tref.grouped_matmul_blocks(dy, w.transpose(1, 2), be)),
+        (kgm, "grouped_matmul_blocks_dw_cuda", tref.grouped_matmul_blocks_dw),
+    ):
+        monkeypatch.setattr(mod, name, fn)
+        if hasattr(ops, name):
+            monkeypatch.setattr(ops, name, fn)
+    monkeypatch.setattr(ops, "_on_cpu", lambda x: False)
+    cfg = _tiny(ModelConfig, MoEConfig, "capacity", capacity_factor=0.5, overlap_chunks=chunks)
+    e = cfg.moe
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal((2, 8, 32)).astype(np.float32)).requires_grad_()
+    ws = [_t(rng.standard_normal(shape).astype(np.float32) * scale).requires_grad_()
+          for shape, scale in (((32, 8), 0.5), ((8, 32, 32), 32**-0.5), ((8, 32, 32), 32**-0.5),
+                               ((8, 32, 32), 32**-0.5))]
+    cot = _t(rng.standard_normal((2, 8, 32)).astype(np.float32))
+    out, _, _, _, drop = moe_mod._moe_mixnet_local(tuple(ws), x, cfg, PLAN, None)
+    assert float(drop) == 0.5
+    got = torch.autograd.grad(torch.sum(out * cot), [x, *ws])
+
+    # One product over the serial layout, by hand: the serial send buffer of
+    # the rows stage 1 keeps, packed into dropless blocks, no stage 2.
+    router, w_in, w_gate, w_out = ws
+    xt = x.reshape(16, 32)
+    info = routing.compute_routing(xt @ router, top_k=2, num_virtual=8, replication=1,
+                                   expert_perm=torch.arange(8, dtype=torch.int32))
+    n, cp = 32, routing.capacity(16, 2, 1, 0.5)
+    dest = torch.zeros(n, dtype=torch.int32)
+    rank1, _ = routing.bucket_ranks(dest, 1)
+    plan1 = routing.capacity_plan(dest, rank1, rank1 < cp, 1, cp)
+    send_x, send_e = moe_mod._send_buffers(xt, plan1, info.vdest.reshape(n), 2, 1, cp)
+    re = send_e.reshape(cp)
+    rank2, counts2 = routing.bucket_ranks(re, 8, valid=re >= 0)
+    plan2 = routing.dropless_plan(re, rank2, counts2, re >= 0, 8, e.dispatch_block)
+    packed = ops.moe_dispatch(send_x.reshape(cp, 32), plan2.src, inverse=plan2.slot)
+    packed = packed.reshape(-1, e.dispatch_block, 32)
+    be = plan2.block_experts
+    h = ops.grouped_matmul(packed, w_in, block_experts=be)
+    gt = ops.grouped_matmul(packed, w_gate, block_experts=be)
+    ye = ops.grouped_matmul(moe_mod._actfn(cfg.act)(gt) * h, w_out, block_experts=be)
+    back = ops.moe_dispatch(ye.reshape(plan2.num_rows, 32), plan2.slot, inverse=plan2.src)
+    want_out = ops.moe_combine(back, plan1.slot.reshape(16, 2), info.wfull, inverse=plan1.src,
+                               out_dtype=x.dtype).reshape(2, 8, 32)
+    want = torch.autograd.grad(torch.sum(want_out * cot), [x, *ws])
+    assert torch.equal(out, want_out)
+    for name, g, w in zip(("x", "router", "w_in", "w_gate", "w_out"), got, want):
+        assert torch.equal(g, w), name
 
 
 # ---------------------------------------------------------------------------
