@@ -189,6 +189,26 @@ Phases, one printed line (or more) each:
    dropless) bit for bit, every kernel launched on every rank; per-rank
    step times tuned against one chunk, wire bytes, launches, kernel 7 at
    one tuned chunk's received layout;
+14d. mesh checkpoint — Mixtral-8x7B at its published widths, depth 1, as
+   four ranks on the card: 4 steps at ``(1, 4)`` with a weight move across
+   ranks and a wire re-address before step 2 and one global checkpoint
+   (17.1 GB, gathered to rank 0 over gloo) at step 2 (launches counted over
+   the 4 steps); a fresh group restores it at ``(1, 4)`` and takes steps
+   3-4 (losses, every parameter, perm stack, wire map and counts bit for
+   bit the uninterrupted run's), then restores it onto ``(2, 2)`` (the wire
+   map folded into the perm stack) and takes step 3 (within 1e-3 relative);
+   write and read GB/s;
+14e. mesh serve — grok-1-314b at its published widths, depth 2, over
+   ``("model",)`` of 4 (2 of 8 experts a rank): the 8 chat requests paged
+   (launches counted), then again after a forced wire plan (layer 0) and a
+   weight plan across ranks (layer 1): tokens equal, and equal on every
+   rank; rank 0 times kernel 3 at its decode shape; after the group exits
+   the same seed's one-device draw is served here: the first tick's logits
+   within 5e-2 of the mesh's, and whether the tokens are equal; in the
+   ranks, Mixtral restored from the mesh checkpoint (weights and placement)
+   served over the same mesh with dense KV (mixnet prefills, dense-decode
+   ticks), its launches, ticks and peak memory per rank, and kernel 7 at a
+   rank's received layout of a mesh prefill; the checkpoint is removed;
 15. the kernels of one decode tick of each serve, the sha256 of each
    serve's tokens (to set beside another tree's), the kernels line (JSON),
    the card line, and the result line ``{"ok": true, "device": {...}}``.
@@ -360,6 +380,14 @@ KERNEL_ROWS = {
     "paged_flash_decode_group1": ("src/repro_torch/csrc/paged_flash_decode.cu",
                                   "src/repro/kernels/flash_attention.py:226"),
     "rmsnorm_mistral": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    # The mesh serve: kernel 3 at a rank's decode tick of grok-1 over the
+    # ("model",) mesh (four ranks resident on the card), and kernel 7 at a
+    # rank's received layout of a Mixtral prefill there, with rank 0's
+    # launches on each.
+    "paged_flash_decode_mesh": ("src/repro_torch/csrc/paged_flash_decode.cu",
+                                "src/repro/kernels/flash_attention.py:226"),
+    "grouped_matmul_blocks_mesh": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                   "src/repro/kernels/grouped_matmul.py:116"),
 }
 # End-to-end numbers the serve phases leave for the summary line (measured,
 # not claimed: they move with the host).
@@ -1995,6 +2023,8 @@ SHAPE_ROWS = {
     "paged_flash_decode_gemma2": "paged_flash_decode",
     "paged_flash_decode_gemma2_admit": "paged_flash_decode",
     "paged_flash_decode_group1": "paged_flash_decode", "rmsnorm_mistral": "rmsnorm",
+    "paged_flash_decode_mesh": "paged_flash_decode",
+    "grouped_matmul_blocks_mesh": "grouped_matmul_blocks",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
@@ -3624,11 +3654,13 @@ def rank_kernel_rows(torch, cfg, seed: int) -> dict:
     return rows
 
 
-def chunk_kernel_row(torch, cfg, seed: int, tc: int) -> dict:
+def chunk_kernel_row(torch, cfg, seed: int, tc: int, suffix: str = "_chunk",
+                     what: str = "one chunk of {tc} tokens a rank, the tuned run") -> dict:
     """Kernel 7 at one chunk's shapes of the tuned (1, 4) run: ``tc``
     tokens a rank and chunk routed top-2 over 8 experts, 2 of them local;
     every source's dropless send buffer of the chunk for this rank packed
-    into the 2-expert blocks."""
+    into the 2-expert blocks (``suffix`` and ``what`` name another path's
+    layout of ``tc`` tokens a rank)."""
     from repro_torch.kernels import ref
 
     bf16 = torch.bfloat16
@@ -3643,10 +3675,9 @@ def chunk_kernel_row(torch, cfg, seed: int, tc: int) -> dict:
     dy = randn(nb, 8, f, dt=bf16)
     dy[(plan2.src < 0).reshape(nb, 8)] = 0
     rows = {}
-    blocks_rows(torch, rows, "_chunk", packed.reshape(nb, 8, d),
+    blocks_rows(torch, rows, suffix, packed.reshape(nb, 8, d),
                 (randn(epd, d, f) * d**-0.5).to(bf16), dy, plan2.block_experts, counts2,
-                f", {epd} local experts (one chunk of {tc} tokens a rank, the tuned run)",
-                parts=("",))
+                f", {epd} local experts ({what.format(tc=tc)})", parts=("",))
     return rows
 
 
@@ -4170,6 +4201,495 @@ def pipeline_phase(torch, seed: int) -> dict:
     return {"rows": rows, "counts": [r["counts"] for r in ranks]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14d: a mesh checkpoint (save, resume, elastic restore)
+# ---------------------------------------------------------------------------
+
+
+MESH_CKPT_LAYERS = 1  # of Mixtral's 32: 1.7 B parameters, a 17 GB checkpoint with f32 moments
+# The elastic step against the uninterrupted run's step 3: PRs 23-24 saw
+# 5e-5 to 1.2e-4 between meshes.
+MESH_LOSS_REL = 1e-3
+MESH_TIMEOUT_S = 600  # every rank reads the whole checkpoint: a slow disk must not fail it
+# The one layer's plans before step 2 over a model axis of 4: slot 0 <-> 2
+# across a block (the weight path, across ranks), then devices 0 <-> 1 and
+# 2 <-> 3 (a wire re-address): the step-2 checkpoint holds moved weights
+# and a wire map that is not the identity.
+MESH_PLANS = ((2, 1, 0, 3, 4, 5, 6, 7), (2, 3, 0, 1, 6, 7, 4, 5))
+
+
+def mesh_trainer(torch, cfg, seed: int, mesh, device, ckpt_dir: str, every: int = 0):
+    """A ``Trainer`` over ``mesh`` writing a synchronous global checkpoint
+    every ``every`` steps under ``ckpt_dir`` (its control plane plans only
+    when forced)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    return Trainer(cfg, AdamWConfig(lr=MULTI_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
+                   TrainerConfig(total_steps=0, reconfig_every=10**6, ckpt_every=every,
+                                 ckpt_dir=ckpt_dir, ckpt_async=False),
+                   make_plan(mesh, fsdp=False), mesh=mesh, seed=seed, device=device)
+
+
+def mesh_step(torch, tr, data, upto: int) -> None:
+    tr.tcfg.total_steps = upto
+    tr.train(data)
+    torch.cuda.synchronize()
+
+
+def mesh_ckpt_main(rank: int, seed: int, port: int, out_path: str, ckpt_dir: str,
+                   mode: str) -> None:
+    """One of the four ranks.  ``mode="run"``: the uninterrupted (1, 4) run,
+    4 steps, the two plans before step 2, the checkpoint at step 2 (launches
+    counted over the 4 steps); ``"resume"``: a fresh (1, 4) trainer restores
+    step 2 and takes steps 3-4, then a (2, 2) trainer restores it (the wire
+    map folded) and takes step 3."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import commruntime as cr
+    from repro_torch.core.controlplane import LayerPlan
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
+    from repro_torch.train import checkpoint as ckpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, _, backend = init_distributed(
+        "auto", rank=rank, world_size=MULTI_RANKS, init_method=f"tcp://localhost:{port}",
+        device_type=MULTI_DEVICE, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    device = local_device(rank, MULTI_DEVICE)
+    cfg = multi_cfg(MESH_CKPT_LAYERS)
+    t0 = time.perf_counter()
+
+    def data(skip: int = 0):
+        it = iter(SyntheticLM(cfg.vocab_size, seq_len=256, global_batch=2, seed=seed))
+        for _ in range(skip):
+            next(it)
+        return it
+
+    res = {"rank": rank, "backend": backend}
+    mesh14 = make_mesh((1, 4), ("data", "model"))
+    if mode == "run":
+        tr = mesh_trainer(torch, cfg, seed, mesh14, device, ckpt_dir, every=2)
+        it = data()
+        ops.reset_launch_counts()
+        mesh_step(torch, tr, it, 1)
+        for perm in MESH_PLANS:
+            tr._apply_layer_plans([LayerPlan(0, True, perm=np.array(perm))])
+        mesh_step(torch, tr, it, 2)  # the step-2 checkpoint
+        res["write"] = list(ckpt.last_io["save"])
+        tr.tcfg.ckpt_every = 0
+        mesh_step(torch, tr, it, MULTI_STEPS)
+        res["counts"] = ops.launch_counts()
+        res["params"] = sum(t.numel() for _, t in _flat_tree(tr.params))
+    else:
+        tr = mesh_trainer(torch, cfg, seed, mesh14, device, ckpt_dir)
+        assert tr.maybe_restore() and tr.step == 2, "the step-2 checkpoint was not restored"
+        res["read"] = list(ckpt.last_io["restore"])
+        mesh_step(torch, tr, data(2), MULTI_STEPS)
+    res["losses"] = [float(m["loss"]) for m in tr.metrics_log]
+    res["digests"] = multi_digests(tr)
+    res["perm"] = tr.expert_perm.tolist()
+    res["wire"] = None if tr.wire_perm is None else tr.wire_perm.tolist()
+    res["counts_placement"] = [tr.reconfig_count, tr.wire_reconfig_count]
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mode == "resume":
+        tr = mesh_trainer(torch, cfg, seed, make_mesh((2, 2), ("data", "model")), device,
+                          ckpt_dir)
+        assert tr.maybe_restore() and tr.step == 2
+        res["read22"] = list(ckpt.last_io["restore"])
+        mesh_step(torch, tr, data(2), 3)
+        res["elastic_loss"] = float(tr.metrics_log[-1]["loss"])
+        res["elastic_perm"] = tr.expert_perm.tolist()
+        res["elastic_wire"] = None if tr.wire_perm is None else tr.wire_perm.tolist()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    gathered = cr.all_gather_objects(res)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps({"ranks": gathered}))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(torch, fn, *args) -> dict:
+    """Four ranks of ``fn(rank, *args[:1], port, out_path, *args[1:])``
+    (spawn); rank 0's JSON."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out = pathlib.Path(tempfile.mkdtemp(dir=REPO / "build")) / "ranks.json"
+    mp.spawn(fn, args=(args[0], port, str(out), *args[1:]), nprocs=MULTI_RANKS, join=True)
+    got = json.loads(out.read_text())
+    out.unlink()
+    return got
+
+
+def mesh_ckpt_phase(torch, seed: int, ckpt_dir: str) -> dict:
+    """Mixtral-8x7B at its published widths, depth MESH_CKPT_LAYERS, as four
+    ranks on the card: the uninterrupted (1, 4) run writing one global
+    checkpoint at step 2 (after a weight move across ranks and a wire
+    re-address), then a fresh group resuming from it (steps 3-4 bit for
+    bit: losses, every parameter, perm stack, wire map) and restoring it
+    elastically onto (2, 2) (wire map folded; step 3 within
+    MESH_LOSS_REL)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run = spawn_ranks(torch, mesh_ckpt_main, seed, ckpt_dir, "run")["ranks"]
+    t_run = time.perf_counter() - t_phase
+    back = spawn_ranks(torch, mesh_ckpt_main, seed, ckpt_dir, "resume")["ranks"]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    nbytes, sec = run[0]["write"]
+    reads = [r["read"] for r in back] + [r["read22"] for r in back]
+    elastic = back[0]["elastic_loss"]
+    rel = abs(elastic - run[0]["losses"][2]) / abs(run[0]["losses"][2])
+    print(f"mesh checkpoint: Mixtral-8x7B full width, depth {MESH_CKPT_LAYERS}, "
+          f"{run[0]['params']} parameters a rank at (1, 4), backend {run[0]['backend']}; "
+          f"one global checkpoint of {nbytes / 1e9:.3f} GB written by rank 0 in {sec:.1f} s "
+          f"({nbytes / 1e9 / sec:.3f} GB/s, every leaf gathered over gloo); read by every rank "
+          f"at (1, 4) and (2, 2): {['%.3f GB/s' % (b / 1e9 / s) for b, s in reads]} "
+          f"({reads[0][0] / 1e9:.3f} GB each, four ranks at once, the file warm in the page "
+          f"cache after its write)", flush=True)
+    print(f"mesh checkpoint: uninterrupted losses {['%.6f' % v for v in run[0]['losses']]}; "
+          f"resumed steps 3-4 {['%.6f' % v for v in back[0]['losses']]}; elastic (2, 2) step 3 "
+          f"{elastic:.6f}, rel diff {rel:.3e} (limit {MESH_LOSS_REL}); wire map at the "
+          f"checkpoint {run[0]['wire']}, perm stack {run[0]['perm']}, folded at (2, 2) "
+          f"{back[0]['elastic_perm']}; peak GB per rank {['%.2f' % r['peak_gb'] for r in run]}",
+          flush=True)
+    for r in range(MULTI_RANKS):
+        a, b = run[r], back[r]
+        assert a["losses"] == run[0]["losses"], "ranks disagree on the loss"
+        assert b["losses"] == a["losses"][2:], \
+            f"rank {r}: resumed losses {b['losses']} != uninterrupted {a['losses'][2:]}"
+        assert b["digests"] == a["digests"], f"rank {r}: a resumed parameter differs"
+        assert (b["perm"], b["wire"], b["counts_placement"]) == \
+            (a["perm"], a["wire"], a["counts_placement"]), f"rank {r}: the placement differs"
+        assert b["elastic_loss"] == elastic and b["elastic_wire"] is None
+        missing = [k for k in MULTI_KERNELS if not a["counts"][k]]
+        assert not missing, \
+            f"rank {r}: kernels never launched on the mesh checkpoint run: {missing}"
+    wire = run[0]["wire"]
+    assert wire is not None and wire[0] != [0, 1, 2, 3], wire
+    assert run[0]["perm"][0] != list(range(8)) and run[0]["counts_placement"] == [2, 1]
+    assert math.isfinite(elastic) and rel <= MESH_LOSS_REL, \
+        f"elastic step 3 loss {elastic} vs {run[0]['losses'][2]}: rel {rel:.3e}"
+    print(f"mesh checkpoint: checks held: (1, 4) resume bit for bit (losses, every parameter "
+          f"on every rank, perm stack, wire map, counts); (2, 2) elastic step within "
+          f"{MESH_LOSS_REL}; every kernel of {MULTI_KERNELS} launched on every rank; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (run {t_run:.1f} s, ranks "
+          f"{['%.1f' % r['seconds'] for r in run]} s; resume ranks "
+          f"{['%.1f' % r['seconds'] for r in back]} s)", flush=True)
+    E2E["mesh checkpoint write GB/s"] = nbytes / 1e9 / sec
+    E2E["mesh checkpoint read GB/s per rank"] = [b / 1e9 / s for b, s in reads]
+    return {"counts": [r["counts"] for r in run]}
+
+
+# ---------------------------------------------------------------------------
+# phase 14e: EP-sharded serving over a ("model",) mesh
+# ---------------------------------------------------------------------------
+
+
+MESH_SERVE_LAYERS = 2  # of grok-1's 64: 2 of 8 experts a rank, ~4.8 GB of experts a rank
+MESH_SLOTS, MESH_MAX_LEN, MESH_PAGE = 4, 256, 16
+MESH_LOGIT_REL = 5e-2  # bf16 activations through another route: the decode-vs-prefill limit
+MESH_LOGITS = str(REPO / "build" / "mesh_first_tick_logits.npy")  # rank 0's, for the parent
+# Grok's 8 slots over 4 ranks: layer 0 swaps whole device blocks (a wire
+# re-address), layer 1 swaps slots 0 and 2 (a weight move across ranks).
+MESH_SERVE_PLANS = ((0, (2, 3, 0, 1, 6, 7, 4, 5)), (1, (2, 1, 0, 3, 4, 5, 6, 7)))
+
+
+def mesh_serve_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("grok-1-314b"), num_layers=MESH_SERVE_LAYERS)
+
+
+def first_tick_logits(torch, params, cfg, plan, mesh, prompt, device):
+    """The last position's logits of ``prompt`` admitted as the engine's
+    first tick admits it: one decode-mode chunk from position 0 over fresh
+    paged pools (``batching._admit_paged``)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_step import _decode_logits
+
+    pages = -(-len(prompt) // MESH_PAGE)
+    caches = tfm.init_paged_caches(cfg, pages, MESH_PAGE, device=device)
+    with torch.no_grad():
+        feats, _, _ = tfm.model_apply(
+            params, {"tokens": torch.tensor(prompt[None, :], device=device)}, cfg, plan,
+            mesh=mesh, mode="decode", caches=caches,
+            t=torch.zeros((1,), dtype=torch.int32, device=device),
+            page_table=torch.arange(pages, dtype=torch.int32, device=device)[None])
+        return _decode_logits(params, feats[:, -1:], cfg)[0, 0].float()
+
+
+def mesh_serve_run(torch, eng, reqs, gen) -> tuple:
+    """Serve ``reqs``, each tick clocked (host clock: every tick ends in a
+    host read of its tokens).  Returns ``(report, tokens, tick ms)``."""
+    tick_ms, tick_step = [], eng.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        st = tick_step()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        return st
+
+    eng.step = timed_step
+    rep = eng.run(reqs, gen)
+    assert rep.completed == len(reqs), "not every request completed"
+    return rep, {str(r.rid): list(r.out) for r in eng.batcher.finished}, tick_ms
+
+
+def mesh_serve_main(rank: int, seed: int, port: int, out_path: str, ckpt_dir: str) -> None:
+    """One of the four ranks of the ``("model",)`` mesh: grok-1 (depth
+    MESH_SERVE_LAYERS) served without a plan (launches counted) and with a
+    forced wire plan and weight plan, the first tick's logits; then
+    Mixtral-8x7B with the weights and placement of the mesh checkpoint,
+    dense KV (mixnet prefill, dense-decode ticks).  Rank 0 times kernel 3 at
+    its decode shape and kernel 7 at its received layout of a Mixtral
+    prefill while the other ranks wait."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import commruntime as cr
+    from repro_torch.core.controlplane import LayerPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, _, backend = init_distributed(
+        "auto", rank=rank, world_size=MULTI_RANKS, init_method=f"tcp://localhost:{port}",
+        device_type=MULTI_DEVICE, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    device = local_device(rank, MULTI_DEVICE)
+    mesh = make_mesh((MULTI_RANKS,), ("model",))
+    plan = make_plan(mesh)
+    cfg = mesh_serve_cfg()
+    t0 = time.perf_counter()
+    params = init_model(seed, cfg, plan, device=device, mesh=mesh)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "backend": backend, "init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for _, t in _flat_tree(params))}
+    gen, reqs = chat_requests(seed, cfg.vocab_size, MESH_MAX_LEN)
+    prompt = gen.prompt_tokens(reqs[0]).astype("int32")
+    logits = first_tick_logits(torch, params, cfg, plan, mesh, prompt, device)
+    if rank == 0:
+        np.save(MESH_LOGITS, logits.cpu().numpy())
+
+    def engine(p, c, **kw):
+        return ServeEngine(p, c, plan, ServeConfig(slots=MESH_SLOTS, max_len=MESH_MAX_LEN,
+                                                   page_size=MESH_PAGE, num_devices=MULTI_RANKS,
+                                                   **kw), mesh=mesh, device=device)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep, toks, ticks = mesh_serve_run(torch, engine(params, cfg), reqs, gen)
+    counts, shapes = ops.launch_counts(), ops.launch_shapes()
+    res.update(tokens=toks, tick_ms=ticks, counts=counts, ticks=rep.ticks,
+               shapes={k: {str(s): n for s, n in v.items()} for k, v in shapes.items()},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=rep.wall_s,
+               tokens_out=rep.tokens_out)
+    eng = engine(params, cfg, external_control=True)
+    eng.apply_plans([LayerPlan(layer, True, perm=np.array(perm))
+                     for layer, perm in MESH_SERVE_PLANS])
+    res["plan_counts"] = [eng.controlplane.reconfig_count, eng.applier.wire_reconfig_count]
+    _, res["tokens_planned"], _ = mesh_serve_run(torch, eng, reqs, gen)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {}
+    torch.distributed.barrier()
+    if rank == 0:
+        rows.update(mesh_decode_row(torch, cfg, seed))
+    torch.distributed.barrier()
+
+    # Mixtral with the mesh checkpoint's weights and placement, dense KV
+    mcfg = multi_cfg(MESH_CKPT_LAYERS)
+    mgen, mreqs = chat_requests(seed, mcfg.vocab_size, MESH_MAX_LEN)
+    t0 = time.perf_counter()
+    meng = engine(init_model(seed + 1, mcfg, plan, device=device, mesh=mesh), mcfg, paged=False,
+                  external_control=True)
+    res["mixtral_restored_step"] = meng.restore_checkpoint(ckpt_dir)
+    res["mixtral_placement"] = [meng.controlplane.perm_stack().tolist(),
+                                None if meng.applier.wire_perm is None
+                                else meng.applier.wire_perm.tolist()]
+    res["mixtral_init_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    mrep, res["mixtral_tokens"], res["mixtral_tick_ms"] = mesh_serve_run(torch, meng, mreqs, mgen)
+    res["mixtral_counts"] = ops.launch_counts()
+    res["mixtral_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["mixtral_ticks"] = mrep.ticks
+    del meng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        s = len(mgen.prompt_tokens(mreqs[0]))
+        rows.update(mesh_prefill_row(torch, mcfg, seed, s // MULTI_RANKS if s % MULTI_RANKS == 0
+                                     else s))
+    torch.distributed.barrier()
+    res["seconds"] = time.perf_counter() - t0
+    gathered = cr.all_gather_objects(res)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps({"ranks": gathered, "rows": rows}))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def mesh_decode_row(torch, cfg, seed: int) -> dict:
+    """Kernel 3 at a rank's decode tick of the mesh serve: the MESH_SLOTS
+    slots at ragged lengths over the whole pools (every rank holds them),
+    while the other three ranks stay resident on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 53)
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    max_pages = MESH_MAX_LEN // MESH_PAGE
+    num_pages = MESH_SLOTS * max_pages
+    lengths = [37, 120, 201, 254][:MESH_SLOTS]
+    table = page_table_for(torch, lengths, 1, MESH_PAGE, max_pages, num_pages,
+                           torch.Generator().manual_seed(seed + 53)).cuda()
+    bf16 = torch.bfloat16
+    q = torch.randn((MESH_SLOTS, 1, hq, dh), generator=g, device="cuda").to(bf16)
+    kp = torch.randn((num_pages, MESH_PAGE, hkv, dh), generator=g, device="cuda").to(bf16)
+    vp = torch.randn((num_pages, MESH_PAGE, hkv, dh), generator=g, device="cuda").to(bf16)
+    tvec = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return {"paged_flash_decode_mesh": paged_row(
+        torch, "paged_flash_decode_mesh", q, kp, vp, table, tvec, window=None, softcap=None,
+        iters=200, plain_iters=20, what="a rank's decode tick of the (\"model\",) mesh serve")}
+
+
+def mesh_prefill_row(torch, cfg, seed: int, tl: int) -> dict:
+    """Kernel 7 at a rank's received layout of the Mixtral mesh serve's
+    first prefill: ``tl`` tokens a rank (its sequence slice, or the whole
+    prompt when the model axis does not divide it) routed top-2 by every
+    source, 2 local experts."""
+    rows = chunk_kernel_row(torch, cfg, seed + 59, tl, suffix="_mesh",
+                            what=f"a rank's received layout of a {tl}-token mesh prefill")
+    return rows
+
+
+def mesh_serve_phase(torch, seed: int, ckpt_dir: str) -> dict:
+    """grok-1-314b at its published widths, depth MESH_SERVE_LAYERS, served
+    EP-sharded as four ranks on the card (8 chat requests, paged): tokens
+    with a forced wire and weight plan equal tokens without, on every rank;
+    then, after the group exits, the one-device draw served in this process:
+    the first tick's logits within MESH_LOGIT_REL of the mesh's, and whether
+    the tokens are equal; and Mixtral restored from the mesh checkpoint
+    served over the same mesh."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    got = spawn_ranks(torch, mesh_serve_main, seed, ckpt_dir)
+    ranks = got["ranks"]
+    logits_path = pathlib.Path(MESH_LOGITS)
+    t_ranks = time.perf_counter() - t_phase
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # The one-device draw in this process.
+    cfg = mesh_serve_cfg()
+    plan = make_plan(None)
+    params = init_model(seed, cfg, plan, device=MULTI_DEVICE)
+    gen, reqs = chat_requests(seed, cfg.vocab_size, MESH_MAX_LEN)
+    one = first_tick_logits(torch, params, cfg, plan, None, gen.prompt_tokens(reqs[0])
+                            .astype("int32"), torch.device(MULTI_DEVICE))
+    mesh_logits = torch.from_numpy(np.load(logits_path)).to(MULTI_DEVICE)
+    logits_path.unlink()
+    eng = ServeEngine(params, cfg, plan, ServeConfig(slots=MESH_SLOTS, max_len=MESH_MAX_LEN,
+                                                     page_size=MESH_PAGE, num_devices=4),
+                      device=MULTI_DEVICE)
+    _, toks_one, ticks_one = mesh_serve_run(torch, eng, reqs, gen)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.isfinite(mesh_logits).all() and torch.isfinite(one).all()
+    scale = one.abs().max().item()
+    gap = (mesh_logits - one).abs().max().item() / scale
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    r0 = ranks[0]
+    equal_one = r0["tokens"] == toks_one
+    print(f"mesh serve: grok-1-314b full width, depth {MESH_SERVE_LAYERS}, over (\"model\",) of "
+          f"{MULTI_RANKS} ({r0['backend']}, four ranks share the card), "
+          f"{r0['params']} parameters a rank (init {r0['init_s']:.1f} s); {len(reqs)} chat "
+          f"requests, paged (page {MESH_PAGE}): ticks {r0['ticks']}, tokens {r0['tokens_out']}, "
+          f"median tick ms per rank {['%.1f' % med(r['tick_ms']) for r in ranks]} (one device "
+          f"{med(ticks_one):.1f}); peak GB per rank {['%.2f' % r['peak_gb'] for r in ranks]}; "
+          f"launches per rank {[{k: r['counts'][k] for k in SERVE_KERNELS} for r in ranks]}",
+          flush=True)
+    print(f"mesh serve: first tick's logits (a {len(gen.prompt_tokens(reqs[0]))}-token "
+          f"admission chunk) against one device: max |diff| / max |logit| = {gap:.3e} (limit "
+          f"{MESH_LOGIT_REL}); tokens equal to one device's: {equal_one}", flush=True)
+    mx = [r["mixtral_tick_ms"] for r in ranks]
+    print(f"mesh serve: Mixtral-8x7B restored from the mesh checkpoint (step "
+          f"{r0['mixtral_restored_step']}, perm stack {r0['mixtral_placement'][0]}, wire map "
+          f"{r0['mixtral_placement'][1]}), dense KV (mixnet prefill, dense-decode ticks): ticks "
+          f"{r0['mixtral_ticks']}, median tick ms per rank {['%.1f' % med(t) for t in mx]}; "
+          f"launches per rank "
+          f"{[{k: v for k, v in r['mixtral_counts'].items() if v} for r in ranks]}; "
+          f"peak GB per rank "
+          f"{['%.2f' % r['mixtral_peak_gb'] for r in ranks]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (ranks {t_ranks:.1f} s)", flush=True)
+    for r in ranks:
+        assert r["tokens"] == r0["tokens"], f"rank {r['rank']}: tokens differ from rank 0's"
+        assert r["tokens_planned"] == r["tokens"], \
+            f"rank {r['rank']}: a wire and a weight plan changed the tokens"
+        assert r["plan_counts"] == [2, 1], r["plan_counts"]
+        assert r["mixtral_tokens"] == r0["mixtral_tokens"], "ranks disagree on Mixtral's tokens"
+        missing = [k for k in SERVE_KERNELS if not r["counts"][k]]
+        missing += [k for k in MESH_MIXTRAL_KERNELS if not r["mixtral_counts"][k]]
+        assert not missing, f"rank {r['rank']}: kernels never launched on the mesh serve: {missing}"
+        assert all(0 <= t < cfg.vocab_size for out in r["tokens"].values() for t in out)
+    assert r0["mixtral_placement"][1] is not None and r0["mixtral_placement"][1][0] != [0, 1, 2, 3]
+    assert gap <= MESH_LOGIT_REL, f"mesh first-tick logits differ from one device's: {gap:.3e}"
+    print(f"mesh serve: checks held: tokens with the wire and weight plans equal tokens without, "
+          f"bit for bit, and equal on all {MULTI_RANKS} ranks (grok-1 and Mixtral); first-tick "
+          f"logits within {MESH_LOGIT_REL} of one device; every kernel of {SERVE_KERNELS} and of "
+          f"{MESH_MIXTRAL_KERNELS} launched on every rank", flush=True)
+    TOKENS_SHA256["grok mesh serve (model, 4)"] = tokens_sha256(r0["tokens"])
+    TOKENS_SHA256["grok one-device serve, depth 2"] = tokens_sha256(toks_one)
+    TOKENS_SHA256["mixtral mesh serve from the mesh checkpoint"] = \
+        tokens_sha256(r0["mixtral_tokens"])
+    E2E["grok mesh serve median tick ms per rank"] = [med(r["tick_ms"]) for r in ranks]
+    E2E["mixtral mesh serve median tick ms per rank"] = [med(t) for t in mx]
+    rows = got["rows"]
+    rows["paged_flash_decode_mesh"]["launches"] = r0["counts"]["paged_flash_decode"]
+    rows["grouped_matmul_blocks_mesh"]["launches"] = r0["mixtral_counts"]["grouped_matmul_blocks"]
+    return {"rows": rows, "counts": [r["counts"] for r in ranks],
+            "mixtral_counts": [r["mixtral_counts"] for r in ranks]}
+
+
+# Mixtral's mesh serve: mixnet prefills (kernels 1, 2, 4, 5, 7, 8), dense
+# decode ticks (kernels 1 and 8).
+MESH_MIXTRAL_KERNELS = ("topk_gating", "flash_attention", "moe_dispatch", "moe_combine",
+                        "grouped_matmul_blocks", "rmsnorm")
+
+
 def chat_requests(seed: int, vocab: int, max_len: int):
     """(generator, the ``REQUESTS`` chat requests) every serve takes: prompts
     and outputs capped to fit ``max_len``; token ids below ``vocab``."""
@@ -4337,6 +4857,10 @@ def main(argv=None) -> int:
     rows.update(multi["rows"])
     pipe = pipeline_phase(torch, args.seed)
     rows.update(pipe["rows"])
+    mesh_ckpt_dir = str(REPO / "build" / "mesh_ckpt")
+    mesh_ck = mesh_ckpt_phase(torch, args.seed, mesh_ckpt_dir)
+    mesh_sv = mesh_serve_phase(torch, args.seed, mesh_ckpt_dir)
+    rows.update(mesh_sv["rows"])
 
     # launches: each kernel's count from the path it belongs to — the
     # capacity training run for kernel 6 and its backward, the dropless run
@@ -4368,12 +4892,15 @@ def main(argv=None) -> int:
                               "pipeline": [c[name] for c in pipe["counts"]],
                               "dense_train": dense["train"][name],
                               "dense_serve": dense["serve"][name],
-                              "evaluation": [c[name] for c in counts_eval]},
+                              "evaluation": [c[name] for c in counts_eval],
+                              "mesh_checkpoint": [c[name] for c in mesh_ck["counts"]],
+                              "mesh_serve": [c[name] for c in mesh_sv["counts"]],
+                              "mesh_serve_mixtral": [c[name] for c in mesh_sv["mixtral_counts"]]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 51, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 53, [r["name"] for r in line]
     spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "

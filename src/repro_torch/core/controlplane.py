@@ -40,6 +40,7 @@ from repro_torch.core.placement import (
 )
 from repro_torch.core.traffic import TrafficMonitor
 from repro_torch.obs import metrics, trace
+from repro_torch.parallel.sharding import EXPERT_LEAVES
 
 __all__ = [
     "EXPERT_LEAVES",
@@ -129,11 +130,6 @@ class RegionGateStats:
         self.mix = mix
         self.weight = np.asarray(state["weight"], dtype=np.float64)
         self.alpha = float(state.get("alpha", self.alpha))
-
-
-# The stacked expert leaves under ``params["blocks"][*]["moe"]`` that a
-# reconfiguration moves.
-EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
 
 
 def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int, *, mesh=None,
@@ -771,10 +767,40 @@ class PlacementApplier:
             "controlplane": self.cp.state_dict(),
             "wire_perm": None if self.wire_perm is None else self.wire_perm.tolist(),
             "wire_reconfig_count": int(self.wire_reconfig_count),
+            "model_size": int(self.model_size),
         }
 
-    def load_state_dict(self, state: dict) -> None:
-        self.cp.load_state_dict(state["controlplane"])
+    def load_state_dict(self, state: dict) -> bool:
+        """Restore a saved placement; returns True when it was folded.
+
+        At the saved model size the perm stack, the wire maps, the counts
+        and the region statistics restore as saved.  At another (a state
+        without ``model_size`` was saved at its wire map's width, or at this
+        size) the wire map is folded into the perm stack, ``perm =
+        wire[perm // epd] * epd + perm % epd`` (the stored expert arrays are
+        in physical slot order, so no data moves), the wire map becomes the
+        identity and the region statistics start fresh.  A state of another
+        number of virtual experts raises ``ValueError``."""
+        cp_state = dict(state["controlplane"])
+        perms = np.asarray(cp_state["layer_perms"], dtype=np.int64)
+        if perms.ndim != 2 or perms.shape[1] != self.cp.num_virtual:
+            raise ValueError(
+                f"the saved placement addresses {perms.shape[-1]} virtual experts, this "
+                f"engine {self.cp.num_virtual}: a restore may not change the number of "
+                "virtual experts (E < P on either side)")
         wp = state.get("wire_perm")
-        self.wire_perm = None if wp is None else np.asarray(wp, dtype=np.int64)
+        wire = None if wp is None else np.asarray(wp, dtype=np.int64)
+        saved = int(state.get("model_size", wire.shape[1] if wire is not None
+                              else self.model_size))
+        folded = saved != self.model_size
+        if folded:
+            if wire is not None:
+                epd = perms.shape[1] // wire.shape[1]
+                perms = np.take_along_axis(wire, perms // epd, axis=1) * epd + perms % epd
+            cp_state["layer_perms"] = perms.tolist()
+            cp_state.pop("region_stats", None)
+            wire = None
+        self.cp.load_state_dict(cp_state)
+        self.wire_perm = wire
         self.wire_reconfig_count = int(state.get("wire_reconfig_count", 0))
+        return folded

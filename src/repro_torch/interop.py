@@ -57,40 +57,17 @@ def params_from_numpy(tree, cfg=None, device="cpu", *, trainable: bool = False):
     return conv(tree, "")
 
 
-_EXPERT_LEAVES = frozenset({"w_in", "w_gate", "w_out"})
-
-
 def shard_params(tree, plan, mesh, rank: int | None = None, cfg=None):
-    """A rank's shard of a global numpy tree (the JAX package's, converted):
-    the expert leaves (``moe/w_in``, ``moe/w_gate``, ``moe/w_out``, stacked
-    ``[reps, E_virtual, ...]``) keep the rank's ``E_virtual / P`` slots of the
-    model axis; over a mesh with a ``"stage"`` axis (``cfg`` given) the rank
-    keeps its stage's repeats and ends
-    (``models.transformer.stage_params``); every other leaf stays whole.
+    """A rank's shard of a global numpy tree (the JAX package's, converted),
+    by the one layout rule of :class:`repro_torch.parallel.sharding.TreeLayout`:
+    the expert leaves keep the rank's ``E_virtual / P`` slots of the model
+    axis, over a ``"stage"`` axis the rank keeps its stage's repeats and ends
+    (``cfg`` says whether the head is tied), every other leaf stays whole.
     ``rank`` is the global rank (default: this process's); the result is
-    still numpy, for :func:`params_from_numpy`, so a card only ever
-    receives its shard."""
+    still numpy, for :func:`params_from_numpy`, so a card only ever receives
+    its shard."""
     if mesh is None:
         return tree
-    if cfg is not None and "stage" in mesh.mesh_dim_names:
-        from repro_torch.models.transformer import stage_params
-        from repro_torch.parallel.sharding import stage_layers
+    from repro_torch.parallel.sharding import TreeLayout
 
-        tree = stage_params(tree, cfg, *stage_layers(mesh, cfg.pattern_repeats, rank=rank))
-    if plan.model_axis is None or plan.model_size <= 1:
-        return tree
-    from repro_torch.parallel.sharding import mesh_coord
-
-    m, p = mesh_coord(mesh, plan.model_axis, rank), plan.model_size
-
-    def cut(node, path):
-        if isinstance(node, dict):
-            return {k: cut(v, f"{path}/{k}") for k, v in node.items()}
-        parts = path.rsplit("/", 2)
-        if len(parts) == 3 and parts[1] == "moe" and parts[2] in _EXPERT_LEAVES:
-            a = np.asarray(node)
-            n = a.shape[1] // p
-            return a[:, m * n:(m + 1) * n]
-        return node
-
-    return cut(tree, "")
+    return TreeLayout(plan, mesh, bool(cfg is not None and cfg.tie_embeddings)).shard(tree, rank)

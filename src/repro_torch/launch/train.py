@@ -12,7 +12,11 @@ reference's factorization); ``--nproc N`` spawns the N ranks itself (a
 process joins from the environment.  The backend is NCCL when every rank has
 a card of its own and gloo when ranks share one or run on the CPU; rank 0
 prints it, and the run's summary.  It runs on the card unless ``--device
-cpu`` is given.
+cpu`` is given.  ``--ckpt-every N`` writes one global checkpoint every N
+steps from all ranks; ``--resume`` restores the newest under ``--ckpt-dir``
+and takes the data from the batch after its step, under the same or
+another ``--nproc`` (the elastic case: the wire maps fold into the perm
+stack).
 """
 
 from __future__ import annotations
@@ -105,11 +109,14 @@ def run(args, rank: int | None = None, world: int | None = None,
         data = FileLM(args.data, args.seq_len, args.batch, vocab_size=cfg.vocab_size)
     else:
         data = SyntheticLM(cfg.vocab_size, args.seq_len, args.batch, seed=args.seed)
+    data = iter(data)
+    for _ in range(trainer.step):  # a resumed run takes the batches after its step
+        next(data)
     if main_rank:
         shape = None if mesh is None else tuple(mesh.mesh.shape)
         print(f"{cfg.name}: {cfg.param_count() / 1e6:.1f}M params on {world} rank(s), "
               f"mesh={shape}, backend={backend}, device={device}", flush=True)
-    log = trainer.train(iter(data))
+    log = trainer.train(data)
     losses = [float(m["loss"]) for m in log]
     out = {"first": float(np.mean(losses[:3])), "last": float(np.mean(losses[-3:])),
            "reconfigs": trainer.reconfig_count, "wire_reconfigs": trainer.wire_reconfig_count}

@@ -21,8 +21,10 @@ gathers through on the card.  Over a ``("data", "model")`` mesh each rank
 runs that body on its token slice with its ``E_virtual / P`` experts,
 re-addresses the wire chunks by a layer's ``wire_perm``, and reduces the
 telemetry as the reference's ``shard_map`` body does; ``overlap_chunks >
-1`` runs it as the chunked software pipeline.  The einsum and dense-decode
-backends over a mesh come with a later item.
+1`` runs it as the chunked software pipeline.  Over a mesh the einsum and
+dense-decode backends run each rank's own expert slots and gather their
+outputs over the model axis (forward only: their training over a mesh
+comes with dense tensor parallelism).
 
 Speculative decoding's draft passes (``MoEConfig.draft_mode``, picked by
 :func:`resolve_draft_mode` and :func:`draft_config`): ``topk1`` narrows the
@@ -53,10 +55,12 @@ __all__ = [
 ]
 
 
-def init_moe(gen, cfg, plan: ShardingPlan, *, reps: int, device, model_index: int = 0) -> dict:
-    """Stacked ``[reps, ...]`` router and expert weights.  Over a model axis
-    of size P the expert leaves keep rank ``model_index``'s ``E_virtual /
-    P`` slots of the same draw (one layer stack drawn at a time)."""
+def init_moe(gen, cfg, plan: ShardingPlan, *, reps: int, device, take=None) -> dict:
+    """Stacked ``[reps, ...]`` router and expert weights, drawn one leaf at a
+    time; ``take(name, tensor)`` keeps a rank's part of each leaf as it is
+    drawn (``sharding.TreeLayout.part``: over a model axis of size P the
+    expert leaves keep the rank's ``E_virtual / P`` slots of the same draw),
+    so a rank never holds more than one whole leaf."""
     e = cfg.moe
     d = cfg.d_model
     dtype = getattr(torch, cfg.dtype)
@@ -64,25 +68,23 @@ def init_moe(gen, cfg, plan: ShardingPlan, *, reps: int, device, model_index: in
     if e.d_ff % r != 0:
         raise ValueError(f"expert d_ff {e.d_ff} not divisible by replication {r}")
     f = e.d_ff // r
-    p = max(plan.model_size, 1)
-    lo, hi = model_index * (ev // p), (model_index + 1) * (ev // p)
+    keep = take or (lambda _, w: w)
 
-    def experts(shape, std):
-        w = normal(gen, shape, dtype, device, std)
-        return w if p == 1 else w[:, lo:hi].clone()
+    def draw(name, shape, std, dt=dtype):
+        return keep(name, normal(gen, shape, dt, device, std))
 
     params = {
-        "router": normal(gen, (reps, d, e.num_experts), torch.float32, device, d**-0.5),
-        "w_in": experts((reps, ev, d, f), d**-0.5),
-        "w_gate": experts((reps, ev, d, f), d**-0.5),
-        "w_out": experts((reps, ev, f, d), e.d_ff**-0.5),
+        "router": draw("router", (reps, d, e.num_experts), d**-0.5, torch.float32),
+        "w_in": draw("w_in", (reps, ev, d, f), d**-0.5),
+        "w_gate": draw("w_gate", (reps, ev, d, f), d**-0.5),
+        "w_out": draw("w_out", (reps, ev, f, d), e.d_ff**-0.5),
     }
     if e.num_shared_experts:
         f_sh = e.d_ff * e.num_shared_experts
         params["shared"] = {
-            "w_in": normal(gen, (reps, d, f_sh), dtype, device, d**-0.5),
-            "w_gate": normal(gen, (reps, d, f_sh), dtype, device, d**-0.5),
-            "w_out": normal(gen, (reps, f_sh, d), dtype, device, f_sh**-0.5),
+            "w_in": draw("shared/w_in", (reps, d, f_sh), d**-0.5),
+            "w_gate": draw("shared/w_gate", (reps, d, f_sh), d**-0.5),
+            "w_out": draw("shared/w_out", (reps, f_sh, d), f_sh**-0.5),
         }
     return params
 
@@ -114,11 +116,39 @@ def _expert_ffn(x, w_in, w_gate, w_out, act, fixed_rows=False):
     return y.reshape(e, g, c, d).transpose(0, 1)
 
 
-def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None, fixed_rows=False):
+def _slot_range(plan: ShardingPlan, mesh, ev: int) -> tuple[int, int, int]:
+    """``(lo, hi, P)``: the virtual slots ``[lo, hi)`` this rank's expert
+    leaves hold over the model axis, of ``ev`` (all of them without one)."""
+    p = cr.axis_size(mesh, plan.model_axis) if mesh is not None else 1
+    if p <= 1:
+        return 0, ev, 1
+    m, k = cr.axis_index(mesh, plan.model_axis), ev // p
+    return m * k, (m + 1) * k, p
+
+
+def _gather_slots(y: torch.Tensor, plan: ShardingPlan, mesh, dim: int) -> torch.Tensor:
+    """Every rank's per-slot outputs (its slots along ``dim``) gathered over
+    the model axis into the physical slot order, the same bits on every
+    rank (a copy, no sum); accounted under the model axis's link class."""
+    moved = y.movedim(dim, 0).contiguous()
+    full = cr.all_gather_raw(moved, cr.axis_group(mesh, plan.model_axis))
+    return full.movedim(0, dim)
+
+
+def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None, fixed_rows=False,
+                mesh=None):
     """The GShard einsum backend; ``fixed_rows`` (decode mode) runs the
     router, the per-expert products and the combine on fixed row blocks
     (``layers.decode_rows``), so a token's output does not depend on how
-    many tokens share the call."""
+    many tokens share the call.
+
+    Over a mesh (what GSPMD makes of the reference's constraints at
+    ``moe.py:172`` and ``:207-209``): every rank of a model group routes the
+    same rows, dispatches them to its OWN ``E_virtual / P`` slots and runs
+    those experts only; the per-slot outputs ``[G, E_virtual, C, D]`` are
+    gathered over the model axis and combined in gate order as at P = 1,
+    so every rank holds the same output bits.  The telemetry is the rows the
+    rank routed (a model group's, over a data axis a shard's)."""
     e = cfg.moe
     b, s, d = x.shape
     ev, r = virtual_experts(e.num_experts, plan.model_size)
@@ -147,8 +177,11 @@ def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None, fixed_rows
     dispatch, _ = routing.dense_dispatch_masks(vdest, rank, keep, wfull, ev, cap)
     dropped = 1.0 - keep.sum() / (b * g * t * sc)
 
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)  # [G, Ev, C, D]
+    lo, hi, p = _slot_range(plan, mesh, ev)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch[:, :, lo:hi].to(x.dtype), xg)  # [G, Ev/P, C, D]
     ye = _expert_ffn(xe, params["w_in"], params["w_gate"], params["w_out"], cfg.act, fixed_rows)
+    if p > 1:
+        ye = _gather_slots(ye, plan, mesh, 1)  # [G, Ev, C, D]
     # Combine in GATE order: gather each choice's expert row through its
     # (slot, rank) address and contract over the choices.  The JAX backend's
     # [.., Ev, C] combine einsum sums over slots, whose association would
@@ -171,11 +204,18 @@ def _combine(w, ysel, fixed_rows):
 
 
 def _moe_dense_decode(params, x, cfg, plan: ShardingPlan, expert_perm=None,
-                      gate_weights=None):
+                      gate_weights=None, mesh=None):
     """Decode-time MoE: ALL experts computed on the handful of live tokens,
     each choice's expert output gathered by ``vdest`` and summed in gate
     order, so decode tokens are bit-identical under any ``expert_perm``;
-    every product on fixed row blocks (``layers.decode_rows``)."""
+    every product on fixed row blocks (``layers.decode_rows``).
+
+    Over a mesh (the reference's ``constrain`` at ``moe.py:606``): each rank
+    runs its ``E_virtual / P`` local experts on every live token, the
+    ``[E_virtual, T, D]`` outputs are gathered over the model axis (a copy,
+    in slot order) and combined in gate order on every rank: no all-reduce,
+    whose association could differ between ranks, so every rank's output is
+    the same bits, the one-device path's."""
     e = cfg.moe
     b, s, d = x.shape
     ev, r = virtual_experts(e.num_experts, plan.model_size)
@@ -184,11 +224,14 @@ def _moe_dense_decode(params, x, cfg, plan: ShardingPlan, expert_perm=None,
     info = routing.compute_routing(
         logits, top_k=e.top_k, num_virtual=ev, replication=r, expert_perm=expert_perm,
     )
-    xe = xt.unsqueeze(0).expand(ev, -1, -1)
+    lo, hi, p = _slot_range(plan, mesh, ev)
+    xe = xt.unsqueeze(0).expand(hi - lo, -1, -1)
     y = decode_rows(
         lambda rr: _ffn_rows(rr, params["w_in"], params["w_gate"], params["w_out"], cfg.act), xe,
         dim=1,
-    )  # [Ev, T, D]
+    )  # [Ev / P, T, D]
+    if p > 1:
+        y = _gather_slots(y, plan, mesh, 0)  # [Ev, T, D]
     tok = torch.arange(b * s, device=x.device)[:, None]
     ysel = y[info.vdest.long(), tok]  # [T, S, D]
     out = _combine(info.wfull.to(y.dtype), ysel, True).reshape(b, s, d)
@@ -605,7 +648,8 @@ class _ChunkGMM(torch.autograd.Function):
         return dx, None, None, None, None, None
 
 
-_LATER = "comes with a later item of the multi-device port (ROADMAP.md §1)"
+_LATER = ("comes with a later item of ROADMAP.md §1 (dense tensor parallelism, ZeRO-3, "
+          "the sequence-parallel paths)")
 
 
 def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm=None,
@@ -693,15 +737,17 @@ def moe_apply(
         )
         cfg = dataclasses.replace(cfg, moe=e)
     backend = backend or e.backend
-    if mesh is not None and backend != "mixnet":
-        raise NotImplementedError(f"the {backend} backend over a mesh {_LATER}")
     if backend != "einsum" and (x.shape[1] == 1 or mode == "decode"):
         # Decode: the weight-stationary dense path, unless the config pins
         # the mixnet backend's sparse dispatch at decode.
         if not (backend == "mixnet" and e.decode_backend == "sparse"):
-            if mesh is not None:
-                raise NotImplementedError(f"the dense-decode backend over a mesh {_LATER}")
             backend = "dense_decode"
+    if mesh is not None and backend != "mixnet" and torch.is_grad_enabled() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad for v in params.values()):
+        # The dense backends over a mesh run every rank on the model group's
+        # rows; their gradients (the dispatch input's summed over the model
+        # axis, the router's not) come with dense tensor parallelism.
+        raise NotImplementedError(f"training the {backend} backend over a mesh {_LATER}")
     ev, _ = virtual_experts(e.num_experts, plan.model_size)
     perm = routing.resolve_perm(expert_perm, ev, device=x.device)
     if wire_perm is not None and backend != "mixnet":
@@ -720,7 +766,7 @@ def moe_apply(
         )
     elif backend == "dense_decode":
         out, stats = _moe_dense_decode(
-            params, x, cfg, plan, expert_perm=perm, gate_weights=gate_weights
+            params, x, cfg, plan, expert_perm=perm, gate_weights=gate_weights, mesh=mesh,
         )
     elif backend == "mixnet":
         out, stats = _moe_mixnet(
@@ -729,7 +775,7 @@ def moe_apply(
         )
     elif backend == "einsum":
         out, stats = _moe_einsum(params, x, cfg, plan, expert_perm=perm,
-                                 fixed_rows=mode == "decode")
+                                 fixed_rows=mode == "decode", mesh=mesh)
     else:
         raise ValueError(f"unknown MoE backend {backend!r}")
     if "shared" in params:

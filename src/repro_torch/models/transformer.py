@@ -35,10 +35,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.parallel.sharding import ShardingPlan, stage_layers, virtual_experts
+from repro_torch.parallel.sharding import ShardingPlan, TreeLayout, virtual_experts
 
 __all__ = [
-    "init_model", "stage_params", "model_apply", "embed", "apply_layers", "LayerOutputs",
+    "init_model", "model_apply", "embed", "apply_layers", "LayerOutputs",
     "final_norm", "logits_from_features", "init_caches",
     "init_paged_caches", "paged_supported", "pad_caches", "ForwardAux",
     "chunked_cross_entropy",
@@ -69,10 +69,10 @@ def _check_supported(cfg) -> None:
 def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) -> dict:
     """Seeded parameters drawn directly on ``device`` (the card unless the
     caller asks for the CPU) in ``cfg.dtype``.  Over a ``mesh`` every rank
-    draws the same values and keeps its model-axis shard of the expert
-    leaves, so the ranks together hold the one-device draw.  Over a mesh
-    with a ``"stage"`` axis a rank also keeps only its stage's repeats
-    (:func:`stage_params`): the generator is consumed in the same order."""
+    draws the same values, leaf by leaf, and keeps its part of each
+    (:class:`~repro_torch.parallel.sharding.TreeLayout`: its model-axis
+    shard of the expert leaves, its stage's repeats and ends over a
+    ``"stage"`` axis), so the ranks together hold the one-device draw."""
     cfg.validate()
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -80,66 +80,41 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) ->
     reps = cfg.pattern_repeats
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    layout = TreeLayout(plan, mesh, cfg.tie_embeddings)
     d = cfg.d_model
     params: dict = {"embed": L.normal(gen, (cfg.vocab_size, d), dtype, dev, d**-0.5)}
     blocks = {}
     for i, kind in enumerate(cfg.block_pattern):
+        name = f"{i}_{kind}"
         if kind == "ssm":
-            blocks[f"{i}_{kind}"] = {
+            blocks[name] = layout.shard({
                 "norm1": L.init_rms_norm(d, dtype, dev, reps),
                 "ssm": ssm_mod.init_ssm(gen, cfg, plan, reps=reps, device=dev),
-            }
+            }, prefix=f"blocks/{name}")
             continue
         block = {
             "norm1": L.init_rms_norm(d, dtype, dev, reps),
             "attn": L.init_attention(gen, cfg, plan, reps=reps, device=dev),
             "norm2": L.init_rms_norm(d, dtype, dev, reps),
         }
+        block = layout.shard(block, prefix=f"blocks/{name}")
         if cfg.is_moe:
-            block["moe"] = moe_mod.init_moe(gen, cfg, plan, reps=reps, device=dev,
-                                            model_index=_model_index(mesh, plan))
+            block["moe"] = moe_mod.init_moe(
+                gen, cfg, plan, reps=reps, device=dev,
+                take=lambda leaf, w, name=name: layout.part(w, f"blocks/{name}/moe/{leaf}"))
         else:
-            block["mlp"] = L.init_mlp(gen, cfg, reps=reps, device=dev)
-        blocks[f"{i}_{kind}"] = block
+            block["mlp"] = layout.shard(L.init_mlp(gen, cfg, reps=reps, device=dev),
+                                        prefix=f"blocks/{name}/mlp")
+        blocks[name] = block
     params["blocks"] = blocks
     params["final_norm"] = L.init_rms_norm(d, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (d, cfg.vocab_size), dtype, dev, d**-0.5)
-    s, n, lo, hi = stage_layers(mesh, reps)
-    return params if n == 1 else stage_params(params, cfg, s, n, lo, hi, clone=True)
-
-
-def stage_params(params: dict, cfg, s: int, n: int, lo: int, hi: int, *, clone=False) -> dict:
-    """Stage ``s`` of ``n``'s part of a whole parameter tree: the block
-    repeats ``[lo, hi)`` (in the canonical ``[repeats, ...]`` layout), the
-    embedding on the first stage, the final norm and LM head on the last
-    (both ends on a stage that is both).  A tied head is the embedding, so
-    the last stage holds the embedding too (``train.pp_step`` sums its two
-    stages' gradients, which keeps the copies equal).  Works on tensors
-    (``clone`` copies the slices so the whole leaves can go) and on numpy
-    trees alike."""
-
-    def rows(node):
-        if isinstance(node, dict):
-            return {k: rows(v) for k, v in node.items()}
-        part = node[lo:hi]
-        return part.clone() if clone else part
-
-    out = {}
-    if s == 0 or (s == n - 1 and cfg.tie_embeddings):
-        out["embed"] = params["embed"]
-    out["blocks"] = rows(params["blocks"])
-    if s == n - 1:
-        out["final_norm"] = params["final_norm"]
-        if "lm_head" in params:
-            out["lm_head"] = params["lm_head"]
-    return out
-
-
-def _model_index(mesh, plan: ShardingPlan) -> int:
-    if mesh is None or plan.model_axis is None:
-        return 0
-    return int(mesh.get_local_rank(plan.model_axis))
+    # The ends: a stage that does not hold one drops it.
+    for k in ("embed", "final_norm", "lm_head"):
+        if k in params and layout.part(params[k], k) is None:
+            del params[k]
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,16 @@ other name) is invisible to the plan, as in the reference: inside a stage
 the batch and model axes mean what they mean without one.
 :func:`stage_layers` gives a rank's stage and the repeats it holds.
 
+Where each parameter and optimizer leaf lives is ONE rule
+(:class:`TreeLayout`): a leaf's global logical array is the canonical
+``[repeats, ...]`` one; under a mesh the block leaves keep the rank's
+stage's repeats (dim 0 over ``"stage"``), the expert leaves
+(``moe/w_in``, ``moe/w_gate``, ``moe/w_out``) also the rank's ``E_virtual
+/ P`` slots (dim 1 over the model axis), the embedding lives on the first
+stage (and the last, for a tied head), the final norm and LM head on the
+last, and every other leaf is replicated.  ``models.transformer.init_model``,
+``interop.shard_params`` and ``train.checkpoint`` all go through it.
+
 Layouts are explicit in the port, so :func:`constrain` is the identity.  In
 place of ``shard_map``'s token spec for the MoE region (``moe.py:503-520``
 of the reference), :func:`token_slice` and :func:`token_gather` move a
@@ -30,8 +40,15 @@ from repro_torch.core import commruntime as cr
 
 __all__ = [
     "ShardingPlan", "make_plan", "virtual_experts", "constrain", "seq_sharded", "token_slice",
-    "token_gather", "mesh_coord", "stage_layers",
+    "token_gather", "mesh_coord", "stage_layers", "TreeLayout", "EXPERT_LEAVES",
 ]
+
+# The stacked expert leaves under ``blocks/*/moe`` (sharded over the model
+# axis; a tuple: every rank walks them in this order), and the path words
+# that only name a tree, not a leaf's place in the model (a checkpoint's
+# ``params``/``opt`` and AdamW's ``mu``/``nu``).
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
+_TREE_WORDS = frozenset({"params", "opt", "mu", "nu"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +115,104 @@ def stage_layers(mesh, reps: int, axis: str = "stage", rank: int | None = None
     s = mesh_coord(mesh, axis, rank)
     per = reps // n
     return s, n, s * per, (s + 1) * per
+
+
+def _model_path(path: str) -> list[str]:
+    """A leaf path's words from the model tree's root: ``opt/mu/blocks/x``
+    -> ``["blocks", "x"]``."""
+    parts = [p for p in str(path).split("/") if p]
+    while parts and parts[0] in _TREE_WORDS:
+        parts = parts[1:]
+    return parts
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeLayout:
+    """Where each leaf of a parameter (or AdamW, or checkpoint) tree lives
+    under ``plan`` over ``mesh`` (None: one device); ``tied``: the model's
+    LM head is its embedding.  ``rank`` arguments are global ranks (default:
+    this process's)."""
+
+    plan: ShardingPlan
+    mesh: object = None
+    tied: bool = False
+
+    def _stages(self) -> int:
+        if self.mesh is None or "stage" not in (self.mesh.mesh_dim_names or ()):
+            return 1
+        return int(self.mesh.size(list(self.mesh.mesh_dim_names).index("stage")))
+
+    def _stage(self, rank):
+        n = self._stages()
+        return (0 if n == 1 else mesh_coord(self.mesh, "stage", rank)), n
+
+    def _experts_sharded(self, parts) -> bool:
+        return (len(parts) >= 3 and parts[0] == "blocks" and parts[-2] == "moe"
+                and parts[-1] in EXPERT_LEAVES and self.plan.model_axis is not None
+                and self.plan.model_size > 1 and self.mesh is not None)
+
+    def slices(self, path: str, shape, rank: int | None = None) -> tuple | None:
+        """The index (a tuple of slices) of the part of the global leaf of
+        ``shape`` that ``rank`` holds, or None when it holds none of it."""
+        parts = _model_path(path)
+        s, n = self._stage(rank)
+        idx = [slice(None)] * len(shape)
+        if parts[:1] == ["blocks"]:
+            if n > 1:
+                _, _, lo, hi = stage_layers(self.mesh, int(shape[0]), rank=rank)
+                idx[0] = slice(lo, hi)
+            if self._experts_sharded(parts):
+                p = self.plan.model_size
+                if shape[1] % p:
+                    raise ValueError(f"{path}: {shape[1]} expert slots over a model axis of {p}")
+                m, k = mesh_coord(self.mesh, self.plan.model_axis, rank), shape[1] // p
+                idx[1] = slice(m * k, (m + 1) * k)
+        elif parts == ["embed"]:
+            if not (s == 0 or (s == n - 1 and self.tied)):
+                return None
+        elif parts in (["final_norm"], ["lm_head"]):
+            if s != n - 1:
+                return None
+        return tuple(idx)
+
+    def global_shape(self, path: str, local_shape) -> tuple:
+        """The global leaf's shape from a rank's part of it."""
+        shape = list(local_shape)
+        parts = _model_path(path)
+        if parts[:1] == ["blocks"]:
+            shape[0] *= self._stages()
+            if self._experts_sharded(parts):
+                shape[1] *= self.plan.model_size
+        return tuple(shape)
+
+    def part(self, a, path: str, rank: int | None = None):
+        """``rank``'s part of the global leaf ``a`` (a tensor or an array), or
+        None.  A tensor's part is a copy when it is not all of ``a``, so the
+        whole leaf can go."""
+        idx = self.slices(path, a.shape, rank)
+        if idx is None:
+            return None
+        if all(i == slice(None) for i in idx):
+            return a
+        out = a[idx]
+        return out.clone() if isinstance(out, torch.Tensor) else out
+
+    def place(self, out, part, path: str, rank: int) -> None:
+        """The inverse of :meth:`part`: write ``rank``'s ``part`` into the
+        global leaf ``out`` in place."""
+        out[self.slices(path, out.shape, rank)] = part
+
+    def shard(self, tree, rank: int | None = None, prefix: str = ""):
+        """``rank``'s part of every leaf of a global nested-dict tree; a leaf
+        it does not hold is left out."""
+        if not isinstance(tree, dict):
+            return self.part(tree, prefix, rank)
+        out = {}
+        for k, v in tree.items():
+            got = self.shard(v, rank, f"{prefix}/{k}")
+            if got is not None:
+                out[k] = got
+        return out
 
 
 def virtual_experts(num_experts: int, model_size: int) -> tuple[int, int]:

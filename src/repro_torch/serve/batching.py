@@ -182,14 +182,15 @@ class ContinuousBatcher:
             )
         else:
             self.caches = tfm.init_caches(cfg, slots, max_len, device=self.device)
-        self._step = make_serve_step(cfg, plan, sample=self.sample, with_stats=True)
+        self._step = make_serve_step(cfg, plan, mesh, sample=self.sample, with_stats=True)
         # The dense cache admits through a prefill; the paged one through
         # the chunk step.
-        self._prefill_fn = None if self.paged else make_prefill_step(cfg, plan, with_stats=True)
+        self._prefill_fn = (None if self.paged
+                            else make_prefill_step(cfg, plan, mesh, with_stats=True))
         # Paged mode always has the chunk step: it admits every prompt (from
         # position 0, or mid-way after a prefix-cache hit).
         self._chunk_fn = (
-            make_prefill_chunk_step(cfg, plan, with_stats=True)
+            make_prefill_chunk_step(cfg, plan, mesh, with_stats=True)
             if self.prefill_chunk > 0 or self.paged
             else None
         )
@@ -208,7 +209,8 @@ class ContinuousBatcher:
                 )
             self.draft_mode = moe_mod.resolve_draft_mode(cfg, spec_draft_mode)
             self._draft_cfg = moe_mod.draft_config(cfg, spec_draft_mode)
-            self._verify_fn = make_verify_step(cfg, plan, sample=self.sample, with_stats=True)
+            self._verify_fn = make_verify_step(cfg, plan, mesh, sample=self.sample,
+                                               with_stats=True)
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_rounds = 0
@@ -511,7 +513,7 @@ class ContinuousBatcher:
         if k > 0:
             draft_fn = self._draft_fns.get(k)
             if draft_fn is None:
-                draft_fn = make_draft_loop_step(self._draft_cfg, self.plan, k=k,
+                draft_fn = make_draft_loop_step(self._draft_cfg, self.plan, self.mesh, k=k,
                                                 sample=self.sample)
                 self._draft_fns[k] = draft_fn
             with self._tr.span("serve.spec_draft", tid=self.trace_tid, k=k, live=len(live)):

@@ -4,7 +4,18 @@
 The engine runs on the card unless it is given ``device="cpu"``.
 Checkpoints (``save_checkpoint``/``restore_checkpoint``) carry the weights,
 the paged KV pools and the placement and allocator state, and restore them
-into the engine's own tensors in place.
+into the engine's own tensors in place; a trainer's checkpoint restores
+into the parameters (its AdamW state is not read).
+
+Over a ``("model",)`` mesh (``mesh=``, one process per rank, each holding
+its shard of the experts): every rank runs the same host logic on the same
+requests, in lock step because the tokens are the same bits on every rank;
+the MoE layers run EP-sharded, the tick's gate load is reduced over the
+mesh (so every rank plans alike), a plan that moves whole device blocks is
+installed as a wire re-address (``ServeConfig(num_devices=P)``) and any
+other moves the expert slots across ranks; checkpoints are global
+(:mod:`repro_torch.train.checkpoint` with the tree's layout), so they
+restore under any mesh.  Rank 0 alone prints.
 
 Owns the request lifecycle end to end:
 
@@ -45,7 +56,7 @@ from repro_torch.core.controlplane import ControlPlane, LayerPlan, PlacementAppl
 from repro_torch.models import routing
 from repro_torch.obs import metrics, trace
 from repro_torch.obs.traffic import TrafficObservatory
-from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
+from repro_torch.parallel.sharding import ShardingPlan, TreeLayout, virtual_experts
 from repro_torch.serve import events as sev
 from repro_torch.serve.batching import ContinuousBatcher, Request, TickStats
 from repro_torch.serve.workload import SyntheticRequest, WorkloadGenerator
@@ -159,6 +170,7 @@ class ServeEngine:
     ):
         self.cfg = cfg
         self.plan = plan
+        self.mesh = mesh
         self.scfg = scfg or ServeConfig()
         s = self.scfg
         self.batcher = ContinuousBatcher(
@@ -190,15 +202,16 @@ class ServeEngine:
                 use_copilot=s.use_copilot,
                 num_regions=s.num_regions,
             )
-            # Wire re-addressing is only realizable when the decode path
-            # actually runs the mixnet a2a (sparse decode on a model axis).
+            # Wire re-addressing on a model axis: the mixnet a2a realizes the
+            # device map on the wire, the dense backends compose it into the
+            # slot addressing (models.moe.moe_apply).  Any other plan moves
+            # the expert slots, across ranks over a mesh.
             self.applier = PlacementApplier(
                 self.controlplane,
                 model_size=max(plan.model_size, 1),
-                wire_capable=(
-                    cfg.moe.backend == "mixnet"
-                    and cfg.moe.decode_backend == "sparse"
-                ),
+                wire_capable=True,
+                mesh=mesh,
+                axis=plan.model_axis,
             )
             self.batcher.expert_perm = self.controlplane.perm_stack()
         # Per-tick decode a2a payload accounting (one EP a2a phase per MoE
@@ -314,10 +327,29 @@ class ServeEngine:
         return live
 
     # -- the decode-time control loop ----------------------------------------
+    @property
+    def is_main(self) -> bool:
+        """True on the rank that prints and reports (rank 0, or the only
+        process)."""
+        import torch.distributed as dist
+
+        return self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
+
+    def _mesh_load(self, load: np.ndarray) -> np.ndarray:
+        """The tick's gate load averaged over the model axis: every rank then
+        plans on the same bits (the ranks route the same rows, so the mean
+        of equal counts is the count itself)."""
+        p = comm.axis_size(self.mesh, self.plan.model_axis)
+        if self.mesh is None or p <= 1:
+            return load
+        t = torch.as_tensor(np.asarray(load, np.float32), device=self.batcher.device)
+        t = comm.all_reduce(t, comm.axis_group(self.mesh, self.plan.model_axis)) / float(p)
+        return t.cpu().numpy()
+
     def _observe(self, stats: TickStats) -> None:
         if stats.gate_load is None:
             return
-        load = np.asarray(stats.gate_load, dtype=np.float64)
+        load = np.asarray(self._mesh_load(stats.gate_load), dtype=np.float64)
         self.gate_load_total = (
             load if self.gate_load_total is None else self.gate_load_total + load
         )
@@ -620,8 +652,11 @@ class ServeEngine:
         if self.batcher.paged:
             extra["kv_alloc"] = self.batcher.alloc.state_dict()
             tree["kv"] = self.batcher.caches
-        ckpt.save(ckpt_dir, step, tree, extra=extra)
+        ckpt.save(ckpt_dir, step, tree, extra=extra, layout=self._layout())
         return step
+
+    def _layout(self) -> TreeLayout:
+        return TreeLayout(self.plan, self.mesh, self.cfg.tie_embeddings)
 
     def restore_checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
         """Copy a checkpoint into this engine's parameters (and KV pools) in
@@ -640,14 +675,22 @@ class ServeEngine:
         kv_alloc = extra.get("kv_alloc")
         if kv_alloc is not None and self.batcher.paged:
             skeleton["kv"] = self.batcher.caches
-        ckpt.restore(ckpt_dir, step, skeleton)
+        folded = False
+        if placement is not None:
+            # Placement first: another number of virtual experts raises
+            # before any tensor is touched.
+            folded = self.applier.load_state_dict(placement)
+        ckpt.restore(ckpt_dir, step, skeleton, layout=self._layout())
+        if folded and self.is_main:
+            print(f"[serve] placement saved at another model size restored at "
+                  f"{max(self.plan.model_size, 1)}: wire maps folded into the perm stack, "
+                  "region statistics start fresh", flush=True)
         if kv_alloc is not None and self.batcher.paged:
             self.batcher.alloc.load_state_dict(kv_alloc)
         serve = extra.get("serve") or {}
         if "tick" in serve:
             self.batcher.tick = int(serve["tick"])
         if placement is not None:
-            self.applier.load_state_dict(placement)
             self.batcher.expert_perm = self.controlplane.perm_stack()
             self.batcher.wire_perm = self.applier.wire_perm
         return step

@@ -20,6 +20,19 @@ written by either package restore in the other.
 * **In place**: ``restore`` copies each leaf into the skeleton's tensor on
   that tensor's device (``copy_``): a second full tree would not fit beside
   the training state on the card.
+* **Over a mesh** (``layout=``, a :class:`~repro_torch.parallel.sharding.TreeLayout`
+  of more than one rank): the files hold the same GLOBAL logical arrays, so
+  a checkpoint restores under any mesh, or on one rank.  Save gathers each
+  leaf to the writer (global rank 0), leaf by leaf, the parts sent by the
+  lowest rank holding each, over a gloo group (host buffers); every
+  collective runs on the calling thread in the same order on every rank.  A
+  synchronous save holds one leaf in the writer's host memory and ends with
+  a barrier; ``save_async`` gathers the whole tree into the writer's
+  snapshot now (the one-rank snapshot's memory) and only the file writing
+  runs on the worker thread, and ``wait_pending`` ends with a barrier, so
+  ``latest_step`` agrees on every rank before a restore.  Restore: every
+  rank reads each member it holds a part of and copies its part into its
+  own tensor; every shape is checked before anything is copied.
 """
 
 from __future__ import annotations
@@ -28,16 +41,24 @@ import json
 import os
 import shutil
 import threading
+import time
 import zipfile
 
 import numpy as np
 import torch
 
-__all__ = ["save", "save_async", "restore", "load_extra", "latest_step", "wait_pending"]
+from repro_torch.parallel.sharding import EXPERT_LEAVES
+
+__all__ = ["save", "save_async", "restore", "load_extra", "latest_step", "wait_pending",
+           "last_io"]
 
 _SEP = "/"
 _BF16 = "bfloat16"
 _pending: list[threading.Thread] = []
+_pending_barrier: list = []  # the io group of an unfinished mesh save_async
+# The bytes and seconds of this process's last save and restore (what a
+# caller prints as GB/s): {"save": (bytes, s), "restore": (bytes, s)}.
+last_io: dict = {}
 
 
 def _flatten(tree) -> dict:
@@ -79,20 +100,26 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _write(ckpt_dir: str, step: int, leaves, keep: int, extra) -> None:
+def _write(ckpt_dir: str, step: int, leaves, keep: int, extra, names=None) -> int:
     """Write ``leaves`` (``(key, leaf)`` pairs) as one checkpoint, atomically,
-    then drop all but the newest ``keep``."""
+    then drop all but the newest ``keep``; ``names``: the manifest's dtype
+    names where the leaves are already host arrays (bf16 bits).  Returns
+    the bytes written."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     shapes, dtypes = {}, {}
+    nbytes = 0
     with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w", zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for key, leaf in leaves:
             a, name = _host(leaf)
+            if names is not None:
+                name = names[key]
             shapes[key], dtypes[key] = list(a.shape), name
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, _c(a), allow_pickle=False)
+            nbytes += a.nbytes
             del a
     manifest = {
         "step": step,
@@ -107,31 +134,154 @@ def _write(ckpt_dir: str, step: int, leaves, keep: int, extra) -> None:
         shutil.rmtree(final)
     os.rename(tmp, final)
     _gc(ckpt_dir, keep)
+    return nbytes
 
 
-def save(ckpt_dir: str, step: int, tree, *, keep: int = 3, extra: dict | None = None):
+def _dist(layout) -> bool:
+    import torch.distributed as dist
+
+    return (layout is not None and layout.mesh is not None and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+_IO_GROUP: dict = {}
+
+
+def _io_group():
+    """A gloo group of every rank for the checkpoint's host buffers: the
+    default group when it is gloo, else one made once (collectively)."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "gloo":
+        return None
+    if "g" not in _IO_GROUP:
+        _IO_GROUP["g"] = dist.new_group(backend="gloo")
+    return _IO_GROUP["g"]
+
+
+def _metas(flat: dict, group) -> list[dict]:
+    """Every rank's ``{key: (local shape, host dtype, manifest dtype)}``, in
+    one all-gather (a rank of a pipeline stage lacks the other stages'
+    ends)."""
+    import torch.distributed as dist
+
+    def dtypes(leaf):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.dtype == torch.bfloat16:
+                return "uint16", _BF16
+            name = str(torch.empty((), dtype=leaf.dtype).numpy().dtype)
+            return name, name
+        a = np.asarray(leaf)
+        return ("uint16", _BF16) if a.dtype.name == _BF16 else (str(a.dtype), str(a.dtype))
+
+    meta = {k: (list(v.shape), *dtypes(v)) for k, v in flat.items()}
+    metas = [None] * dist.get_world_size()
+    dist.all_gather_object(metas, meta, group=group)
+    return metas
+
+
+def _gathered(flat: dict, layout, group, metas):
+    """Every leaf of the mesh's tree as a global host array, leaf by leaf in
+    sorted key order, on the writer (global rank 0), which yields ``(key,
+    array)``; the other ranks send the parts they own (the lowest rank
+    holding each region) and yield nothing.  Every rank runs this to its
+    end, in the same order."""
+    import torch.distributed as dist
+
+    me = dist.get_rank()
+    for key in sorted(set().union(*metas)):
+        holders = [r for r, meta in enumerate(metas) if key in meta]
+        local_shape, host_dtype, _ = metas[holders[0]][key]
+        shape = layout.global_shape(key, local_shape)
+        dtype = np.dtype(host_dtype)
+        owners, seen = {}, set()
+        for r in holders:
+            region = layout.slices(key, shape, r)
+            if region is not None and repr(region) not in seen:
+                seen.add(repr(region))
+                owners[r] = region
+        if me == 0:
+            out = np.empty(shape, dtype)
+            for r, region in owners.items():
+                if r == 0:
+                    part, _ = _host(flat[key])
+                else:
+                    buf = torch.empty(out[region].nbytes, dtype=torch.uint8)
+                    dist.recv(buf, src=r, group=group)
+                    part = buf.numpy().view(dtype)
+                out[region] = part.reshape(out[region].shape)
+            yield key, out
+        elif me in owners:
+            part, _ = _host(flat[key])
+            dist.send(torch.from_numpy(_c(part).reshape(-1).view(np.uint8)), dst=0, group=group)
+
+
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3, extra: dict | None = None,
+         layout=None):
     """Synchronous checkpoint write (atomic), one leaf in host memory at a
-    time."""
-    _write(ckpt_dir, step, _flatten(tree).items(), keep, extra)
+    time.  ``layout``: the tree's :class:`TreeLayout` over a mesh (every
+    rank calls ``save``; the global arrays are written once, and every rank
+    returns after the write)."""
+    t0 = time.perf_counter()
+    flat = _flatten(tree)
+    if not _dist(layout):
+        nbytes = _write(ckpt_dir, step, flat.items(), keep, extra)
+        last_io["save"] = (nbytes, time.perf_counter() - t0)
+        return
+    import torch.distributed as dist
+
+    group = _io_group()
+    metas = _metas(flat, group)
+    names = {k: m[2] for meta in metas for k, m in meta.items()}
+    leaves = _gathered(flat, layout, group, metas)
+    if dist.get_rank() == 0:
+        nbytes = _write(ckpt_dir, step, leaves, keep, extra, names)
+    else:
+        nbytes = sum(0 for _ in leaves)
+    dist.barrier(group=group)
+    last_io["save"] = (nbytes, time.perf_counter() - t0)
 
 
-def save_async(ckpt_dir: str, step: int, tree, *, keep: int = 3, extra=None):
-    """Snapshot every leaf to host memory now, write on a background thread."""
-    snapshot = [
-        (k, v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else np.array(v))
-        for k, v in _flatten(tree).items()
-    ]
-    t = threading.Thread(target=_write, args=(ckpt_dir, step, snapshot, keep, extra),
-                         daemon=True)
+def save_async(ckpt_dir: str, step: int, tree, *, keep: int = 3, extra=None, layout=None):
+    """Snapshot every leaf to host memory now, write on a background thread.
+    Over a mesh the snapshot is the writer's gather of the global arrays,
+    made here on the calling thread; the other ranks keep nothing."""
+    flat = _flatten(tree)
+    if _dist(layout):
+        import torch.distributed as dist
+
+        group = _io_group()
+        metas = _metas(flat, group)
+        names = {k: m[2] for meta in metas for k, m in meta.items()}
+        snapshot = list(_gathered(flat, layout, group, metas))
+        _pending_barrier.append(group)
+        if dist.get_rank() != 0:
+            return None
+        args = (ckpt_dir, step, snapshot, keep, extra, names)
+    else:
+        snapshot = [
+            (k, v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else np.array(v))
+            for k, v in flat.items()
+        ]
+        args = (ckpt_dir, step, snapshot, keep, extra)
+    t = threading.Thread(target=_write, args=args, daemon=True)
     t.start()
     _pending.append(t)
     return t
 
 
 def wait_pending():
+    """Join every background write; after a mesh ``save_async``, a barrier,
+    so that every rank sees the written step."""
     for t in _pending:
         t.join()
     _pending.clear()
+    if _pending_barrier:
+        import torch.distributed as dist
+
+        group = _pending_barrier[-1]
+        _pending_barrier.clear()
+        dist.barrier(group=group)
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -174,23 +324,44 @@ def _tensor(a: np.ndarray, name: str) -> torch.Tensor:
     return torch.from_numpy(_c(a))
 
 
-def restore(ckpt_dir: str, step: int, skeleton):
+def restore(ckpt_dir: str, step: int, skeleton, *, layout=None):
     """Load a checkpoint into the skeleton's tree, leaf by leaf.
 
     A tensor leaf receives the stored values IN PLACE (``copy_`` on its own
-    device; shape and dtype must match); any other leaf is replaced by a
-    CPU tensor of the stored array.  Returns the skeleton's tree."""
+    device; dtype must match, and its shape the stored one's, or with
+    ``layout`` its part of it); any other leaf is replaced by a CPU tensor
+    of the stored array.  Every shape is checked before anything is copied:
+    a checkpoint of another number of virtual experts (E < P on either
+    side) raises ``ValueError``.  Returns the skeleton's tree."""
+    t0 = time.perf_counter()
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
-        dtypes = json.load(f)["dtypes"]
+        manifest = json.load(f)
+    dtypes, shapes = manifest["dtypes"], manifest["shapes"]
     flat = _flatten(skeleton)
+    for key, leaf in flat.items():
+        if key not in dtypes:
+            raise KeyError(f"{key}: not in the checkpoint at {path}")
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        want = tuple(leaf.shape) if layout is None else layout.global_shape(key, leaf.shape)
+        if tuple(shapes[key]) != want:
+            hint = ""
+            if key.split(_SEP)[-1] in EXPERT_LEAVES and len(want) > 1 \
+                    and shapes[key][1] != want[1]:
+                hint = (f" (another number of virtual experts: {shapes[key][1]} stored, "
+                        f"{want[1]} here)")
+            raise ValueError(f"{key}: checkpoint holds {tuple(shapes[key])}, this tree's global "
+                             f"leaf is {want}{hint}")
     restored = {}
+    nbytes = 0
     with np.load(os.path.join(path, "arrays.npz")) as z:
         for key, leaf in flat.items():
-            if key not in dtypes:
-                raise KeyError(f"{key}: not in the checkpoint at {path}")
             src = _tensor(z[key], dtypes[key])
+            nbytes += src.numel() * src.element_size()
             if isinstance(leaf, torch.Tensor):
+                if layout is not None:
+                    src = layout.part(src, key)
                 if src.shape != leaf.shape or src.dtype != leaf.dtype:
                     raise ValueError(
                         f"{key}: checkpoint holds {src.dtype} {tuple(src.shape)}, the tree "
@@ -202,6 +373,7 @@ def restore(ckpt_dir: str, step: int, skeleton):
             else:
                 restored[key] = src
             del src
+    last_io["restore"] = (nbytes, time.perf_counter() - t0)
     return _rebuild(skeleton, restored, [])
 
 

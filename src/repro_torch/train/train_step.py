@@ -28,7 +28,11 @@ int8 with error feedback (``dp_compress``), as the reference's
 ``shard_map`` does.
 
 Sampled serving steps draw with :mod:`repro_torch.prng`, the counterpart of
-the ``jax.random`` calls the reference makes, on the logits' device.
+the ``jax.random`` calls the reference makes, on the logits' device.  The
+serving steps take the mesh through ``model_apply``: over a ``("model",)``
+mesh every rank holds the whole KV caches (or paged pools) and runs
+attention whole, and the MoE layers run EP-sharded
+(``models.moe.moe_apply``), so every rank returns the same tokens.
 """
 
 from __future__ import annotations
@@ -349,7 +353,7 @@ def make_prefill_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: bool = 
     @torch.no_grad()
     def prefill_step(params, batch, expert_perm=None, wire_perm=None):
         feats, aux, caches = tfm.model_apply(
-            params, batch, cfg, plan, mode="prefill",
+            params, batch, cfg, plan, mesh=mesh, mode="prefill",
             expert_perm=expert_perm, wire_perm=wire_perm,
         )
         logits = tfm.logits_from_features(params, feats[:, -1:], cfg)
@@ -375,7 +379,7 @@ def make_prefill_chunk_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: b
         gate_weights=None, page_table=None,
     ):
         feats, aux, caches = tfm.model_apply(
-            params, {"tokens": tokens}, cfg, plan, mode="decode", caches=caches, t=t,
+            params, {"tokens": tokens}, cfg, plan, mesh=mesh, mode="decode", caches=caches, t=t,
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
@@ -402,7 +406,7 @@ def make_serve_step(
         gate_weights=None, page_table=None,
     ):
         feats, aux, caches = tfm.model_apply(
-            params, {"tokens": tokens}, cfg, plan, mode="decode", caches=caches, t=t,
+            params, {"tokens": tokens}, cfg, plan, mesh=mesh, mode="decode", caches=caches, t=t,
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
@@ -440,7 +444,7 @@ def make_verify_step(
         gate_weights=None, page_table=None,
     ):
         feats, aux, caches = tfm.model_apply(
-            params, {"tokens": tokens}, cfg, plan, mode="decode", caches=caches, t=t,
+            params, {"tokens": tokens}, cfg, plan, mesh=mesh, mode="decode", caches=caches, t=t,
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
@@ -477,8 +481,8 @@ def make_draft_loop_step(cfg, plan: ShardingPlan, mesh=None, *, k: int, sample: 
         tok, drafts = tokens, []
         for i in range(k):
             feats, _, caches = tfm.model_apply(
-                params, {"tokens": tok}, cfg, plan, mode="decode", caches=caches, t=t + i,
-                expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
+                params, {"tokens": tok}, cfg, plan, mesh=mesh, mode="decode", caches=caches,
+                t=t + i, expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
                 page_table=page_table,
             )
             logits = _decode_logits(params, feats, cfg)[:, -1]

@@ -17,7 +17,14 @@ purpose, so that it can be held against the reference step for step.
 
 Checkpoints (:mod:`repro_torch.train.checkpoint`) carry the parameters,
 the AdamW state and, in ``extra``, the placement state; ``maybe_restore``
-copies them into the trainer's own tensors.
+copies them into the trainer's own tensors.  Over a mesh (flat or
+pipelined) every rank takes part in one global checkpoint, the canonical
+``[repeats, ...]`` arrays of one device, so it restores under any mesh or
+on one rank: at the saved model size the placement restores as saved
+(checked equal on every rank), at another the wire maps are folded into the
+perm stack (``PlacementApplier.load_state_dict``).  As in the reference,
+the ``dp_compress`` error-feedback residual is not checkpointed: the tree is
+the parameters and the AdamW state.
 
 Over a ``("data", "model")`` mesh (``Trainer(mesh=)``, one process per
 rank): each rank takes its data-axis slice of the global batch, holds its
@@ -43,9 +50,10 @@ comm knobs (``overlap_chunks`` and the dispatch mode, ``dp_compress`` where
 the mesh runs it) before the model is built; a miss prints a one-line
 warning, bumps ``autotune.cache_miss`` and keeps the configured constants.
 
-Not ported yet, each raising ``NotImplementedError``: ZeRO-3 parameter
-sharding (a plan with ``fsdp_axis``) and checkpoints of a trainer over more
-than one rank.
+Not ported yet, raising ``NotImplementedError``: ZeRO-3 parameter
+sharding (a plan with ``fsdp_axis``), and training the ``einsum`` backend
+over a mesh (``models.moe.moe_apply``: it comes with dense tensor
+parallelism).
 """
 
 from __future__ import annotations
@@ -68,12 +76,26 @@ from repro_torch.core.controlplane import (
 )
 from repro_torch.obs import metrics, trace
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.parallel.sharding import ShardingPlan, stage_layers, virtual_experts
+from repro_torch.parallel.sharding import (
+    ShardingPlan,
+    TreeLayout,
+    stage_layers,
+    virtual_experts,
+)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.pp_step import local_microbatch_rows, make_pp_train_step
 from repro_torch.train.train_step import init_all, init_ef_residual, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer", "permute_expert_weights"]
+
+
+def _moved(placement: dict) -> bool:
+    """True when a saved placement state moves any expert (a slot map or a
+    wire map other than the identity)."""
+    perms = np.asarray(placement["controlplane"]["layer_perms"])
+    wire = placement.get("wire_perm")
+    return bool((perms != np.arange(perms.shape[-1])).any()
+                or (wire is not None and (np.asarray(wire) != np.arange(len(wire[0]))).any()))
 
 
 @dataclasses.dataclass
@@ -120,11 +142,6 @@ class Trainer:
             raise NotImplementedError(
                 "ZeRO-3 parameter sharding comes with a later slice; build the plan with "
                 "make_plan(mesh, fsdp=False)"
-            )
-        if mesh is not None and mesh.size() > 1 and tcfg.ckpt_every:
-            raise NotImplementedError(
-                "checkpoints of a sharded trainer come with checkpoints across meshes "
-                "(ROADMAP.md §1)"
             )
         if tcfg.autotune_cache and tcfg.autotune_key:
             from repro_torch.core import autotune
@@ -214,20 +231,41 @@ class Trainer:
 
         return self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
 
+    def _layout(self) -> TreeLayout:
+        return TreeLayout(self.plan, self.mesh, self.cfg.tie_embeddings)
+
     def maybe_restore(self) -> bool:
         """Restore the newest checkpoint under ``ckpt_dir`` into this
-        trainer's tensors (in place), with its placement state."""
+        trainer's tensors (in place), with its placement state; over a mesh
+        every rank calls it."""
         last = ckpt.latest_step(self.tcfg.ckpt_dir)
         if last is None:
             return False
-        ckpt.restore(self.tcfg.ckpt_dir, last, {"params": self.params, "opt": self.opt_state})
-        # Placement state rides the manifest: restore it WITH the weights or
-        # the router would address pre-reconfiguration slots.
         extra = ckpt.load_extra(self.tcfg.ckpt_dir, last)
-        if self.controlplane is not None and "placement" in extra:
-            self._bound_applier().load_state_dict(extra["placement"])
+        placement = extra.get("placement")
+        if self.controlplane is None and placement is not None and _moved(placement):
+            raise ValueError(
+                f"the checkpoint at step {last} holds a moved expert placement; build the "
+                "trainer with reconfig_every > 0 so that it carries one")
+        folded = False
+        if self.controlplane is not None and placement is not None:
+            # Placement first: a restore that would change the number of
+            # virtual experts raises before any tensor is touched.
+            folded = self._bound_applier().load_state_dict(placement)
             self.expert_perm = self.controlplane.perm_stack()
             self.reconfig_count = self.controlplane.reconfig_count
+        ckpt.restore(self.tcfg.ckpt_dir, last, {"params": self.params, "opt": self.opt_state},
+                     layout=self._layout())
+        if self.mesh is not None and self.controlplane is not None:
+            self._check_plans_agree()
+        if self.is_main:
+            nbytes, sec = ckpt.last_io["restore"]
+            print(f"[trainer] restored step {last}: {nbytes / 1e9:.3f} GB read in {sec:.1f} s "
+                  f"({nbytes / 1e9 / max(sec, 1e-9):.3f} GB/s) by each rank", flush=True)
+            if folded:
+                print(f"[trainer] placement saved at another model size restored at "
+                      f"{max(self.plan.model_size, 1)}: wire maps folded into the perm stack, "
+                      "region statistics start fresh", flush=True)
         self.step = last
         return True
 
@@ -238,7 +276,8 @@ class Trainer:
             if self.controlplane is not None else None
         )
         save = ckpt.save_async if self.tcfg.ckpt_async else ckpt.save
-        save(self.tcfg.ckpt_dir, self.step, tree, keep=self.tcfg.ckpt_keep, extra=extra)
+        save(self.tcfg.ckpt_dir, self.step, tree, keep=self.tcfg.ckpt_keep, extra=extra,
+             layout=self._layout())
 
     # -- observability ---------------------------------------------------------
     def _track_id(self) -> int:
@@ -261,16 +300,17 @@ class Trainer:
         )
 
     def _check_plans_agree(self) -> None:
-        """Every rank must hold the same slot maps and wire perms: an
-        all-gather of their hash, raising on disagreement."""
+        """Every rank must hold the same placement state (slot maps, wire
+        perms, counts and region statistics), after a reconfiguration or a
+        restore: an all-gather of its hash, raising on disagreement."""
         import hashlib
+        import json
 
-        h = hashlib.sha256(np.asarray(self.controlplane.perm_stack(), np.int64).tobytes())
-        if self.wire_perm is not None:
-            h.update(np.asarray(self.wire_perm, np.int64).tobytes())
+        state = self._bound_applier().state_dict()
+        h = hashlib.sha256(json.dumps(state, sort_keys=True).encode())
         got = cr.all_gather_objects(h.hexdigest())
         if len(set(got)) != 1:
-            raise RuntimeError(f"ranks disagree on the placement after a reconfiguration: {got}")
+            raise RuntimeError(f"ranks disagree on the placement state: {got}")
 
     def _apply_layer_plans(self, plans: list[LayerPlan]) -> bool:
         """Actuate per-layer placement plans through the shared

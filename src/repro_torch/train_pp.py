@@ -4,6 +4,7 @@ expert->slot permutation plus a rotate-by-one wire re-address) flowing
 through the stage pipe from step 2 on.
 
     PYTHONPATH=src python -m repro_torch.train_pp [--steps 4] [--stages 2] [--ep 4] [--device cpu]
+        [--ckpt-every N --ckpt-dir DIR] [--resume]
 
 Port of ``examples/train_pp.py``.  It spawns ``stages * ep`` ranks (gloo, a
 free ``tcp://localhost`` port).  Each step's loss, and the final
@@ -11,7 +12,10 @@ parameters, are checked against the flat EP(P) train step on the same
 batch within ``1e-5``: the pipelined composition is a scheduling change,
 not a math change.  The flat steps run on the same ranks, over a
 ``("rep", "model")`` mesh whose first axis the plan ignores.  Without
-``--device cpu`` the ranks share the card.
+``--device cpu`` the ranks share the card.  ``--ckpt-every N`` writes the
+pipelined state as one global checkpoint every N steps; ``--resume``
+restores the newest into the pipelined ranks AND into the flat run (the
+canonical layout restores under either mesh) and goes on from its step.
 """
 
 from __future__ import annotations
@@ -71,7 +75,8 @@ def _rank(rank: int, args, init_method: str) -> None:
 
     from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.parallel.sharding import make_plan, stage_layers
+    from repro_torch.parallel.sharding import TreeLayout, make_plan, stage_layers
+    from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.pp_step import local_microbatch_rows, make_pp_train_step
     from repro_torch.train.train_step import init_all, make_train_step
 
@@ -98,7 +103,19 @@ def _rank(rank: int, args, init_method: str) -> None:
         print(f"== PP(S={args.stages}) x EP({args.ep}) on {world} ranks ({args.device}), "
               f"microbatches={MICROBATCHES}, vs the flat EP({args.ep}) step ==", flush=True)
     tensor = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    for step in range(args.steps):
+    pp_layout, ref_layout = TreeLayout(pp_plan, pp_mesh), TreeLayout(ref_plan, ref_mesh)
+    start = 0
+    last = ckpt.latest_step(args.ckpt_dir) if args.resume and args.ckpt_dir else None
+    if last is not None:
+        ckpt.restore(args.ckpt_dir, last, {"params": params, "opt": opt_state}, layout=pp_layout)
+        ckpt.restore(args.ckpt_dir, last, {"params": ref_params, "opt": ref_opt},
+                     layout=ref_layout)
+        start = last
+        if main:
+            nbytes, sec = ckpt.last_io["restore"]
+            print(f"resumed from step {last} ({nbytes / 1e6:.2f} MB read a rank in {sec:.2f} s) "
+                  "into the pipelined and the flat run", flush=True)
+    for step in range(start, args.steps):
         batch = batch_for(step, cfg.vocab_size)
         perm, wire = plan_for_step(step, cfg, args.ep)
         tperm = None if perm is None else tensor(perm)
@@ -113,6 +130,9 @@ def _rank(rank: int, args, init_method: str) -> None:
         if main:
             tag = "  [reconfigured: perm+wire applied]" if perm is not None else ""
             print(f"step {step}: pp_loss={loss:.6f}  ref_loss={ref_loss:.6f}{tag}", flush=True)
+        if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, step + 1, {"params": params, "opt": opt_state},
+                      layout=pp_layout)
     # The whole trajectories agree, not just the scalar losses: this rank's
     # stage of every parameter against the flat run's.
     _, _, lo, hi = stage_layers(pp_mesh, cfg.pattern_repeats)
@@ -138,7 +158,12 @@ def main(argv=None) -> None:
     ap.add_argument("--stages", type=int, default=2)
     ap.add_argument("--ep", type=int, default=4)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
+    if (args.ckpt_every or args.resume) and not args.ckpt_dir:
+        ap.error("--ckpt-every and --resume need --ckpt-dir")
     if args.device == "cuda":
         import torch
 

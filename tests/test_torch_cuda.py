@@ -1479,3 +1479,105 @@ def test_chunked_capacity_trainer_same_at_any_chunk_count_on_the_card(dev):
     assert runs[0][0] == runs[1][0]
     for name, leaf in runs[0][1].items():
         assert torch.equal(leaf, runs[1][1][name]), name
+
+
+class _GridMesh:
+    """A mesh's rank grid and dim names, without a process group: what
+    ``TreeLayout`` reads when every rank is named."""
+
+    def __init__(self, shape, names):
+        self.mesh = torch.arange(int(np.prod(shape))).reshape(shape)
+        self.mesh_dim_names = names
+
+    def size(self, dim):
+        return int(self.mesh.shape[dim])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,names", [((2, 2), ("stage", "model")), ((1, 4), ("data", "model"))])
+def test_tree_layout_parts_reassemble_bit_for_bit_on_the_card(dev, dtype, shape, names):
+    """The mesh checkpoint's slice and assemble helpers on card tensors:
+    every rank's part of each leaf, placed back, is the global tree bit for
+    bit; a part that is not the whole leaf is a copy."""
+    from repro_torch.parallel.sharding import TreeLayout, make_plan
+
+    mesh = _GridMesh(shape, names)
+    layout = TreeLayout(make_plan(mesh, fsdp=False), mesh, tied=True)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tree = {"embed": torch.randn((64, 16), generator=g, device=dev).to(dtype),
+            "blocks": {"0_global": {
+                "norm1": torch.randn((4, 16), generator=g, device=dev).to(dtype),
+                "moe": {"router": torch.randn((4, 16, 8), generator=g, device=dev),
+                        "w_in": torch.randn((4, 8, 16, 24), generator=g, device=dev).to(dtype)}}},
+            "final_norm": torch.randn((16,), generator=g, device=dev).to(dtype)}
+    flat = dict(_flat_leaves(tree))
+    out = {k: torch.zeros_like(v) for k, v in flat.items()}
+    held = {k: 0 for k in flat}
+    for r in range(4):
+        for key, part in _flat_leaves(layout.shard(tree, rank=r)):
+            assert part.device == flat[key].device and part.dtype == flat[key].dtype
+            if part.shape != flat[key].shape:
+                assert part.data_ptr() != flat[key].data_ptr()
+            layout.place(out[key], part, key, r)
+            held[key] += 1
+            assert layout.global_shape(key, part.shape) == tuple(flat[key].shape)
+    for key, v in flat.items():
+        bits = (lambda t: t.view(torch.int16)) if dtype == torch.bfloat16 else (lambda t: t)
+        want = bits(v) if v.dtype == dtype else v
+        got = bits(out[key]) if v.dtype == dtype else out[key]
+        assert torch.equal(got, want), key
+        assert held[key] >= 1, key
+
+
+def _flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
+@pytest.mark.cuda
+def test_dense_decode_gather_over_one_rank_group_equals_unsharded(dev):
+    """``dense_decode`` over a one-rank ``("model",)`` group equals the
+    unsharded backend bit for bit, and its slot gather (gloo on the card's
+    bf16 tensors) returns the rank's outputs as they were."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import free_port
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.parallel.sharding import make_plan
+
+    cfg = ModelConfig("t", "moe", 1, 64, 4, 2, 0, 128, dtype="bfloat16",
+                      moe=MoEConfig(num_experts=8, top_k=2, d_ff=96))
+    g = torch.Generator(device=dev).manual_seed(5)
+    p = {"router": torch.randn((64, 8), generator=g, device=dev) * 0.5,
+         "w_in": (torch.randn((8, 64, 96), generator=g, device=dev) / 8).bfloat16(),
+         "w_gate": (torch.randn((8, 64, 96), generator=g, device=dev) / 8).bfloat16(),
+         "w_out": (torch.randn((8, 96, 64), generator=g, device=dev) / 10).bfloat16()}
+    x = torch.randn((6, 1, 64), generator=g, device=dev).bfloat16()
+    perm = torch.tensor([3, 1, 4, 0, 6, 2, 7, 5], dtype=torch.int32, device=dev)
+    owned = not dist.is_initialized()
+    if owned:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                                world_size=1)
+    try:
+        mesh = make_mesh((1,), ("model",))
+        plan = make_plan(mesh)
+        with torch.no_grad():
+            o_mesh, st_mesh = moe_mod.moe_apply(p, x, cfg, plan, mesh=mesh, mode="decode",
+                                                backend="dense_decode", expert_perm=perm)
+            o, st = moe_mod.moe_apply(p, x, cfg, make_plan(None), mode="decode",
+                                      backend="dense_decode", expert_perm=perm)
+            y = torch.randn((8, 6, 64), generator=g, device=dev).bfloat16()
+            gathered = moe_mod._gather_slots(y, plan, mesh, 0)
+        assert torch.equal(o_mesh.view(torch.int16), o.view(torch.int16))
+        assert torch.equal(st_mesh.expert_load, st.expert_load)
+        assert gathered.device == y.device and torch.equal(gathered.view(torch.int16),
+                                                           y.view(torch.int16))
+    finally:
+        if owned:
+            dist.destroy_process_group()
