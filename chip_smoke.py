@@ -157,9 +157,13 @@ Phases, one printed line (or more) each:
    swap on layer 0 (a wire re-address) and a cross-block slot swap on layer
    1 (expert weights moved across ranks), once through the wire path (the
    main path, launches counted per rank) and once forced through the weight
-   path; then a ``(2, 2)`` mesh at depth 1, 4 steps.  Wire and weight runs
-   equal bit for bit (losses and every parameter), non-expert parameters
-   bit-identical across ranks, losses within 1e-4 relative of one device;
+   path; then a ``(2, 2)`` mesh at depth 1, 4 steps.  The model axis runs
+   the dense leaves tensor-parallel (attention heads, the vocab) and the
+   experts expert-parallel.  Wire and weight runs equal bit for bit (losses
+   and every parameter), every leaf the layout replicates bit-identical
+   across ranks and each tensor-parallel leaf's parts, gathered over the
+   model axis, the same bits on every rank, losses within 1e-4 relative of
+   one device;
    per-rank step times, wire and host-staged bytes per step, peak memory,
    launches; kernels 4, 5 and 7 timed at one rank's shapes;
 14b. pipeline — Mixtral-8x7B at its published widths, depth 2, as two
@@ -171,8 +175,9 @@ Phases, one printed line (or more) each:
    the first (layer 0: a weight move across stage 0's ranks; layer 1: a
    wire re-address of stage 1's), launches counted per rank.  Losses
    within 1e-4 relative of one device and equal on every rank, each plan
-   counted on its own stage, non-expert parameters bit-identical in each
-   stage's model group; per-rank step times, stage-to-stage, wire and
+   counted on its own stage, replicated leaves bit-identical (and the
+   tensor-parallel leaves' gathered parts the same bits) in each stage's
+   model group; per-rank step times, stage-to-stage, wire and
    host-staged bytes, peak memory, launches, the GPipe bubble fraction
    (not measurable on one card); kernel 7 timed at a stage rank's shape;
 14c. evaluation — around the multi-rank phase: first, on the host, the
@@ -199,7 +204,8 @@ Phases, one printed line (or more) each:
    map folded into the perm stack) and takes step 3 (within 1e-3 relative);
    write and read GB/s;
 14e. mesh serve — grok-1-314b at its published widths, depth 2, over
-   ``("model",)`` of 4 (2 of 8 experts a rank): the 8 chat requests paged
+   ``("model",)`` of 4 (2 of 8 experts, 12 of 48 q heads and 2 of 8 kv
+   heads, a quarter of the vocab a rank): the 8 chat requests paged
    (launches counted), then again after a forced wire plan (layer 0) and a
    weight plan across ranks (layer 1): tokens equal, and equal on every
    rank; rank 0 times kernel 3 at its decode shape; after the group exits
@@ -209,6 +215,18 @@ Phases, one printed line (or more) each:
    served over the same mesh with dense KV (mixnet prefills, dense-decode
    ticks), its launches, ticks and peak memory per rank, and kernel 7 at a
    rank's received layout of a mesh prefill; the checkpoint is removed;
+14f. tensor parallel — four ranks on the card over gloo, the model axis
+   running Megatron tensor parallelism: gemma2-2b at its published widths
+   and all 26 layers on ``(1, 4)``, the dense phase's first 3 steps of 2 x
+   256 tokens (same seed, same batches), losses within 1e-4 relative of
+   that phase's one-device losses; Mixtral-8x7B at its published widths,
+   depth 2, on the ``einsum`` MoE backend at ``(1, 4)``, 3 steps after a
+   weight plan across ranks, held to a one-device einsum run made first in
+   this process; gemma2-2b served over ``("model",)`` of 4, paged: tokens
+   equal on every rank, the first tick's logits within 5e-2 of one
+   device's; per rank the median step and tick, peak memory, the tensor
+   parallel bytes a step on the model axis and the launches of kernels 2,
+   3 and 8, and the grok-1 mesh-serve tick of phase 14e;
 15. the kernels of one decode tick of each serve, the sha256 of each
    serve's tokens (to set beside another tree's), the kernels line (JSON),
    the card line, and the result line ``{"ok": true, "device": {...}}``.
@@ -3393,7 +3411,8 @@ def dense_phase(torch, seed: int, page: int) -> dict:
     E2E["dense phase s"] = seconds
     counts_dense_serve = {k: counts_serve[k] + sum(s["counts"][k] for s in served.values())
                           for k in counts_serve}
-    return dict(rows=rows, train=counts_train, serve=counts_dense_serve)
+    return dict(rows=rows, train=counts_train, serve=counts_dense_serve,
+                losses=trained["losses"])
 
 
 # ---------------------------------------------------------------------------
@@ -3460,13 +3479,14 @@ def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wir
     return tr
 
 
-def multi_steps(torch, tr, cfg, seed: int, on_step=None, batch: int = 2):
-    """MULTI_STEPS ``Trainer.train`` calls on the ``batch`` x 256 global
+def multi_steps(torch, tr, cfg, seed: int, on_step=None, batch: int = 2,
+                steps: int = MULTI_STEPS):
+    """``steps`` ``Trainer.train`` calls on the ``batch`` x 256 global
     batch of ``SyntheticLM``; ``on_step(i)`` after each, outside nothing."""
     from repro_torch.data.pipeline import SyntheticLM
 
     data = iter(SyntheticLM(cfg.vocab_size, seq_len=256, global_batch=batch, seed=seed))
-    for s in range(1, MULTI_STEPS + 1):
+    for s in range(1, steps + 1):
         tr.tcfg.total_steps = s
         tr.train(data)
         torch.cuda.synchronize()
@@ -3504,14 +3524,27 @@ def _leaf_digest(t) -> str:
 
 
 def multi_digests(tr) -> dict:
-    """sha1 of every parameter leaf of this rank (expert leaves per layer)."""
+    """sha1 of every parameter leaf of this rank: an expert leaf per layer
+    (``#layer``), a leaf the layout replicates as it is, a tensor-parallel
+    leaf's parts all-gathered over the model axis in rank order
+    (``@model``: the same bits on every rank when the parts agree).  Over a
+    mesh every rank calls it at the same point (the gathers are
+    collectives)."""
+    from repro_torch.core import commruntime as cr
+    from repro_torch.parallel.sharding import TreeLayout
+
+    layout = TreeLayout(tr.plan, tr.mesh, tr.cfg)
     out = {}
     for path, leaf in _flat_tree(tr.params):
-        if path.split("/")[-1] in ("w_in", "w_gate", "w_out"):
+        if path.split("/")[-2:-1] == ["moe"] and path.split("/")[-1] in ("w_in", "w_gate",
+                                                                          "w_out"):
             for li in range(leaf.shape[0]):
                 out[f"{path}#{li}"] = _leaf_digest(leaf[li])
-        else:
+        elif tr.mesh is None or layout.replicated(path):
             out[path] = _leaf_digest(leaf)
+        else:
+            grp = cr.axis_group(tr.mesh, tr.plan.model_axis)
+            out[f"{path}@model"] = _leaf_digest(cr.all_gather_raw(leaf.detach(), grp))
     return out
 
 
@@ -3839,7 +3872,8 @@ def multi_rank_phase(torch, seed: int, tuned: dict | None = None) -> dict:
     assert all(math.isfinite(v) for run in wire_run + mesh22 for v in run["losses"])
     print(f"multi-rank: checks held: (1, 4) wire run == weight run bit for bit (losses and every "
           f"parameter, layer 0's expert blocks on the rank the wire map {wire0[0]} names); "
-          f"non-expert parameters bit-identical on all {MULTI_RANKS} ranks in both meshes; "
+          f"replicated leaves bit-identical and tensor-parallel leaves' gathered parts the same "
+          f"bits on all {MULTI_RANKS} ranks in both meshes; "
           f"reconfigurations 1 wire + 1 weight (across ranks) in the wire run, 2 weight in the "
           f"weight run; losses within {MULTI_LOSS_REL} of one device; every kernel of "
           f"{MULTI_KERNELS} launched on every rank", flush=True)
@@ -4192,7 +4226,8 @@ def pipeline_phase(torch, seed: int) -> dict:
     assert err <= MULTI_LOSS_REL, f"losses {ranks[0]['losses']} vs one device {ref}: {err:.3e}"
     print(f"pipeline: checks held: losses within {MULTI_LOSS_REL} of one device and equal on "
           f"all {MULTI_RANKS} ranks; 1 weight move on stage 0, 1 wire re-address on stage 1; "
-          f"non-expert parameters bit-identical in each stage's model group; every kernel of "
+          f"replicated leaves bit-identical and tensor-parallel leaves' gathered parts the same "
+          f"bits in each stage's model group; every kernel of "
           f"{MULTI_KERNELS} launched on every rank", flush=True)
     E2E["pipeline (2, 2) median step ms per rank"] = [med(r["step_ms"][1:]) for r in ranks]
     E2E["pipeline (2, 2) stage bytes per step per rank"] = [med(r["stage_bytes"]) for r in ranks]
@@ -4430,14 +4465,15 @@ def first_tick_logits(torch, params, cfg, plan, mesh, prompt, device):
     from repro_torch.train.train_step import _decode_logits
 
     pages = -(-len(prompt) // MESH_PAGE)
-    caches = tfm.init_paged_caches(cfg, pages, MESH_PAGE, device=device)
+    caches = tfm.init_paged_caches(cfg, pages, MESH_PAGE, device=device,
+                                   plan=plan if mesh is not None else None)
     with torch.no_grad():
         feats, _, _ = tfm.model_apply(
             params, {"tokens": torch.tensor(prompt[None, :], device=device)}, cfg, plan,
             mesh=mesh, mode="decode", caches=caches,
             t=torch.zeros((1,), dtype=torch.int32, device=device),
             page_table=torch.arange(pages, dtype=torch.int32, device=device)[None])
-        return _decode_logits(params, feats[:, -1:], cfg)[0, 0].float()
+        return _decode_logits(params, feats[:, -1:], cfg, plan, mesh)[0, 0].float()
 
 
 def mesh_serve_run(torch, eng, reqs, gen) -> tuple:
@@ -4561,10 +4597,11 @@ def mesh_serve_main(rank: int, seed: int, port: int, out_path: str, ckpt_dir: st
 
 def mesh_decode_row(torch, cfg, seed: int) -> dict:
     """Kernel 3 at a rank's decode tick of the mesh serve: the MESH_SLOTS
-    slots at ragged lengths over the whole pools (every rank holds them),
-    while the other three ranks stay resident on the card."""
+    slots at ragged lengths over the pools of the rank's kv heads, its q
+    heads (tensor parallelism over the model axis), while the other three
+    ranks stay resident on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed + 53)
-    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hq, hkv, dh = cfg.num_heads // MULTI_RANKS, cfg.num_kv_heads // MULTI_RANKS, cfg.head_dim
     max_pages = MESH_MAX_LEN // MESH_PAGE
     num_pages = MESH_SLOTS * max_pages
     lengths = [37, 120, 201, 254][:MESH_SLOTS]
@@ -4682,6 +4719,276 @@ def mesh_serve_phase(torch, seed: int, ckpt_dir: str) -> dict:
     rows["grouped_matmul_blocks_mesh"]["launches"] = r0["mixtral_counts"]["grouped_matmul_blocks"]
     return {"rows": rows, "counts": [r["counts"] for r in ranks],
             "mixtral_counts": [r["mixtral_counts"] for r in ranks]}
+
+
+# ---------------------------------------------------------------------------
+# phase 14f: tensor parallelism over the model axis, four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+TP_STEPS = 3  # the dense phase's first steps, and the einsum run's
+TP_MIXTRAL_LAYERS = 2  # of Mixtral's 32: the multi-rank phase's depth
+TP_LOGITS = str(REPO / "build" / "tp_first_tick_logits.npy")  # rank 0's, for the parent
+# Kernels 2 and 8 train both models; kernel 1 routes Mixtral; kernel 3
+# decodes the gemma2 serve (its admissions are decode-mode chunks).
+TP_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+TP_MIXTRAL_KERNELS = TP_TRAIN_KERNELS + ("topk_gating",)
+TP_SERVE_KERNELS = ("paged_flash_decode", "rmsnorm")
+TP_SHOWN = ("flash_attention", "flash_attention_bwd", "paged_flash_decode", "rmsnorm",
+            "rmsnorm_bwd")
+
+
+def tp_einsum_cfg():
+    """Mixtral-8x7B at its published widths, depth TP_MIXTRAL_LAYERS, on the
+    ``einsum`` MoE backend (the multi-rank phase's config otherwise)."""
+    c = multi_cfg(TP_MIXTRAL_LAYERS)
+    return dataclasses.replace(c, moe=dataclasses.replace(c.moe, backend="einsum"))
+
+
+def dense_trainer(torch, cfg, seed: int, plan, mesh, device):
+    """The dense phase's gemma2 ``Trainer`` (its AdamW settings and seed)
+    over ``mesh`` (None: one device)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    return Trainer(cfg, AdamWConfig(warmup_steps=2, total_steps=DENSE_STEPS),
+                   TrainerConfig(total_steps=0), plan, mesh=mesh, seed=seed, device=device)
+
+
+def tp_train_run(torch, cr, tr, cfg, seed: int) -> dict:
+    """TP_STEPS steps of 2 x 256 tokens, launches counted (reset just before
+    the first step, read just after the last), the model axis's wire bytes
+    of each step, peak memory."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.reset_peak_memory_stats()
+    model_bytes, marks = [], [cr.wire_bytes().scale_out]
+
+    def on_step(_):
+        now = cr.wire_bytes().scale_out
+        model_bytes.append(now - marks[0])
+        marks[0] = now
+
+    ops.reset_launch_counts()
+    losses = multi_steps(torch, tr, cfg, seed, on_step, steps=TP_STEPS)
+    counts = ops.launch_counts()
+    return dict(losses=losses, step_ms=[1e3 * m["step_time_s"] for m in tr.metrics_log],
+                model_bytes=model_bytes, counts=counts,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, digests=multi_digests(tr),
+                params=sum(t.numel() for _, t in _flat_tree(tr.params)))
+
+
+def tp_rank_main(rank: int, seed: int, port: int, out_path: str) -> None:
+    """One of the four ranks: gemma2-2b trained at ``(1, 4)``, Mixtral on
+    the einsum backend trained at ``(1, 4)`` after a weight plan, gemma2-2b
+    served over ``("model",)`` of 4 (rank 0 keeps the first tick's logits
+    for the parent)."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import commruntime as cr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, _, backend = init_distributed(
+        "auto", rank=rank, world_size=MULTI_RANKS, init_method=f"tcp://localhost:{port}",
+        device_type=MULTI_DEVICE, timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    device = local_device(rank, MULTI_DEVICE)
+    mesh14 = make_mesh((1, MULTI_RANKS), ("data", "model"))
+    plan14 = make_plan(mesh14, fsdp=False)
+    res = {"rank": rank, "backend": backend}
+    t0 = time.perf_counter()
+    cfg = get_config("gemma2-2b")
+    tr = dense_trainer(torch, cfg, seed, plan14, mesh14, device)
+    res["gemma2"] = tp_train_run(torch, cr, tr, cfg, seed)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = tp_einsum_cfg()
+    tr = multi_trainer(torch, mcfg, seed, plan14, mesh14, device, plans=True, wire=False)
+    res["mixtral"] = tp_train_run(torch, cr, tr, mcfg, seed)
+    res["mixtral"]["reconfigs"] = tr.reconfig_count
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train_s"] = time.perf_counter() - t0
+
+    m4 = make_mesh((MULTI_RANKS,), ("model",))
+    plan4 = make_plan(m4)
+    params = init_model(seed, cfg, plan4, device=device, mesh=m4)
+    gen, reqs = chat_requests(seed, cfg.vocab_size, MESH_MAX_LEN)
+    logits = first_tick_logits(torch, params, cfg, plan4, m4,
+                               gen.prompt_tokens(reqs[0]).astype("int32"), device)
+    if rank == 0:
+        np.save(TP_LOGITS, logits.cpu().numpy())
+    eng = ServeEngine(params, cfg, plan4, ServeConfig(slots=MESH_SLOTS, max_len=MESH_MAX_LEN,
+                                                      page_size=MESH_PAGE,
+                                                      num_devices=MULTI_RANKS),
+                      mesh=m4, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    before = cr.wire_bytes().scale_out
+    ops.reset_launch_counts()
+    rep, toks, ticks = mesh_serve_run(torch, eng, reqs, gen)
+    res["serve"] = dict(tokens=toks, tick_ms=ticks, counts=ops.launch_counts(), ticks=rep.ticks,
+                        model_bytes=cr.wire_bytes().scale_out - before,
+                        kv_heads=int(eng.batcher.caches["0_local"]["k"].shape[-2]),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    gathered = cr.all_gather_objects(res)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps({"ranks": gathered}))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def tp_rounding_check(torch, seed: int) -> dict:
+    """Why the row-parallel partials are summed in f32: at Mixtral's
+    attention output projection ([512, 4096] @ [4096, 4096] bf16) split
+    over MULTI_RANKS ranks' rows, the share of elements whose bf16 result
+    differs from one device's GEMM when the partials are rounded to bf16
+    before the sum, and when they are summed in f32 and cast once; and the
+    share for the column-parallel split (the ranks' column blocks, which
+    one device's kernel computes alike)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 61)
+    bf16, p = torch.bfloat16, MULTI_RANKS
+    x = torch.randn((512, 4096), generator=g, device="cuda").to(bf16)
+    w = (torch.randn((4096, 4096), generator=g, device="cuda") * 4096**-0.5).to(bf16)
+    one, k = x @ w, 4096 // p
+    parts = [(x[:, i * k:(i + 1) * k].contiguous(), w[i * k:(i + 1) * k].contiguous())
+             for i in range(p)]
+    bf16_sum = sum((a @ b).float() for a, b in parts).to(bf16)
+    f32_sum = sum(torch.mm(a, b, out_dtype=torch.float32) for a, b in parts).to(bf16)
+    cols = torch.cat([x @ w[:, i * k:(i + 1) * k].contiguous() for i in range(p)], 1)
+    share = lambda t: (t != one).float().mean().item()  # noqa: E731
+    out = dict(bf16_partials=share(bf16_sum), f32_partials=share(f32_sum), columns=share(cols))
+    print(f"tensor parallel: one device's bits left, [512, 4096] @ [4096, 4096] bf16 over "
+          f"{p} ranks: row-parallel with bf16 partials {out['bf16_partials']:.4e} of the "
+          f"elements, with f32 partials summed and cast once {out['f32_partials']:.4e}; "
+          f"column-parallel blocks {out['columns']:.4e}", flush=True)
+    return out
+
+
+def tp_phase(torch, seed: int, dense_losses: list) -> dict:
+    """gemma2-2b (all 26 layers) and Mixtral-8x7B (depth 2, einsum) trained,
+    and gemma2-2b served, as four tensor-parallel ranks on the card; the
+    gemma2 losses held to the dense phase's one-device losses
+    (``dense_losses``), Mixtral's to a one-device einsum run made here
+    first, the first served tick's logits to one device's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.sharding import make_plan
+
+    t_phase = time.perf_counter()
+    if MULTI_DEVICE == "cuda":
+        tp_rounding_check(torch, seed)
+    mcfg = tp_einsum_cfg()
+    tr = multi_trainer(torch, mcfg, seed, make_plan(None), None, MULTI_DEVICE, plans=True,
+                       wire=False)
+    ref_mixtral = multi_steps(torch, tr, mcfg, seed, steps=TP_STEPS)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    ranks = spawn_ranks(torch, tp_rank_main, seed)["ranks"]
+    t_ranks = time.perf_counter() - t_phase - t_ref
+    cfg = get_config("gemma2-2b")
+    params = init_model(seed, cfg, make_plan(None), device=MULTI_DEVICE)
+    gen, reqs = chat_requests(seed, cfg.vocab_size, MESH_MAX_LEN)
+    one = first_tick_logits(torch, params, cfg, make_plan(None), None,
+                            gen.prompt_tokens(reqs[0]).astype("int32"),
+                            torch.device(MULTI_DEVICE))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits_path = pathlib.Path(TP_LOGITS)
+    tp_logits = torch.from_numpy(np.load(logits_path)).to(MULTI_DEVICE)
+    logits_path.unlink()
+    assert torch.isfinite(tp_logits).all() and torch.isfinite(one).all()
+    gap = (tp_logits - one).abs().max().item() / one.abs().max().item()
+    want = dense_losses[:TP_STEPS]
+    rel = lambda got, ref: max(abs(a - b) / abs(b) for a, b in zip(got, ref))  # noqa: E731
+    err_g = rel(ranks[0]["gemma2"]["losses"], want)
+    err_m = rel(ranks[0]["mixtral"]["losses"], ref_mixtral)
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    grok = E2E.get("grok mesh serve median tick ms per rank")
+    for tag, what in (("gemma2", f"{cfg.name}, {cfg.num_layers} layers"),
+                      ("mixtral", f"{mcfg.name} einsum, depth {mcfg.num_layers}")):
+        runs = [r[tag] for r in ranks]
+        print(f"tensor parallel {what}, (1, {MULTI_RANKS}) over {ranks[0]['backend']} (four "
+              f"ranks share the card): losses {['%.6f' % v for v in runs[0]['losses']]}; median "
+              f"step ms per rank (steps 2-{TP_STEPS}, trainer's clock) "
+              f"{['%.1f' % med(r['step_ms'][1:]) for r in runs]}; model-axis wire MB a step "
+              f"(rank 0, comm.link_bytes scale_out: the TP all-reduces and gathers"
+              f"{' and the expert-output gathers' if tag == 'mixtral' else ''}) "
+              f"{['%.2f' % (b / 1e6) for b in runs[0]['model_bytes']]}; peak GB per rank "
+              f"{['%.2f' % r['peak_gb'] for r in runs]}; parameters per rank "
+              f"{[r['params'] for r in runs]}; launches per rank "
+              f"{[{k: r['counts'][k] for k in TP_SHOWN if r['counts'][k]} for r in runs]}",
+              flush=True)
+    sv = [r["serve"] for r in ranks]
+    print(f"tensor parallel {cfg.name} served over (\"model\",) of {MULTI_RANKS}, paged (page "
+          f"{MESH_PAGE}), {len(reqs)} chat requests: ticks {sv[0]['ticks']}, median tick ms per "
+          f"rank {['%.1f' % med(s['tick_ms']) for s in sv]}; model-axis wire MB over the serve "
+          f"(rank 0) {sv[0]['model_bytes'] / 1e6:.2f}; kv heads a rank {sv[0]['kv_heads']}; peak "
+          f"GB per rank {['%.2f' % s['peak_gb'] for s in sv]}; launches per rank "
+          f"{[{k: s['counts'][k] for k in TP_SHOWN if s['counts'][k]} for s in sv]}; the grok-1 "
+          f"mesh-serve tick of phase 14e, ms per rank "
+          f"{['%.1f' % v for v in grok] if grok else 'not run'}", flush=True)
+    print(f"tensor parallel: gemma2-2b losses against the dense phase's one device "
+          f"{['%.6f' % v for v in want]}: max rel diff {err_g:.3e}; Mixtral einsum against one "
+          f"device {['%.6f' % v for v in ref_mixtral]}: {err_m:.3e} (limit {MULTI_LOSS_REL}); "
+          f"first served tick's logits against one device: max |diff| / max |logit| = "
+          f"{gap:.3e} (limit {DENSE_LOGIT_REL}); phase {time.perf_counter() - t_phase:.1f} s "
+          f"(one-device reference {t_ref:.1f} s, ranks {t_ranks:.1f} s: "
+          f"{['%.1f' % r['seconds'] for r in ranks]})", flush=True)
+    for r in ranks:
+        for tag, kernels in (("gemma2", TP_TRAIN_KERNELS), ("mixtral", TP_MIXTRAL_KERNELS)):
+            run = r[tag]
+            assert run["losses"] == ranks[0][tag]["losses"], f"{tag}: ranks disagree on the loss"
+            assert all(math.isfinite(v) for v in run["losses"])
+            for key, dg in run["digests"].items():
+                if "#" not in key:
+                    assert dg == ranks[0][tag]["digests"][key], f"{tag} {key}: differs across ranks"
+            missing = [k for k in kernels if not run["counts"][k]]
+            assert not missing, f"rank {r['rank']}: {tag} never launched {missing}"
+        assert r["mixtral"]["reconfigs"] == 2, r["mixtral"]["reconfigs"]
+        assert r["serve"]["tokens"] == ranks[0]["serve"]["tokens"], "ranks disagree on tokens"
+        assert r["serve"]["kv_heads"] == cfg.num_kv_heads // MULTI_RANKS
+        missing = [k for k in TP_SERVE_KERNELS if not r["serve"]["counts"][k]]
+        assert not missing, f"rank {r['rank']}: the TP serve never launched {missing}"
+    assert err_g <= MULTI_LOSS_REL, f"gemma2 TP losses vs one device: {err_g:.3e}"
+    assert err_m <= MULTI_LOSS_REL, f"Mixtral einsum TP losses vs one device: {err_m:.3e}"
+    assert gap <= DENSE_LOGIT_REL, f"TP first-tick logits differ from one device's: {gap:.3e}"
+    print(f"tensor parallel: checks held: losses equal on all {MULTI_RANKS} ranks and within "
+          f"{MULTI_LOSS_REL} of one device (gemma2-2b, Mixtral einsum after 2 weight moves "
+          f"across ranks); replicated leaves bit-identical and tensor-parallel leaves' gathered "
+          f"parts the same bits on every rank; served tokens equal on every rank; first-tick "
+          f"logits within {DENSE_LOGIT_REL} of one device; kernels {TP_TRAIN_KERNELS} launched "
+          f"training, {TP_SERVE_KERNELS} serving, on every rank", flush=True)
+    TOKENS_SHA256["gemma2-2b tensor-parallel serve (model, 4)"] = \
+        tokens_sha256(ranks[0]["serve"]["tokens"])
+    E2E["tp gemma2-2b median step ms per rank"] = [med(r["gemma2"]["step_ms"][1:])
+                                                   for r in ranks]
+    E2E["tp mixtral einsum median step ms per rank"] = [med(r["mixtral"]["step_ms"][1:])
+                                                        for r in ranks]
+    E2E["tp gemma2-2b serve median tick ms per rank"] = [med(s["tick_ms"]) for s in sv]
+    E2E["tp gemma2-2b model-axis bytes per step, rank 0"] = ranks[0]["gemma2"]["model_bytes"]
+    return {"counts": [r["gemma2"]["counts"] for r in ranks],
+            "serve_counts": [s["counts"] for s in sv],
+            "mixtral_counts": [r["mixtral"]["counts"] for r in ranks]}
 
 
 # Mixtral's mesh serve: mixnet prefills (kernels 1, 2, 4, 5, 7, 8), dense
@@ -4861,6 +5168,7 @@ def main(argv=None) -> int:
     mesh_ck = mesh_ckpt_phase(torch, args.seed, mesh_ckpt_dir)
     mesh_sv = mesh_serve_phase(torch, args.seed, mesh_ckpt_dir)
     rows.update(mesh_sv["rows"])
+    tp = tp_phase(torch, args.seed, dense["losses"])
 
     # launches: each kernel's count from the path it belongs to — the
     # capacity training run for kernel 6 and its backward, the dropless run
@@ -4895,7 +5203,10 @@ def main(argv=None) -> int:
                               "evaluation": [c[name] for c in counts_eval],
                               "mesh_checkpoint": [c[name] for c in mesh_ck["counts"]],
                               "mesh_serve": [c[name] for c in mesh_sv["counts"]],
-                              "mesh_serve_mixtral": [c[name] for c in mesh_sv["mixtral_counts"]]},
+                              "mesh_serve_mixtral": [c[name] for c in mesh_sv["mixtral_counts"]],
+                              "tensor_parallel": [c[name] for c in tp["counts"]],
+                              "tensor_parallel_mixtral": [c[name] for c in tp["mixtral_counts"]],
+                              "tensor_parallel_serve": [c[name] for c in tp["serve_counts"]]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)

@@ -57,12 +57,14 @@ def params_from_numpy(tree, cfg=None, device="cpu", *, trainable: bool = False):
     return conv(tree, "")
 
 
-def shard_params(tree, plan, mesh, rank: int | None = None, cfg=None):
+def shard_params(tree, plan, mesh, rank: int | None = None, *, cfg):
     """A rank's shard of a global numpy tree (the JAX package's, converted),
     by the one layout rule of :class:`repro_torch.parallel.sharding.TreeLayout`:
     the expert leaves keep the rank's ``E_virtual / P`` slots of the model
-    axis, over a ``"stage"`` axis the rank keeps its stage's repeats and ends
-    (``cfg`` says whether the head is tied), every other leaf stays whole.
+    axis and the tensor-parallel leaves their model-axis shard, over a
+    ``"stage"`` axis the rank keeps its stage's repeats and ends (``cfg``,
+    the model's config, sizes the tensor-parallel leaves and says whether
+    the head is tied), every other leaf stays whole.
     ``rank`` is the global rank (default: this process's); the result is
     still numpy, for :func:`params_from_numpy`, so a card only ever receives
     its shard."""
@@ -70,4 +72,5 @@ def shard_params(tree, plan, mesh, rank: int | None = None, cfg=None):
         return tree
     from repro_torch.parallel.sharding import TreeLayout
 
-    return TreeLayout(plan, mesh, bool(cfg is not None and cfg.tie_embeddings)).shard(tree, rank)
+    layout = TreeLayout(plan, mesh, cfg)
+    return layout.shard(tree, rank)

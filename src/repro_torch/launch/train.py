@@ -7,7 +7,9 @@
 Port of :mod:`repro.launch.train`, with the same flags.  With more than one
 rank the mesh is ``(world // model, model)`` over ``("data", "model")``,
 ``model`` the largest of 16, 8, 4, 2 that divides the world size (the
-reference's factorization); ``--nproc N`` spawns the N ranks itself (a
+reference's factorization): the model axis runs the dense layers
+tensor-parallel and the MoE layers expert-parallel, on either MoE backend
+(``--moe-backend einsum`` or ``mixnet``); ``--nproc N`` spawns the N ranks itself (a
 ``tcp://localhost`` rendezvous on a free port), under ``torchrun`` each
 process joins from the environment.  The backend is NCCL when every rank has
 a card of its own and gloo when ranks share one or run on the CPU; rank 0

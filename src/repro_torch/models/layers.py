@@ -7,6 +7,17 @@ caches ``[B, S, Hkv, dh]``, page pools ``[N, page, Hkv, dh]``).  Decode
 writes its chunk's K/V into the cache IN PLACE (index writes into the
 caller's tensors: no copy of a multi-GB cache per tick).  MLA and the
 sequence-parallel paths come with later slices.
+
+Over a model axis (``plan`` and ``mesh`` with tensor parallelism on,
+:mod:`repro_torch.parallel.tp`) attention runs the rank's q heads with the
+kv heads they read (the rank's shard of them, or the reference's repeat of
+replicated kv heads up to the axis size), and its decode caches hold those
+kv heads only; the MLP is column-parallel then row-parallel.  Either
+block's input products are ``tp.column_parallel`` (the input gradient
+summed over the axis in f32) and its output projection's f32 partials are
+summed over the axis and cast once.  Whether a block runs
+so is read off its leaves: a leaf narrower than the config's is the rank's
+shard (:class:`~repro_torch.parallel.sharding.TreeLayout` decides).
 """
 
 from __future__ import annotations
@@ -18,12 +29,15 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.parallel import tp
+from repro_torch.parallel.sharding import local_kv_heads
 
 __all__ = [
     "rms_norm", "init_rms_norm", "rope_frequencies", "apply_rope",
     "init_attention", "attention_apply", "init_attention_cache",
     "init_paged_attention_cache", "DecodeWrites", "decode_writes", "normal", "decode_rows",
-    "DECODE_ROWS", "project_in", "project_out", "init_mlp", "mlp_apply",
+    "DECODE_ROWS", "column_products", "row_products", "init_mlp", "mlp_apply", "ffn",
+    "kv_heads_of_rank",
 ]
 
 _NEG = -1e30
@@ -316,7 +330,18 @@ def attention_apply(
     # Decode-mode products on fixed row blocks (``decode_rows``): a verify
     # pass's rows equal a serial tick's.
     fixed = mode == "decode"
-    q, k, v = (project_in(x, params[n], fixed) for n in ("wq", "wk", "wv"))
+    sharded = tp.enabled(plan, mesh) and params["wq"].shape[1] < cfg.num_heads
+    tpp = (plan, mesh) if sharded else (None, None)
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    if sharded and wk.shape[1] == cfg.num_kv_heads:
+        # Replicated kv heads: the ones the rank's q heads read, their
+        # gradient summed over the axis (each rank reads a part).
+        idx = kv_heads_of_rank(cfg, plan, tp.model_rank(plan, mesh))
+        wk = tp.copy_to_model(wk, plan, mesh)[:, idx]
+        wv = tp.copy_to_model(wv, plan, mesh)[:, idx]
+    q, k, v = (y.reshape(b, s, -1, w.shape[-1]) for y, w in zip(
+        column_products(x.reshape(b * s, -1), [w.reshape(w.shape[0], -1) for w in (wq, wk, wv)],
+                        fixed, *tpp), (wq, wk, wv)))
     if mode == "decode":
         # Per-slot positions: t scalar (lockstep) or [B] (continuous
         # batching); s > 1 writes the chunked-prefill positions t..t+s-1.
@@ -346,32 +371,55 @@ def attention_apply(
             v.transpose(1, 2).contiguous(),
             causal=True, window=window, softcap=cfg.logit_softcap,
         ).transpose(1, 2)
-    return project_out(out, params["wo"], fixed), cache
+    return row_products(out.reshape(b * s, -1), params["wo"].reshape(-1, params["wo"].shape[-1]),
+                        fixed, *tpp).reshape(b, s, -1), cache
 
 
-def project_in(x: torch.Tensor, w: torch.Tensor, fixed_rows: bool = False) -> torch.Tensor:
-    """``x [B, S, D] @ w [D, H, K] -> [B, S, H, K]``; ``fixed_rows``: on
-    ``decode_rows`` blocks."""
+def column_products(x: torch.Tensor, ws, fixed_rows: bool, plan=None, mesh=None) -> list:
+    """``x [M, K]`` through column blocks ``ws`` (``[K, N_i]``, the rank's
+    shards over ``plan``'s model axis when ``mesh`` is given), a block's
+    input products: ``tp.column_parallel`` (the input gradient summed in
+    f32 and cast once), or in decode mode products on ``decode_rows``
+    blocks."""
     if not fixed_rows:
-        return torch.einsum("bsd,dhk->bshk", x, w)
-    b, s, d = x.shape
-    return decode_rows(lambda r: torch.einsum("md,dhk->mhk", r, w), x.reshape(b * s, d)).reshape(
-        b, s, *w.shape[1:])
+        return list(tp.column_parallel(x, ws, plan, mesh))
+    if mesh is not None:
+        x = tp.copy_to_model(x, plan, mesh)
+    return [decode_rows(lambda r, w=w: r @ w, x) for w in ws]
 
 
-def project_out(o: torch.Tensor, w: torch.Tensor, fixed_rows: bool = False) -> torch.Tensor:
-    """``o [B, S, H, K] @ w [H, K, D] -> [B, S, D]``; ``fixed_rows``: on
-    ``decode_rows`` blocks."""
-    if not fixed_rows:
-        return torch.einsum("bshk,hkd->bsd", o, w)
-    b, s = o.shape[:2]
-    return decode_rows(lambda r: torch.einsum("mhk,hkd->md", r, w),
-                       o.reshape(b * s, *o.shape[2:])).reshape(b, s, -1)
+def row_products(h: torch.Tensor, w: torch.Tensor, fixed_rows: bool, plan=None, mesh=None
+                 ) -> torch.Tensor:
+    """``h [M, K] @ w [K, N]``, a block's output product, as the f32 tree of
+    ``tp.TREE_LEAVES`` K-block products cast once; with ``mesh`` the rank's
+    rows of a row-parallel product (its leaves, then ``tp.across`` the
+    model axis).  ``fixed_rows``: on ``decode_rows`` blocks."""
+    n = tp.TREE_LEAVES if mesh is None else tp.leaves(plan.model_size)
+
+    def rows(r):
+        return tp.partial_mm(r, w, n)
+
+    part = decode_rows(rows, h) if fixed_rows else rows(h)
+    return part.to(h.dtype) if mesh is None else tp.across(part, plan, mesh, h.dtype)
 
 
-def init_attention_cache(cfg, batch: int, max_len: int, *, device, dtype=None) -> dict:
+def kv_heads_of_rank(cfg, plan, m: int) -> list[int]:
+    """The kv heads rank ``m``'s q heads read, in its local order, when
+    the q heads shard over the model axis and the kv heads do not: its
+    slice of the kv heads repeated ``P / gcd(Hkv, P)`` times each (the
+    reference's ``jnp.repeat``, ``layers.py:305-309``)."""
+    n = local_kv_heads(cfg, plan)
+    rep = n * plan.model_size // cfg.num_kv_heads
+    return [(m * n + j) // rep for j in range(n)]
+
+
+def init_attention_cache(cfg, batch: int, max_len: int, *, device, dtype=None,
+                         plan=None) -> dict:
+    """``{"k","v": [B, max_len, Hkv, dh]}``; under ``plan``'s tensor
+    parallelism the rank's kv heads (``sharding.local_kv_heads``)."""
     dt = dtype or getattr(torch, cfg.dtype)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    hkv = cfg.num_kv_heads if plan is None else local_kv_heads(cfg, plan)
+    shape = (batch, max_len, hkv, cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
@@ -379,12 +427,14 @@ def init_attention_cache(cfg, batch: int, max_len: int, *, device, dtype=None) -
 
 
 def init_paged_attention_cache(
-    cfg, num_pages: int, page_size: int, *, device, dtype=None
+    cfg, num_pages: int, page_size: int, *, device, dtype=None, plan=None
 ) -> dict:
     """Page-pool K/V cache: ``[N, page, Hkv, dh]`` shared by every slot —
-    sequences own pages through a ``[slots, P]`` table, not a batch dim."""
+    sequences own pages through a ``[slots, P]`` table, not a batch dim;
+    under ``plan``'s tensor parallelism the rank's kv heads."""
     dt = dtype or getattr(torch, cfg.dtype)
-    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    hkv = cfg.num_kv_heads if plan is None else local_kv_heads(cfg, plan)
+    shape = (num_pages, page_size, hkv, cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
@@ -416,25 +466,35 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(params: dict, x: torch.Tensor, cfg, fixed_rows: bool = False) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, cfg, fixed_rows: bool = False, *, plan=None,
+              mesh=None) -> torch.Tensor:
     """``x [B, S, D]`` through the dense MLP: gated (``act(x @ w_gate) * (x @
     w_in)``, silu for silu/swiglu, gelu for geglu) when ``w_gate`` is there,
     else ``gelu``/``silu`` of ``x @ w_in``; then ``@ w_out``.  The three
     products are plain library matmuls, as the reference leaves them to
-    XLA.  ``fixed_rows``: on ``decode_rows`` blocks (decode mode), so a
-    row's bits do not depend on how many rows share the step."""
-    gated = "w_gate" in params
-    if gated:
+    XLA (:func:`ffn`).  ``fixed_rows``: on ``decode_rows`` blocks (decode
+    mode), so a row's bits do not depend on how many rows share the step.
+    With the rank's columns of ``w_in``, tensor-parallel over ``plan``'s
+    model axis."""
+    if "w_gate" in params:
         act = F.silu if cfg.act in ("silu", "swiglu") else _gelu
     else:
         act = _gelu if cfg.act == "gelu" else F.silu
+    sharded = tp.enabled(plan, mesh) and params["w_in"].shape[-1] < cfg.d_ff
+    return ffn(params["w_in"], params.get("w_gate"), params["w_out"], x, act, fixed_rows,
+               *((plan, mesh) if sharded else (None, None)))
 
-    def rows(r):
-        h = r @ params["w_in"]
-        h = act(r @ params["w_gate"]) * h if gated else act(h)
-        return h @ params["w_out"]
 
-    if not fixed_rows:
-        return rows(x)
+def ffn(w_in, w_gate, w_out, x: torch.Tensor, act, fixed_rows: bool, plan=None, mesh=None
+        ) -> torch.Tensor:
+    """``x [B, S, D]`` through ``w_in`` / ``w_gate`` (``act(x @ w_gate) * (x
+    @ w_in)``, or ``act(x @ w_in)`` without a gate; :func:`column_products`)
+    and ``w_out`` (:func:`row_products`); with ``mesh``, the rank's columns
+    and rows over ``plan``'s model axis.  ``fixed_rows``: on
+    ``decode_rows`` blocks."""
     b, s, d = x.shape
-    return decode_rows(rows, x.reshape(b * s, d)).reshape(b, s, d)
+    gated = w_gate is not None
+    h, *g = column_products(x.reshape(b * s, d), [w_in, w_gate] if gated else [w_in],
+                            fixed_rows, plan, mesh)
+    h = act(g[0]) * h if gated else act(h)
+    return row_products(h, w_out, fixed_rows, plan, mesh).reshape(b, s, d)

@@ -23,8 +23,11 @@ re-addresses the wire chunks by a layer's ``wire_perm``, and reduces the
 telemetry as the reference's ``shard_map`` body does; ``overlap_chunks >
 1`` runs it as the chunked software pipeline.  Over a mesh the einsum and
 dense-decode backends run each rank's own expert slots and gather their
-outputs over the model axis (forward only: their training over a mesh
-comes with dense tensor parallelism).
+outputs over the model axis; in training the experts' input enters through
+``copy_to_model`` (its gradient summed over the model axis) and the
+router reads the replicated input (its gradient is not summed: every rank
+routes the group's rows).  The shared expert is tensor-parallel over the
+model axis (``layers.ffn``) where its width divides it.
 
 Speculative decoding's draft passes (``MoEConfig.draft_mode``, picked by
 :func:`resolve_draft_mode` and :func:`draft_config`): ``topk1`` narrows the
@@ -44,9 +47,9 @@ from repro_torch.core.commruntime import AllToAll, CommSpec, fuse_pack, fuse_unp
 from repro_torch.core.overlap import chunk_count, software_pipeline
 from repro_torch.kernels import ops
 from repro_torch.models import routing
-from repro_torch.models.layers import decode_rows, normal
+from repro_torch.models.layers import decode_rows, ffn, normal
 from repro_torch.models.routing import MoEStats, router_losses
-from repro_torch.parallel import sharding
+from repro_torch.parallel import sharding, tp
 from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
 
 __all__ = [
@@ -126,12 +129,28 @@ def _slot_range(plan: ShardingPlan, mesh, ev: int) -> tuple[int, int, int]:
     return m * k, (m + 1) * k, p
 
 
+class _GatherSlots(torch.autograd.Function):
+    """``[n, ...]`` slot outputs all-gathered over the model axis in rank
+    order; the backward keeps the rank's own slots of the gradient (every
+    rank combines the same gathered outputs, so holds the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, y, group, rank):
+        ctx.rank, ctx.n = rank, y.shape[0]
+        return cr.all_gather_raw(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n], None, None
+
+
 def _gather_slots(y: torch.Tensor, plan: ShardingPlan, mesh, dim: int) -> torch.Tensor:
     """Every rank's per-slot outputs (its slots along ``dim``) gathered over
     the model axis into the physical slot order, the same bits on every
     rank (a copy, no sum); accounted under the model axis's link class."""
     moved = y.movedim(dim, 0).contiguous()
-    full = cr.all_gather_raw(moved, cr.axis_group(mesh, plan.model_axis))
+    full = _GatherSlots.apply(moved, cr.axis_group(mesh, plan.model_axis),
+                              cr.axis_index(mesh, plan.model_axis))
     return full.movedim(0, dim)
 
 
@@ -178,7 +197,10 @@ def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None, fixed_rows
     dropped = 1.0 - keep.sum() / (b * g * t * sc)
 
     lo, hi, p = _slot_range(plan, mesh, ev)
-    xe = torch.einsum("gtec,gtd->gecd", dispatch[:, :, lo:hi].to(x.dtype), xg)  # [G, Ev/P, C, D]
+    # The rank's experts read a part of the input: its gradient is summed
+    # over the model axis (the router's, above, is each rank's whole).
+    xd = tp.copy_to_model(xg, plan, mesh) if p > 1 else xg
+    xe = torch.einsum("gtec,gtd->gecd", dispatch[:, :, lo:hi].to(x.dtype), xd)  # [G, Ev/P, C, D]
     ye = _expert_ffn(xe, params["w_in"], params["w_gate"], params["w_out"], cfg.act, fixed_rows)
     if p > 1:
         ye = _gather_slots(ye, plan, mesh, 1)  # [G, Ev, C, D]
@@ -191,9 +213,39 @@ def _moe_einsum(params, x, cfg, plan: ShardingPlan, expert_perm=None, fixed_rows
     w = torch.where(keep, wfull, torch.zeros_like(wfull)).to(x.dtype)
     out = _combine(w.reshape(b * s, -1), ysel.reshape(b * s, -1, d), fixed_rows).reshape(b, s, d)
 
-    balance, z = router_losses(logits, info.idx, e.num_experts)
-    load = routing.expert_load(info.idx, e.num_experts)
-    return out, MoEStats(load, balance, z, dropped.float())
+    load, balance, z, dropped = _batch_stats(logits, info.idx, e.num_experts, plan, mesh,
+                                             dropped.float())
+    return out, MoEStats(load, balance, z, dropped)
+
+
+def _batch_stats(logits, idx, num_experts: int, plan: ShardingPlan, mesh, dropped,
+                 gate_weights=None):
+    """``(load, balance, z, dropped)`` of the dense backends, whose rows are
+    the rank's data shard over the batch axes and the whole model group's
+    rows on every rank of it: over the batch axes the loads and the drop
+    fraction are reduced and the aux losses are the whole batch's, as the
+    reference's GSPMD program computes them (the balance loss from the
+    batch's expert fractions and mean probabilities, its gradient reaching
+    every shard through ``cr.psum``'s all-reduced transpose)."""
+    axes = [] if mesh is None else [a for a in plan.batch_axes if cr.axis_size(mesh, a) > 1]
+    load = routing.expert_load(idx, num_experts, weights=gate_weights)
+    if not axes:
+        balance, z = router_losses(logits, idx, num_experts)
+        return load, balance, z, dropped
+    lf = logits.float()
+    mean_prob = torch.softmax(lf, dim=-1).reshape(-1, num_experts).mean(dim=0)
+    z = torch.mean(torch.logsumexp(lf, dim=-1) ** 2)
+    counts = routing.expert_load(idx, num_experts)
+    for ax in axes:
+        n = float(cr.axis_size(mesh, ax))
+        mean_prob = cr.psum(mean_prob, mesh, ax) / n
+        z = cr.psum(z, mesh, ax) / n
+        grp = cr.axis_group(mesh, ax)
+        counts = cr.all_reduce(counts, grp)
+        load = cr.all_reduce(load, grp)
+        dropped = cr.all_reduce(dropped, grp) / n
+    frac = counts / torch.clamp_min(counts.sum(), 1.0)
+    return load, num_experts * torch.sum(frac * mean_prob), z, dropped
 
 
 def _combine(w, ysel, fixed_rows):
@@ -225,7 +277,7 @@ def _moe_dense_decode(params, x, cfg, plan: ShardingPlan, expert_perm=None,
         logits, top_k=e.top_k, num_virtual=ev, replication=r, expert_perm=expert_perm,
     )
     lo, hi, p = _slot_range(plan, mesh, ev)
-    xe = xt.unsqueeze(0).expand(hi - lo, -1, -1)
+    xe = (tp.copy_to_model(xt, plan, mesh) if p > 1 else xt).unsqueeze(0).expand(hi - lo, -1, -1)
     y = decode_rows(
         lambda rr: _ffn_rows(rr, params["w_in"], params["w_gate"], params["w_out"], cfg.act), xe,
         dim=1,
@@ -236,9 +288,9 @@ def _moe_dense_decode(params, x, cfg, plan: ShardingPlan, expert_perm=None,
     ysel = y[info.vdest.long(), tok]  # [T, S, D]
     out = _combine(info.wfull.to(y.dtype), ysel, True).reshape(b, s, d)
 
-    balance, z = router_losses(logits, info.idx, e.num_experts)
-    load = routing.expert_load(info.idx, e.num_experts, weights=gate_weights)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    load, balance, z, _ = _batch_stats(logits, info.idx, e.num_experts, plan, mesh, zero,
+                                       gate_weights)
     return out, MoEStats(load, balance, z, zero)
 
 
@@ -648,8 +700,7 @@ class _ChunkGMM(torch.autograd.Function):
         return dx, None, None, None, None, None
 
 
-_LATER = ("comes with a later item of ROADMAP.md §1 (dense tensor parallelism, ZeRO-3, "
-          "the sequence-parallel paths)")
+_LATER = "comes with a later item of ROADMAP.md §1 (ZeRO-3, the sequence-parallel paths)"
 
 
 def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm=None,
@@ -742,12 +793,6 @@ def moe_apply(
         # the mixnet backend's sparse dispatch at decode.
         if not (backend == "mixnet" and e.decode_backend == "sparse"):
             backend = "dense_decode"
-    if mesh is not None and backend != "mixnet" and torch.is_grad_enabled() and any(
-            isinstance(v, torch.Tensor) and v.requires_grad for v in params.values()):
-        # The dense backends over a mesh run every rank on the model group's
-        # rows; their gradients (the dispatch input's summed over the model
-        # axis, the router's not) come with dense tensor parallelism.
-        raise NotImplementedError(f"training the {backend} backend over a mesh {_LATER}")
     ev, _ = virtual_experts(e.num_experts, plan.model_size)
     perm = routing.resolve_perm(expert_perm, ev, device=x.device)
     if wire_perm is not None and backend != "mixnet":
@@ -780,15 +825,10 @@ def moe_apply(
         raise ValueError(f"unknown MoE backend {backend!r}")
     if "shared" in params:
         sh = params["shared"]
-
-        def lane(r):
-            return (F.silu(r @ sh["w_gate"]) * (r @ sh["w_in"])) @ sh["w_out"]
-
-        if mode == "decode" or backend == "dense_decode":
-            b, s, d = x.shape
-            out = out + decode_rows(lane, x.reshape(b * s, d)).reshape(b, s, d)
-        else:
-            out = out + lane(x)
+        sharded = tp.enabled(plan, mesh) and sh["w_in"].shape[-1] < e.d_ff * e.num_shared_experts
+        out = out + ffn(sh["w_in"], sh["w_gate"], sh["w_out"], x, F.silu,
+                        mode == "decode" or backend == "dense_decode",
+                        *((plan, mesh) if sharded else (None, None)))
     return out, stats
 
 

@@ -35,11 +35,12 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import ShardingPlan, TreeLayout, virtual_experts
 
 __all__ = [
     "init_model", "model_apply", "embed", "apply_layers", "LayerOutputs",
-    "final_norm", "logits_from_features", "init_caches",
+    "final_norm", "logits_from_features", "local_logits", "gather_logits", "init_caches",
     "init_paged_caches", "paged_supported", "pad_caches", "ForwardAux",
     "chunked_cross_entropy",
 ]
@@ -71,8 +72,9 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) ->
     caller asks for the CPU) in ``cfg.dtype``.  Over a ``mesh`` every rank
     draws the same values, leaf by leaf, and keeps its part of each
     (:class:`~repro_torch.parallel.sharding.TreeLayout`: its model-axis
-    shard of the expert leaves, its stage's repeats and ends over a
-    ``"stage"`` axis), so the ranks together hold the one-device draw."""
+    shard of the expert and tensor-parallel leaves, its stage's repeats and
+    ends over a ``"stage"`` axis), so the ranks together hold the one-device
+    draw."""
     cfg.validate()
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -80,7 +82,7 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) ->
     reps = cfg.pattern_repeats
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    layout = TreeLayout(plan, mesh, cfg.tie_embeddings)
+    layout = TreeLayout(plan, mesh, cfg)
     d = cfg.d_model
     params: dict = {"embed": L.normal(gen, (cfg.vocab_size, d), dtype, dev, d**-0.5)}
     blocks = {}
@@ -110,10 +112,14 @@ def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) ->
     params["final_norm"] = L.init_rms_norm(d, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (d, cfg.vocab_size), dtype, dev, d**-0.5)
-    # The ends: a stage that does not hold one drops it.
+    # The ends: a stage that does not hold one drops it; the vocab shards.
     for k in ("embed", "final_norm", "lm_head"):
-        if k in params and layout.part(params[k], k) is None:
-            del params[k]
+        if k in params:
+            part = layout.part(params[k], k)
+            if part is None:
+                del params[k]
+            else:
+                params[k] = part
     return params
 
 
@@ -133,10 +139,12 @@ def paged_supported(cfg) -> bool:
     )
 
 
-def init_caches(cfg, batch: int, max_len: int, *, device) -> dict:
+def init_caches(cfg, batch: int, max_len: int, *, device, plan: ShardingPlan | None = None
+                ) -> dict:
     """Dense per-slot caches per pattern position: ``{"k","v": [reps, B,
-    max_len, Hkv, dh]}`` for attention, ``{"state": [reps, B, H, P, N],
-    "conv": [reps, B, W-1, inner]}`` f32 for ssm."""
+    max_len, Hkv, dh]}`` for attention (under ``plan``'s tensor parallelism
+    the rank's kv heads), ``{"state": [reps, B, H, P, N], "conv": [reps, B,
+    W-1, inner]}`` f32 for ssm."""
     _check_supported(cfg)
     reps = cfg.pattern_repeats
     out = {}
@@ -144,15 +152,17 @@ def init_caches(cfg, batch: int, max_len: int, *, device) -> dict:
         if kind == "ssm":
             c = ssm_mod.init_ssm_cache(cfg, reps * batch, device=device)
         else:
-            c = L.init_attention_cache(cfg, reps * batch, max_len, device=device)
+            c = L.init_attention_cache(cfg, reps * batch, max_len, device=device, plan=plan)
         out[f"{i}_{kind}"] = {k: v.reshape(reps, batch, *v.shape[1:]) for k, v in c.items()}
     return out
 
 
-def init_paged_caches(cfg, num_pages: int, page_size: int, *, device) -> dict:
+def init_paged_caches(cfg, num_pages: int, page_size: int, *, device,
+                      plan: ShardingPlan | None = None) -> dict:
     """Paged decode caches: one ``[reps, N, page, Hkv, dh]`` K/V page pool
-    per pattern position, shared by every serving slot through ONE
-    ``[slots, P]`` page table."""
+    per pattern position (under ``plan``'s tensor parallelism the rank's kv
+    heads), shared by every serving slot through ONE ``[slots, P]`` page
+    table."""
     if not paged_supported(cfg):
         raise ValueError(
             f"paged KV cache requires an attention-only pattern, got "
@@ -161,7 +171,8 @@ def init_paged_caches(cfg, num_pages: int, page_size: int, *, device) -> dict:
     reps = cfg.pattern_repeats
     out = {}
     for i, kind in enumerate(cfg.block_pattern):
-        c = L.init_paged_attention_cache(cfg, reps * num_pages, page_size, device=device)
+        c = L.init_paged_attention_cache(cfg, reps * num_pages, page_size, device=device,
+                                         plan=plan)
         out[f"{i}_{kind}"] = {k: v.reshape(reps, num_pages, *v.shape[1:]) for k, v in c.items()}
     return out
 
@@ -256,13 +267,14 @@ def _apply_block(
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     y, ac = L.attention_apply(
         p["attn"], h, cfg, kind=kind, mode=mode, cache=cache, t=t,
-        positions=positions, plan=plan, write_mask=write_mask,
+        positions=positions, plan=plan, mesh=mesh, write_mask=write_mask,
         page_table=page_table, writes=writes,
     )
     x = x + y
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     if "mlp" in p:
-        return x + L.mlp_apply(p["mlp"], h2, cfg, fixed_rows=mode == "decode"), ac, None
+        return x + L.mlp_apply(p["mlp"], h2, cfg, fixed_rows=mode == "decode", plan=plan,
+                               mesh=mesh), ac, None
     y, stats = moe_mod.moe_apply(
         p["moe"], h2, cfg, plan, mesh=mesh, expert_perm=expert_perm, wire_perm=wire_perm,
         mode=mode, gate_weights=gate_weights, per_shard=per_shard,
@@ -294,14 +306,15 @@ def model_apply(
     i32 page ids switching decode onto the paged pools.  Decode writes the
     chunk's K/V into ``caches`` IN PLACE and returns the same dicts.
     ``mesh``: the ``DeviceMesh`` of ``plan``; ``batch`` is then this rank's
-    data slice, every non-MoE layer runs on it whole, and the MoE layers
+    data slice, the dense layers run it tensor-parallel over the model axis
+    (or whole, where their sizes do not divide it), and the MoE layers
     shard it over the model axis.  Returns ``(features [B, S, D], aux,
-    caches)``.
+    caches)``: the features replicated over the model axis.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
-    x = embed(params, tokens, cfg)
+    x = embed(params, tokens, cfg, plan, mesh)
     reps = cfg.pattern_repeats
     names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
     if expert_perm is None and cfg.is_moe:
@@ -342,11 +355,20 @@ def model_apply(
     return x, aux, new_caches
 
 
-def embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def _vocab_sharded(w: torch.Tensor, dim: int, cfg, plan, mesh) -> bool:
+    return tp.enabled(plan, mesh) and w.shape[dim] < cfg.vocab_size
+
+
+def embed(params, tokens: torch.Tensor, cfg, plan=None, mesh=None) -> torch.Tensor:
     """``[B, S]`` tokens -> the scaled ``[B, S, D]`` embeddings in
     ``cfg.dtype`` (the first half of :func:`model_apply`, on its own for a
-    pipeline's first stage)."""
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    pipeline's first stage); with the rank's vocab rows, the vocab-parallel
+    lookup (``tp.vocab_embed``)."""
+    table = params["embed"]
+    if _vocab_sharded(table, 0, cfg, plan, mesh):
+        x = tp.vocab_embed(table, tokens, plan, mesh).to(getattr(torch, cfg.dtype))
+    else:
+        x = table[tokens.long()].to(getattr(torch, cfg.dtype))
     return x * (cfg.d_model**0.5)
 
 
@@ -426,30 +448,68 @@ def apply_layers(
     return x, out
 
 
-def logits_from_features(params, x, cfg):
-    if cfg.tie_embeddings:
-        out = torch.einsum("bsd,vd->bsv", x, params["embed"])
-    else:
-        out = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+def _head(params, cfg):
+    """The LM head as ``(weight, its vocab dim)``."""
+    return (params["embed"], 0) if cfg.tie_embeddings else (params["lm_head"], 1)
+
+
+def _logits(params, x, cfg, plan=None, mesh=None):
+    """``x`` through the head the rank holds as a column product
+    (``tp.column_parallel``: the whole vocab, or with ``plan`` and ``mesh``
+    the rank's vocab slice), gemma2's final softcap applied."""
+    w, dim = _head(params, cfg)
+    out = tp.column_parallel(x.reshape(-1, x.shape[-1]), [w.t() if dim == 0 else w],
+                             plan, mesh)[0].reshape(*x.shape[:-1], -1)
     if cfg.final_softcap is not None:
         out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
     return out
 
 
-def chunked_cross_entropy(params, features, labels, cfg, *, num_chunks: int = 8) -> torch.Tensor:
+def _head_sharded(params, cfg, plan, mesh) -> bool:
+    w, dim = _head(params, cfg)
+    return _vocab_sharded(w, dim, cfg, plan, mesh)
+
+
+def local_logits(params, x, cfg, plan=None, mesh=None):
+    """The rank's ``[B, S, V / P]`` vocab slice of the logits under tensor
+    parallelism (``tp.column_parallel``), else ``[B, S, V]``."""
+    if _head_sharded(params, cfg, plan, mesh):
+        return _logits(params, x, cfg, plan, mesh)
+    return _logits(params, x, cfg)
+
+
+def gather_logits(params, logits, cfg, plan=None, mesh=None):
+    """:func:`local_logits`' slices all-gathered to the whole vocabulary
+    (the identity without tensor parallelism)."""
+    if _head_sharded(params, cfg, plan, mesh):
+        return tp.gather_vocab(logits, plan, mesh)
+    return logits
+
+
+def logits_from_features(params, x, cfg, plan=None, mesh=None):
+    """``[B, S, V]`` logits on every rank (vocab slices all-gathered under
+    tensor parallelism)."""
+    return gather_logits(params, local_logits(params, x, cfg, plan, mesh), cfg, plan, mesh)
+
+
+def chunked_cross_entropy(params, features, labels, cfg, *, num_chunks: int = 8, plan=None,
+                          mesh=None) -> torch.Tensor:
     """Mean CE computed in sequence chunks so ``[B, S, V]`` logits never
     fully materialize: each chunk's logits are recomputed in the backward
-    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``)."""
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
+    Each token's loss is ``tp.vocab_cross_entropy`` (with the rank's vocab
+    slice of the head, the vocab-parallel loss; one device and the ranks
+    sum the same terms in the same order)."""
     b, s, d = features.shape
     while s % num_chunks:
         num_chunks -= 1
     step = s // num_chunks
+    sharded = _head_sharded(params, cfg, plan, mesh)
+
+    tpp = (plan, mesh) if sharded else (None, None)
 
     def chunk(f, lab):
-        lg = logits_from_features(params, f, cfg).float()
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, lab.long()[..., None])[..., 0]
-        return torch.sum(lse - gold)
+        return torch.sum(tp.vocab_cross_entropy(_logits(params, f, cfg, *tpp).float(), lab, *tpp))
 
     total = torch.zeros((), dtype=torch.float32, device=features.device)
     for c in range(num_chunks):

@@ -18,7 +18,8 @@ import math
 import torch
 
 __all__ = [
-    "AdamWConfig", "init_adamw", "adamw_update", "global_norm", "sum_of_squares", "cosine_lr",
+    "AdamWConfig", "init_adamw", "adamw_update", "global_norm", "sum_of_squares", "square_sum",
+    "cosine_lr",
 ]
 
 _SLICE = 1 << 26  # elements per in-place update slice (256 MiB of f32)
@@ -89,19 +90,30 @@ def _slices(x: torch.Tensor):
         yield from _slices(row)
 
 
+def square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f64 sum of ``x``'s squares (exact in f64 for bf16 and f32
+    values; one read of an f64 copy, as the norm of it).  In f64 the sum's
+    rounding is ~1e-16 relative, so the squares of a leaf summed whole, in
+    slices or in parts on several ranks, in any order, give one f32 norm: a
+    sharded run clips by one device's norm."""
+    return sum(torch.square(torch.linalg.vector_norm(s, dtype=torch.float64))
+               for s in _slices(x))
+
+
 def sum_of_squares(tree, keep=None) -> torch.Tensor | None:
-    """f32 sum of every (``keep(path)``) leaf's squares, in leaf order."""
+    """f64 sum of every (``keep(path)``) leaf's squares, in leaf order."""
     total = None
     for path, g in _leaves(tree):
         if keep is not None and not keep(path):
             continue
-        sq = sum(torch.sum(torch.square(s.float())) for s in _slices(g))
+        sq = square_sum(g)
         total = sq if total is None else total + sq
     return total
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum_of_squares(tree))
+    """The f32 norm of the f64 :func:`sum_of_squares`."""
+    return torch.sqrt(sum_of_squares(tree)).float()
 
 
 @torch.no_grad()

@@ -17,7 +17,14 @@ stage's repeats (dim 0 over ``"stage"``), the expert leaves
 (``moe/w_in``, ``moe/w_gate``, ``moe/w_out``) also the rank's ``E_virtual
 / P`` slots (dim 1 over the model axis), the embedding lives on the first
 stage (and the last, for a tied head), the final norm and LM head on the
-last, and every other leaf is replicated.  ``models.transformer.init_model``,
+last.  Over the model axis the dense leaves follow the reference's
+Megatron rules (``layers.py:98-110``, ``:546-552``, ``moe.py:116-128``,
+``transformer.py:87``, ``:117``) wherever the size divides: the attention
+heads of ``wq``/``wo`` (of ``wk``/``wv`` when the kv heads divide too), the
+MLP's and the shared expert's ``w_in``/``w_gate`` columns and ``w_out``
+rows, the embedding's and the LM head's vocab; the serving engine's paged
+KV pools keep the rank's kv heads.  Every other leaf (the norms, the
+router, the SSM leaves) is replicated.  ``models.transformer.init_model``,
 ``interop.shard_params`` and ``train.checkpoint`` all go through it.
 
 Layouts are explicit in the port, so :func:`constrain` is the identity.  In
@@ -33,6 +40,7 @@ output is all-gathered back.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -41,6 +49,7 @@ from repro_torch.core import commruntime as cr
 __all__ = [
     "ShardingPlan", "make_plan", "virtual_experts", "constrain", "seq_sharded", "token_slice",
     "token_gather", "mesh_coord", "stage_layers", "TreeLayout", "EXPERT_LEAVES",
+    "local_kv_heads",
 ]
 
 # The stacked expert leaves under ``blocks/*/moe`` (sharded over the model
@@ -49,6 +58,17 @@ __all__ = [
 # ``params``/``opt`` and AdamW's ``mu``/``nu``).
 EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
 _TREE_WORDS = frozenset({"params", "opt", "mu", "nu"})
+
+# The dense leaves tensor parallelism shards over the model axis: a block
+# leaf's last two path words -> the dim of its stacked ``[repeats, ...]``
+# array that it shards, and what that dim counts (the config's field).
+_TP_BLOCK_LEAVES = {
+    ("attn", "wq"): (2, "heads"), ("attn", "wo"): (1, "heads"),
+    ("attn", "wk"): (2, "kv_heads"), ("attn", "wv"): (2, "kv_heads"),
+    ("mlp", "w_in"): (2, "d_ff"), ("mlp", "w_gate"): (2, "d_ff"), ("mlp", "w_out"): (1, "d_ff"),
+    ("shared", "w_in"): (2, "shared_ff"), ("shared", "w_gate"): (2, "shared_ff"),
+    ("shared", "w_out"): (1, "shared_ff"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +112,20 @@ def make_plan(mesh=None, *, fsdp: bool = True) -> ShardingPlan:
     )
 
 
+def local_kv_heads(cfg, plan: ShardingPlan) -> int:
+    """The kv heads a rank's attention (and its decode caches) holds: all
+    of them without tensor parallelism, ``Hkv / P`` when they divide the
+    model axis, and when only the q heads do, the rank's ``lcm(Hkv, P) /
+    P`` of the kv heads repeated up to the axis size (the reference's
+    repeat, ``layers.py:305-309``)."""
+    h, hkv, p = cfg.num_heads, cfg.num_kv_heads, max(plan.model_size, 1)
+    if not plan.heads_axis(h) or p == 1:
+        return hkv
+    if plan.heads_axis(hkv):
+        return hkv // p
+    return math.lcm(hkv, p) // p
+
+
 def mesh_coord(mesh, axis: str, rank: int | None = None) -> int:
     """Global rank ``rank``'s (default: this process's) index along
     ``axis`` of ``mesh``."""
@@ -129,13 +163,18 @@ def _model_path(path: str) -> list[str]:
 @dataclasses.dataclass(frozen=True)
 class TreeLayout:
     """Where each leaf of a parameter (or AdamW, or checkpoint) tree lives
-    under ``plan`` over ``mesh`` (None: one device); ``tied``: the model's
-    LM head is its embedding.  ``rank`` arguments are global ranks (default:
-    this process's)."""
+    under ``plan`` over ``mesh`` (None: one device) for the model of
+    ``cfg``, which gives a tensor-parallel leaf's global size and whether
+    the LM head is the embedding.  ``rank`` arguments are global ranks
+    (default: this process's)."""
 
     plan: ShardingPlan
-    mesh: object = None
-    tied: bool = False
+    mesh: object
+    cfg: object
+
+    @property
+    def tied(self) -> bool:
+        return bool(self.cfg.tie_embeddings)
 
     def _stages(self) -> int:
         if self.mesh is None or "stage" not in (self.mesh.mesh_dim_names or ()):
@@ -146,10 +185,46 @@ class TreeLayout:
         n = self._stages()
         return (0 if n == 1 else mesh_coord(self.mesh, "stage", rank)), n
 
+    def _model_sharded(self) -> bool:
+        return (self.plan.model_axis is not None and self.plan.model_size > 1
+                and self.mesh is not None)
+
     def _experts_sharded(self, parts) -> bool:
         return (len(parts) >= 3 and parts[0] == "blocks" and parts[-2] == "moe"
-                and parts[-1] in EXPERT_LEAVES and self.plan.model_axis is not None
-                and self.plan.model_size > 1 and self.mesh is not None)
+                and parts[-1] in EXPERT_LEAVES and self._model_sharded())
+
+    def _tp_leaf(self, parts) -> tuple[int, int] | None:
+        """``(dim, global size of that dim)`` of a leaf tensor parallelism
+        may shard over the model axis, or None."""
+        if not self._model_sharded():
+            return None
+        cfg = self.cfg
+        if parts in (["embed"], ["lm_head"]):
+            return (0 if parts == ["embed"] else 1), cfg.vocab_size
+        if parts[:1] == ["kv"] and parts[-1:] in (["k"], ["v"]):  # [reps, N, page, Hkv, dh]
+            return 3, cfg.num_kv_heads
+        if parts[:1] == ["blocks"] and tuple(parts[-2:]) in _TP_BLOCK_LEAVES:
+            dim, what = _TP_BLOCK_LEAVES[tuple(parts[-2:])]
+            if what == "shared_ff":
+                return dim, cfg.moe.d_ff * cfg.moe.num_shared_experts
+            return dim, {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                         "d_ff": cfg.d_ff}[what]
+        return None
+
+    def _tp_dim(self, parts, shape, path: str) -> int | None:
+        """The dim of the global leaf of ``shape`` that the model axis
+        shards, or None (replicated: the size does not divide)."""
+        leaf = self._tp_leaf(parts)
+        if leaf is None:
+            return None
+        dim, p = leaf[0], self.plan.model_size
+        if shape[dim] % p == 0:
+            return dim
+        if parts[:1] == ["kv"] and self.plan.heads_axis(self.cfg.num_heads):
+            raise NotImplementedError(
+                f"{path}: {shape[dim]} kv heads repeated over a model axis of {p} (the rank's "
+                "pool holds repeated heads); such a pool is not checkpointed")
+        return None
 
     def slices(self, path: str, shape, rank: int | None = None) -> tuple | None:
         """The index (a tuple of slices) of the part of the global leaf of
@@ -173,6 +248,11 @@ class TreeLayout:
         elif parts in (["final_norm"], ["lm_head"]):
             if s != n - 1:
                 return None
+        dim = self._tp_dim(parts, shape, path)
+        if dim is not None:
+            m = mesh_coord(self.mesh, self.plan.model_axis, rank)
+            k = shape[dim] // self.plan.model_size
+            idx[dim] = slice(m * k, (m + 1) * k)
         return tuple(idx)
 
     def global_shape(self, path: str, local_shape) -> tuple:
@@ -183,6 +263,9 @@ class TreeLayout:
             shape[0] *= self._stages()
             if self._experts_sharded(parts):
                 shape[1] *= self.plan.model_size
+        leaf = self._tp_leaf(parts)
+        if leaf is not None and leaf[1] % self.plan.model_size == 0:
+            shape[leaf[0]] = leaf[1]
         return tuple(shape)
 
     def part(self, a, path: str, rank: int | None = None):
@@ -213,6 +296,16 @@ class TreeLayout:
             if got is not None:
                 out[k] = got
         return out
+
+    def replicated(self, path: str) -> bool:
+        """True when every rank of a model group holds the whole leaf at
+        ``path`` (its global size read from the config); False for the
+        expert and the tensor-parallel leaves the model axis shards."""
+        parts = _model_path(path)
+        if self._experts_sharded(parts):
+            return False
+        leaf = self._tp_leaf(parts)
+        return leaf is None or leaf[1] % self.plan.model_size != 0
 
 
 def virtual_experts(num_experts: int, model_size: int) -> tuple[int, int]:

@@ -171,7 +171,8 @@ class ContinuousBatcher:
             self.max_pages = -(-max_len // self.page_size)
             self.num_pages = int(num_pages) or slots * self.max_pages
             self.caches = tfm.init_paged_caches(
-                cfg, self.num_pages, self.page_size, device=self.device
+                cfg, self.num_pages, self.page_size, device=self.device,
+                plan=plan if mesh is not None else None,
             )
             self.alloc = PageAllocator(
                 slots=slots,
@@ -181,7 +182,8 @@ class ContinuousBatcher:
                 prefix_cache=prefix_cache,
             )
         else:
-            self.caches = tfm.init_caches(cfg, slots, max_len, device=self.device)
+            self.caches = tfm.init_caches(cfg, slots, max_len, device=self.device,
+                                          plan=plan if mesh is not None else None)
         self._step = make_serve_step(cfg, plan, mesh, sample=self.sample, with_stats=True)
         # The dense cache admits through a prefill; the paged one through
         # the chunk step.

@@ -656,7 +656,7 @@ class ServeEngine:
         return step
 
     def _layout(self) -> TreeLayout:
-        return TreeLayout(self.plan, self.mesh, self.cfg.tie_embeddings)
+        return TreeLayout(self.plan, self.mesh, self.cfg)
 
     def restore_checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
         """Copy a checkpoint into this engine's parameters (and KV pools) in

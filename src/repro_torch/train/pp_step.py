@@ -16,10 +16,14 @@ Port of :mod:`repro.train.pp_step`.  One process per rank of a
   update and stay equal, as PP(1)'s one embedding.
 * **Inside a stage the data plane is the flat step's.**  Every microbatch
   runs ``transformer.apply_layers`` over the stage's repeats with their
-  rows of ``expert_perm``/``wire_perm``: attention on the whole local
-  microbatch on every rank of the model group, the mixnet MoE layer on the
+  rows of ``expert_perm``/``wire_perm``: attention and the MLP
+  tensor-parallel over the model group (the rank's heads and columns, or
+  whole where the sizes do not divide it), the mixnet MoE layer on the
   rank's token slice (dispatch all-to-all, ``overlap_chunks``, wire
   re-addressing), per-shard aux losses as the reference's stage body.
+  The embedding and the head are vocab-parallel inside their stages; a
+  tied embedding's two copies hold the same vocab rows, so their gradient
+  parts pair up rank by rank.
 * **One loss.**  The last stage concatenates the ``M`` outputs and takes
   the final norm and ONE full-batch chunked cross entropy, as the
   reference's single ``value_and_grad`` does (``pp_step.py:401-413``).  The
@@ -49,14 +53,15 @@ import torch
 
 from repro_torch.core import commruntime as cr
 from repro_torch.models import transformer as tfm
-from repro_torch.optim.adamw import AdamWConfig, _slices, adamw_update
-from repro_torch.parallel.sharding import ShardingPlan, stage_layers, virtual_experts
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, square_sum
+from repro_torch.parallel.sharding import ShardingPlan, TreeLayout, stage_layers, virtual_experts
 from repro_torch.train.pipeline import GPipe, broadcast_from
 from repro_torch.train.train_step import (
     _flat,
     _physical_slots,
     _unflat,
     grad_kind,
+    model_summed,
     reduce_grads,
 )
 
@@ -128,38 +133,44 @@ def _tied_embed_grad(lookup, head, pipe: GPipe) -> torch.Tensor:
     return lookup + head
 
 
-def _repeat_squares(grads: dict, plan, mesh, perm, wire) -> list:
+def _repeat_squares(grads: dict, plan, mesh, perm, wire, layout) -> list:
     """Per block leaf (sorted path order), per repeat, the f32 sum of its
-    gradient's squares; an expert leaf's slots gathered over the model axis
-    and read in logical expert order (``train_step._mesh_grad_norm``)."""
-    out = []
+    gradient's squares; a tensor-parallel leaf's summed over the model axis
+    in rank order, an expert leaf's slots gathered over the model axis and
+    read in logical expert order (``train_step._mesh_grad_norm``)."""
+    out, tensors = [], []
     for path in sorted(k for k in grads if k.startswith("/blocks/")):
         g = grads[path]
-        if grad_kind(path) != "expert":
-            out.extend(sum(torch.sum(torch.square(s.float())) for s in _slices(row))
-                       for row in g)
+        kind = grad_kind(path, layout)
+        if kind != "expert":
+            if kind == "tensor":
+                tensors.extend(range(len(out), len(out) + len(g)))
+            out.extend(square_sum(row) for row in g)
             continue
-        sq = torch.stack([torch.stack([torch.sum(torch.square(e.float())) for e in layer])
-                          for layer in g])
+        sq = torch.stack([torch.stack([square_sum(e) for e in layer]) for layer in g])
         if plan.model_size > 1:
             sq = cr.all_gather_raw(sq.t().contiguous(), cr.axis_group(mesh, plan.model_axis)).t()
         slots = _physical_slots(perm, wire, sq.shape, g.device)
         out.extend(torch.sum(torch.gather(row, 0, idx)) for row, idx in zip(sq, slots))
-    return out
+    return model_summed(out, tensors, plan, mesh)
 
 
-def _pp_grad_norm(grads: dict, plan, mesh, stage_axis: str, reps_local: int, perm, wire
-                  ) -> torch.Tensor:
+def _pp_grad_norm(grads: dict, plan, mesh, stage_axis: str, reps_local: int, perm, wire,
+                  layout) -> torch.Tensor:
     """The whole model's gradient norm, the same bits on every rank and for
     every stage count: per-repeat squares gathered over the stage axis,
     summed in canonical (leaf, repeat) order, then the end leaves from the
     stage that holds each (a leaf no stage holds adds an exact zero)."""
     n = cr.axis_size(mesh, stage_axis)
-    vals = _repeat_squares(grads, plan, mesh, perm, wire)
+    vals = _repeat_squares(grads, plan, mesh, perm, wire, layout)
     k = len(vals)
     dev = next(iter(grads.values())).device
-    ends = [torch.sum(torch.square(grads[path].float())) if path in grads
-            else torch.zeros((), dtype=torch.float32, device=dev) for path, _ in _END_LEAVES]
+    ends = [square_sum(grads[path]) if path in grads
+            else torch.zeros((), dtype=torch.float64, device=dev) for path, _ in _END_LEAVES]
+    # A vocab-parallel end's parts summed over the model axis (every rank
+    # joins, holding the leaf or not: a model group lies in one stage).
+    ends = model_summed(ends, [i for i, (path, _) in enumerate(_END_LEAVES)
+                               if grad_kind(path, layout) == "tensor"], plan, mesh)
     table = torch.stack([*vals, *ends]).reshape(1, -1)
     if n > 1:
         table = cr.all_gather_raw(table, cr.axis_group(mesh, stage_axis))
@@ -171,7 +182,7 @@ def _pp_grad_norm(grads: dict, plan, mesh, stage_axis: str, reps_local: int, per
     for e, (_, owner) in enumerate(_END_LEAVES):
         v = table[owner % n, k + e]
         total = v if total is None else total + v
-    return torch.sqrt(total)
+    return torch.sqrt(total).float()
 
 
 def make_pp_train_step(
@@ -199,6 +210,7 @@ def make_pp_train_step(
     p_model = max(plan.model_size, 1)
     ev = virtual_experts(cfg.moe.num_experts, p_model)[0] if cfg.is_moe else 1
     on_mesh = plan.model_size > 1 or plan.data_size > 1
+    layout = TreeLayout(plan, mesh, cfg)
     dtype = getattr(torch, cfg.dtype)
     w_bal = cfg.moe.balance_loss / (reps * m) if cfg.is_moe else 0.0
     w_z = cfg.moe.router_z_loss / (reps * m) if cfg.is_moe else 0.0
@@ -227,7 +239,7 @@ def make_pp_train_step(
         inputs = x_emb = None
         if pipe.first:
             with torch.enable_grad():
-                x_emb = tfm.embed(params, tokens, cfg)
+                x_emb = tfm.embed(params, tokens, cfg, plan, mesh)
             inputs = x_emb.detach().reshape(m, mb, t_len, cfg.d_model).unbind(0)
         like = torch.empty((mb, t_len, cfg.d_model), dtype=dtype, device=dev)
 
@@ -247,7 +259,7 @@ def make_pp_train_step(
                 ends.append("/embed")
             with torch.enable_grad():
                 feats = tfm.final_norm(params, feats_in, cfg)
-                ce = tfm.chunked_cross_entropy(params, feats, labels, cfg)
+                ce = tfm.chunked_cross_entropy(params, feats, labels, cfg, plan=plan, mesh=mesh)
                 got = torch.autograd.grad(ce, [leaves[k] for k in ends] + [feats_in])
             grads.update(zip(ends, got[:-1]))
             out_grads = got[-1].reshape(m, mb, t_len, cfg.d_model).unbind(0)
@@ -294,8 +306,8 @@ def make_pp_train_step(
         z_mean = torch.mean(aux[:, 1].reshape(reps))
 
         if on_mesh:
-            grads = reduce_grads(grads, plan, mesh)
-        gnorm = _pp_grad_norm(grads, plan, mesh, stage_axis, hi - lo, perm, wire)
+            grads = reduce_grads(grads, plan, mesh, cfg)
+        gnorm = _pp_grad_norm(grads, plan, mesh, stage_axis, hi - lo, perm, wire, layout)
         params, opt_state, opt_metrics = adamw_update(params, _unflat(grads, params), opt_state,
                                                       opt_cfg, grad_norm=gnorm)
 

@@ -6,22 +6,30 @@ differentiates :func:`loss_fn` with ``torch.autograd.grad`` and applies
 AdamW in place; the serving steps run under ``torch.no_grad``.
 
 Over a ``("data", "model")`` mesh (``dp_comm="auto"``) every rank
-differentiates its own loss — its data slice of the batch, the MoE layers
-sharded over the model axis — and the DP gradient reduction follows one
-rule per leaf (:func:`reduce_grads`):
+differentiates its own loss — its data slice of the batch, the dense
+layers tensor-parallel and the MoE layers expert-parallel over the model
+axis — and the DP gradient reduction follows one rule per leaf
+(:func:`reduce_grads`, :func:`grad_kind`):
 
-* expert leaves (``moe/w_in``, ``moe/w_gate``, ``moe/w_out``), sharded over
-  the model axis: averaged over the data axis;
-* leaves replicated inside the MoE region (``moe/router``), which see only
-  the rank's token slice: summed over the model axis, then averaged over
-  the data axis;
-* every other leaf (embeddings, attention, norms, the LM head, a shared
-  expert), computed redundantly by each rank of a model group: averaged
-  over the data axis only; every rank of the group holds the same gradient
-  bit for bit.
+* ``"expert"`` leaves (``moe/w_in``, ``moe/w_gate``, ``moe/w_out``),
+  sharded over the model axis: averaged over the data axis;
+* ``"tensor"`` leaves, the rank's tensor-parallel shard
+  (:class:`~repro_torch.parallel.sharding.TreeLayout`: attention heads,
+  MLP and shared-expert columns and rows, vocab rows): averaged over the
+  data axis (their partial input gradients are summed inside the backward,
+  ``parallel.tp``);
+* ``"router"``: the mixnet router, which sees only the rank's token slice:
+  summed over the model axis, then averaged over the data axis (the
+  ``einsum`` and ``dense_decode`` routers see the group's rows on every
+  rank and are ``"redundant"``);
+* every other leaf (the norms, replicated leaves), computed redundantly by
+  each rank of a model group: averaged over the data axis only; every rank
+  of the group holds the same gradient bit for bit.
 
-The clipping norm is the whole model's, with the experts' squares summed
-in logical expert order whatever their placement.  ``dp_comm="runtime"`` computes per-shard gradients
+The clipping norm is the whole model's: the replicated leaves once, each
+tensor-parallel leaf's squares gathered over the model axis and summed in
+rank order, the experts' squares in logical expert order whatever their
+placement.  ``dp_comm="runtime"`` computes per-shard gradients
 on a data-only mesh and reduces them through the CommRuntime's
 hierarchical :class:`~repro_torch.core.commruntime.AllReduce`, optionally
 int8 with error feedback (``dp_compress``), as the reference's
@@ -30,9 +38,11 @@ int8 with error feedback (``dp_compress``), as the reference's
 Sampled serving steps draw with :mod:`repro_torch.prng`, the counterpart of
 the ``jax.random`` calls the reference makes, on the logits' device.  The
 serving steps take the mesh through ``model_apply``: over a ``("model",)``
-mesh every rank holds the whole KV caches (or paged pools) and runs
-attention whole, and the MoE layers run EP-sharded
-(``models.moe.moe_apply``), so every rank returns the same tokens.
+mesh every rank holds its kv heads of the KV caches (or paged pools) and
+runs its heads of attention, the MoE layers run EP-sharded
+(``models.moe.moe_apply``), and the logits are all-gathered to the whole
+vocabulary before any argmax or draw, so every rank returns the same
+tokens.
 """
 
 from __future__ import annotations
@@ -43,8 +53,14 @@ from repro_torch import prng
 from repro_torch.core import commruntime as cr
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import decode_rows
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw, sum_of_squares
-from repro_torch.parallel.sharding import ShardingPlan
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_update,
+    init_adamw,
+    square_sum,
+    sum_of_squares,
+)
+from repro_torch.parallel.sharding import EXPERT_LEAVES, ShardingPlan, TreeLayout
 
 __all__ = [
     "loss_fn", "make_train_step", "init_all", "init_ef_residual", "reduce_grads",
@@ -59,14 +75,16 @@ def _attention_only(cfg, what: str) -> None:
         raise ValueError(f"{what} needs attention-only block patterns, got {bad}")
 
 
-def _decode_logits(params, feats: torch.Tensor, cfg) -> torch.Tensor:
+def _decode_logits(params, feats: torch.Tensor, cfg, plan=None, mesh=None) -> torch.Tensor:
     """``[B, C, V]`` logits of decode-mode features, the LM head on fixed
     row blocks (``layers.decode_rows``): a row's logits do not depend on how
-    many rows the step scores."""
+    many rows the step scores.  Under tensor parallelism each rank's vocab
+    slice is all-gathered once after the blocks."""
     b, c, d = feats.shape
-    return decode_rows(
-        lambda r: tfm.logits_from_features(params, r[None], cfg)[0], feats.reshape(b * c, d)
+    local = decode_rows(
+        lambda r: tfm.local_logits(params, r[None], cfg, plan, mesh)[0], feats.reshape(b * c, d)
     ).reshape(b, c, -1)
+    return tfm.gather_logits(params, local, cfg, plan, mesh)
 
 
 def _sample_rows(logits: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
@@ -86,7 +104,7 @@ def loss_fn(params, batch, cfg, plan, mesh=None, expert_perm=None, wire_perm=Non
         params, batch, cfg, plan, mesh=mesh, mode="train", expert_perm=expert_perm,
         wire_perm=wire_perm,
     )
-    ce = tfm.chunked_cross_entropy(params, feats, batch["labels"], cfg)
+    ce = tfm.chunked_cross_entropy(params, feats, batch["labels"], cfg, plan=plan, mesh=mesh)
     loss = ce
     if cfg.is_moe:
         loss = loss + cfg.moe.balance_loss * aux.balance_loss
@@ -111,27 +129,31 @@ def _unflat(pairs: dict, like):
     return build(like, "")
 
 
-def grad_kind(path: str) -> str:
-    """``"expert"``, ``"router"`` or ``"redundant"``: which reduction rule
-    a leaf's gradient follows over a mesh (see the module docstring)."""
+def grad_kind(path: str, layout: TreeLayout) -> str:
+    """``"expert"``, ``"tensor"``, ``"router"`` or ``"redundant"``: which
+    reduction rule a leaf's gradient follows over a mesh (see the module
+    docstring); ``layout`` tells the tensor-parallel leaves, its config the
+    MoE backend."""
     parts = path.strip("/").split("/")
     if len(parts) >= 2 and parts[-2] == "moe":
-        if parts[-1] in ("w_in", "w_gate", "w_out"):
+        if parts[-1] in EXPERT_LEAVES:
             return "expert"
         if parts[-1] == "router":
-            return "router"
-    return "redundant"
+            return "router" if layout.cfg.moe.backend == "mixnet" else "redundant"
+    return "redundant" if layout.replicated(path) else "tensor"
 
 
-def reduce_grads(grads: dict, plan: ShardingPlan, mesh) -> dict:
+def reduce_grads(grads: dict, plan: ShardingPlan, mesh, cfg) -> dict:
     """The DP gradient reduction of ``dp_comm="auto"`` over ``mesh``, per
     leaf (``{path: grad}``, reduced in place), in place of the reference's
-    GSPMD reduction."""
+    GSPMD reduction; ``cfg``: the model's config (its MoE backend tells the
+    router's rule)."""
+    layout = TreeLayout(plan, mesh, cfg)
     for path, g in grads.items():
         # In place: the gradients are the step's own tensors, and a second
         # copy of every gradient would not fit beside four ranks' states.
         g = g.contiguous()
-        if grad_kind(path) == "router" and plan.model_size > 1:
+        if grad_kind(path, layout) == "router" and plan.model_size > 1:
             cr.all_reduce(g, cr.axis_group(mesh, plan.model_axis), inplace=True)
         for ax in plan.batch_axes:
             n = cr.axis_size(mesh, ax)
@@ -141,26 +163,51 @@ def reduce_grads(grads: dict, plan: ShardingPlan, mesh) -> dict:
     return grads
 
 
-def _mesh_grad_norm(grads: dict, plan: ShardingPlan, mesh, expert_perm, wire_perm):
+def model_summed(vals: list, pos: list, plan: ShardingPlan, mesh) -> list:
+    """``vals`` (f64 scalars) with each entry at ``pos`` replaced by its sum
+    over the model axis in rank order (one all-gather of them all): a
+    tensor-parallel leaf's squares, the same bits on every rank."""
+    if not pos or plan.model_size <= 1:
+        return vals
+    table = cr.all_gather_raw(torch.stack([vals[i] for i in pos])[None],
+                              cr.axis_group(mesh, plan.model_axis))
+    out = list(vals)
+    for j, i in enumerate(pos):
+        v = table[0, j]
+        for q in range(1, table.shape[0]):
+            v = v + table[q, j]
+        out[i] = v
+    return out
+
+
+def _mesh_grad_norm(grads: dict, plan: ShardingPlan, mesh, expert_perm, wire_perm, cfg):
     """The whole model's gradient norm from a rank's reduced gradients: the
-    replicated leaves once, then every expert's squares in logical expert
-    order, gathered over the model axis.  The order does not depend on
-    where the experts sit, so a wire re-address and the equivalent weight
-    move clip by the same norm, bit for bit."""
-    total = sum_of_squares(grads, lambda p: grad_kind(p) != "expert")
+    replicated leaves once, each tensor-parallel leaf's squares summed over
+    the model axis in rank order, then every expert's squares in logical
+    expert order, gathered over the model axis.  The order does not depend
+    on where the experts sit, so a wire re-address and the equivalent weight
+    move clip by the same norm, bit for bit.  ``cfg``: the model's config
+    (its leaves' global sizes tell the tensor-parallel ones)."""
+    layout = TreeLayout(plan, mesh, cfg)
+    kinds = {p: grad_kind(p, layout) for p in grads}
+    # ``sum_of_squares`` walks the flat dict as a tree: its paths are "/" + key.
+    total = sum_of_squares(grads, lambda p: kinds[p[1:]] in ("redundant", "router"))
+    tensors = [p for p in sorted(grads) if kinds[p] == "tensor"]
+    sq = [square_sum(grads[p]) for p in tensors]
+    for v in model_summed(sq, list(range(len(sq))), plan, mesh):
+        total = v if total is None else total + v
     for path, g in sorted(grads.items()):
-        if grad_kind(path) != "expert":
+        if kinds[path] != "expert":
             continue
         # [reps, E_virtual / P] per-slot sums, gathered to [reps, E_virtual]
         # in physical slot order, then read in logical expert order.
-        sq = torch.stack([torch.stack([torch.sum(torch.square(e.float())) for e in layer])
-                          for layer in g])
+        sq = torch.stack([torch.stack([square_sum(e) for e in layer]) for layer in g])
         if plan.model_size > 1:
             sq = cr.all_gather_raw(sq.t().contiguous(), cr.axis_group(mesh, plan.model_axis)).t()
         slots = _physical_slots(expert_perm, wire_perm, sq.shape, g.device)
         part = torch.sum(torch.gather(sq, 1, slots))
         total = part if total is None else total + part
-    return torch.sqrt(total)
+    return torch.sqrt(total).float()
 
 
 def _physical_slots(expert_perm, wire_perm, shape, device) -> torch.Tensor:
@@ -292,7 +339,7 @@ def make_train_step(
             return runtime_grads(params, batch, expert_perm, residual)
         metrics, grads = _local_grads(params, batch, cfg, plan, mesh, expert_perm, wire_perm)
         if on_mesh:
-            grads = reduce_grads(grads, plan, mesh)
+            grads = reduce_grads(grads, plan, mesh, cfg)
             for ax in plan.batch_axes:
                 n = cr.axis_size(mesh, ax)
                 if n > 1:
@@ -322,7 +369,7 @@ def make_train_step(
                 mi, gi, _ = grad_once(params, {"tokens": toks[i], "labels": labs[i]},
                                       expert_perm, wire_perm)
                 metrics, grads = add_slice(metrics, mi, m), add_slice(grads, gi, m)
-        gnorm = (_mesh_grad_norm(grads, plan, mesh, expert_perm, wire_perm)
+        gnorm = (_mesh_grad_norm(grads, plan, mesh, expert_perm, wire_perm, cfg)
                  if on_mesh and runtime_grads is None else None)
         params, opt_state, opt_metrics = adamw_update(params, _unflat(grads, params), opt_state,
                                                       opt_cfg, grad_norm=gnorm)
@@ -356,7 +403,7 @@ def make_prefill_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: bool = 
             params, batch, cfg, plan, mesh=mesh, mode="prefill",
             expert_perm=expert_perm, wire_perm=wire_perm,
         )
-        logits = tfm.logits_from_features(params, feats[:, -1:], cfg)
+        logits = tfm.logits_from_features(params, feats[:, -1:], cfg, plan, mesh)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         if with_stats:
             return next_tok, caches, aux.moe_stats
@@ -383,7 +430,7 @@ def make_prefill_chunk_step(cfg, plan: ShardingPlan, mesh=None, *, with_stats: b
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
-        logits = _decode_logits(params, feats[:, -1:], cfg)
+        logits = _decode_logits(params, feats[:, -1:], cfg, plan, mesh)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         if with_stats:
             return next_tok, caches, aux.moe_stats
@@ -410,7 +457,7 @@ def make_serve_step(
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
-        logits = _decode_logits(params, feats, cfg)[:, -1]
+        logits = _decode_logits(params, feats, cfg, plan, mesh)[:, -1]
         if sample and rng is not None:
             if rng.dim() == 2:  # [B, 2] per-slot keys (DESIGN.md §11)
                 next_tok = _sample_rows(logits, rng)
@@ -448,7 +495,7 @@ def make_verify_step(
             expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
             page_table=page_table,
         )
-        logits = _decode_logits(params, feats, cfg)  # [B, C, V]
+        logits = _decode_logits(params, feats, cfg, plan, mesh)  # [B, C, V]
         b, c, _ = logits.shape
         if sample and rng is not None:
             toks = _sample_rows(logits.reshape(b * c, -1), rng.reshape(b * c, 2)).reshape(b, c)
@@ -485,7 +532,7 @@ def make_draft_loop_step(cfg, plan: ShardingPlan, mesh=None, *, k: int, sample: 
                 t=t + i, expert_perm=expert_perm, wire_perm=wire_perm, gate_weights=gate_weights,
                 page_table=page_table,
             )
-            logits = _decode_logits(params, feats, cfg)[:, -1]
+            logits = _decode_logits(params, feats, cfg, plan, mesh)[:, -1]
             if sample:
                 keys = rng[:, i] if rng is not None else torch.zeros(
                     (b, 2), dtype=torch.int64, device=logits.device)

@@ -50,10 +50,10 @@ comm knobs (``overlap_chunks`` and the dispatch mode, ``dp_compress`` where
 the mesh runs it) before the model is built; a miss prints a one-line
 warning, bumps ``autotune.cache_miss`` and keeps the configured constants.
 
-Not ported yet, raising ``NotImplementedError``: ZeRO-3 parameter
-sharding (a plan with ``fsdp_axis``), and training the ``einsum`` backend
-over a mesh (``models.moe.moe_apply``: it comes with dense tensor
-parallelism).
+A model axis is tensor parallelism for the dense leaves and expert
+parallelism for the MoE layers (:class:`~repro_torch.parallel.sharding.TreeLayout`),
+on every MoE backend.  Not ported yet, raising ``NotImplementedError``:
+ZeRO-3 parameter sharding (a plan with ``fsdp_axis``).
 """
 
 from __future__ import annotations
@@ -232,7 +232,7 @@ class Trainer:
         return self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
 
     def _layout(self) -> TreeLayout:
-        return TreeLayout(self.plan, self.mesh, self.cfg.tie_embeddings)
+        return TreeLayout(self.plan, self.mesh, self.cfg)
 
     def maybe_restore(self) -> bool:
         """Restore the newest checkpoint under ``ckpt_dir`` into this

@@ -103,7 +103,8 @@ def _rank(rank: int, args, init_method: str) -> None:
         print(f"== PP(S={args.stages}) x EP({args.ep}) on {world} ranks ({args.device}), "
               f"microbatches={MICROBATCHES}, vs the flat EP({args.ep}) step ==", flush=True)
     tensor = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    pp_layout, ref_layout = TreeLayout(pp_plan, pp_mesh), TreeLayout(ref_plan, ref_mesh)
+    pp_layout = TreeLayout(pp_plan, pp_mesh, cfg)
+    ref_layout = TreeLayout(ref_plan, ref_mesh, cfg)
     start = 0
     last = ckpt.latest_step(args.ckpt_dir) if args.resume and args.ckpt_dir else None
     if last is not None:

@@ -1214,10 +1214,12 @@ def _grok_op(op, dev):
 
     if op in ("wq", "wk", "wv"):
         wt = w(d, h if op == "wq" else hkv, dh)
-        return lambda x: L.project_in(x, wt, True), (d,)
+        return lambda x: L.column_products(x.reshape(-1, d), [wt.reshape(d, -1)], True)[0].reshape(
+            *x.shape[:2], *wt.shape[1:]), (d,)
     if op == "wo":
         wt = w(h, dh, d, scale=(h * dh) ** -0.5)
-        return lambda x: L.project_out(x, wt, True), (h, dh)
+        return lambda x: L.row_products(x.reshape(-1, h * dh), wt.reshape(h * dh, d), True).reshape(
+            *x.shape[:2], d), (h, dh)
     if op == "lm_head":
         p = {"lm_head": w(d, v)}
         return lambda x: _decode_logits(p, x, cfg), (d,)
@@ -1500,10 +1502,14 @@ def test_tree_layout_parts_reassemble_bit_for_bit_on_the_card(dev, dtype, shape,
     """The mesh checkpoint's slice and assemble helpers on card tensors:
     every rank's part of each leaf, placed back, is the global tree bit for
     bit; a part that is not the whole leaf is a copy."""
+    from types import SimpleNamespace
+
     from repro_torch.parallel.sharding import TreeLayout, make_plan
 
     mesh = _GridMesh(shape, names)
-    layout = TreeLayout(make_plan(mesh, fsdp=False), mesh, tied=True)
+    # What the layout reads of this tree's model: a tied head, 64 vocab rows.
+    cfg = SimpleNamespace(tie_embeddings=True, vocab_size=64)
+    layout = TreeLayout(make_plan(mesh, fsdp=False), mesh, cfg)
     g = torch.Generator(device=dev).manual_seed(3)
     tree = {"embed": torch.randn((64, 16), generator=g, device=dev).to(dtype),
             "blocks": {"0_global": {

@@ -388,7 +388,7 @@ def _port_rank(rank: int, inp_path: str, out_dir: str, port: int) -> None:
         if aux:
             loss = loss + 0.01 * st.balance_loss + 0.001 * st.z_loss
         g = torch.autograd.grad(loss, [xl, *ws.values()])
-        grads = ts.reduce_grads({f"/moe/{k}": v for k, v in zip(ws, g[1:])}, plan, mesh)
+        grads = ts.reduce_grads({f"/moe/{k}": v for k, v in zip(ws, g[1:])}, plan, mesh, cfg)
         res = {"out": o, "load": st.expert_load, "balance": st.balance_loss, "z": st.z_loss,
                "drop": st.dropped_fraction, "gx": g[0] / dsz}
         res.update({f"g_{k.split('/')[-1]}": v for k, v in grads.items()})
@@ -433,13 +433,13 @@ def _port_rank(rank: int, inp_path: str, out_dir: str, port: int) -> None:
         i = cr.axis_index(mesh, "data") if n > 1 else 0
         return {"tokens": t(tok[i * b:(i + 1) * b]), "labels": t(lab[i * b:(i + 1) * b])}
 
-    params = params_from_numpy(shard_params(tree, plan, mesh), cfg, trainable=True)
+    params = params_from_numpy(shard_params(tree, plan, mesh, cfg=cfg), cfg, trainable=True)
     metrics, grads = ts._local_grads(params, local_batch(inp["tokens"], inp["labels"], 2), cfg,
                                      plan, mesh, t(inp["step_perm"]), None)
-    grads = ts.reduce_grads(grads, plan, mesh)
+    grads = ts.reduce_grads(grads, plan, mesh, cfg)
     out["step/loss"] = cr.all_reduce(metrics["loss"], cr.axis_group(mesh, "data")) / 2
     out["step/load"] = metrics["expert_load"]
-    out["step/gnorm"] = ts._mesh_grad_norm(grads, plan, mesh, t(inp["step_perm"]), None)
+    out["step/gnorm"] = ts._mesh_grad_norm(grads, plan, mesh, t(inp["step_perm"]), None, cfg)
     out.update({f"step/g{k}": v for k, v in grads.items()})
 
     # the runtime DP reduction on a (4,) data mesh
@@ -469,7 +469,7 @@ def _port_rank(rank: int, inp_path: str, out_dir: str, port: int) -> None:
         tr = Trainer(cfg, opt, TrainerConfig(total_steps=steps, reconfig_every=every,
                                              reconfig_min_gain=0.0), plan, mesh=mesh,
                      device="cpu")
-        tr.params = params_from_numpy(shard_params(tree, plan, mesh), cfg, trainable=True)
+        tr.params = params_from_numpy(shard_params(tree, plan, mesh, cfg=cfg), cfg, trainable=True)
         tr.opt_state = init_adamw(tr.params, opt)
         return tr
 
@@ -625,6 +625,29 @@ def _coords(mk: str, rank: int) -> tuple[int, int]:
     return divmod(rank, MESHES[mk][1])
 
 
+class _GridMesh:
+    """A mesh's rank grid and dim names, without a process group: what
+    ``TreeLayout`` reads when every rank is named."""
+
+    def __init__(self, shape, names):
+        import torch
+
+        self.mesh = torch.arange(int(np.prod(shape))).reshape(shape)
+        self.mesh_dim_names = names
+
+    def size(self, dim):
+        return int(self.mesh.shape[dim])
+
+
+def _layout(mk: str):
+    """The port's ``TreeLayout`` of the tiny model over mesh ``mk``."""
+    from repro_torch.models import config as tc
+    from repro_torch.parallel.sharding import TreeLayout, make_plan
+
+    grid = _GridMesh(MESHES[mk], ("data", "model"))
+    return TreeLayout(make_plan(grid, fsdp=False), grid, _tiny_cfg(tc))
+
+
 # ---------------------------------------------------------------------------
 # lowerings
 # ---------------------------------------------------------------------------
@@ -748,31 +771,44 @@ def test_train_step_loss_and_grads_match_jax(runs):
     jax_out, ranks, _ = runs
     grads = {k[len("step/g"):]: v for k, v in jax_out.items() if k.startswith("step/g/")}
     norm = np.sqrt(sum(np.sum(np.square(v.astype(np.float64))) for v in grads.values()))
+    layout = _layout("22")
     for r in range(4):
-        _, mi = _coords("22", r)
         got = ranks[r]
         _close(got["step/loss"], jax_out["step/loss"])
         np.testing.assert_array_equal(got["step/load"], jax_out["step/load"])
         _close(got["step/gnorm"], norm)
         for key, want in grads.items():
-            if key.split("/")[-1] in ("w_in", "w_gate", "w_out"):
-                n = want.shape[1] // 2
-                want = want[:, mi * n:(mi + 1) * n]
-            _close(got[f"step/g{key}"], want)
+            # the rank's expert slots and tensor-parallel shard
+            _close(got[f"step/g{key}"], layout.part(want, key, r))
 
 
 def test_redundant_leaves_identical_across_model_group(runs):
-    """Every leaf but the expert shards: bit-identical gradients on both
-    ranks of each model group, and bit-identical parameters on all four
-    ranks after two trainer steps at (1, 4)."""
-    _, ranks, _ = runs
+    """Every leaf ``TreeLayout`` replicates: bit-identical gradients on both
+    ranks of each model group at (2, 2), and bit-identical parameters on all
+    four ranks after two trainer steps at (1, 4).  Each tensor-parallel
+    leaf's gradient parts, placed into the whole leaf, equal the JAX
+    package's gradient within the file's tolerance."""
+    jax_out, ranks, _ = runs
+    lay22, lay14 = _layout("22"), _layout("14")
+    sharded = 0
     for key in ranks[0]:
-        if not key.startswith("step/g/") or key.split("/")[-1] in ("w_in", "w_gate", "w_out"):
+        if not key.startswith("step/g/"):
             continue
-        for a, b in ((0, 1), (2, 3)):
-            np.testing.assert_array_equal(ranks[a][key], ranks[b][key], key)
+        leaf = key[len("step/g"):]
+        if lay22.replicated(leaf):
+            for a, b in ((0, 1), (2, 3)):
+                np.testing.assert_array_equal(ranks[a][key], ranks[b][key], key)
+        elif leaf.split("/")[-2] != "moe":
+            want = jax_out[key]
+            for a, b in ((0, 1), (2, 3)):
+                whole = np.zeros_like(want)
+                for r in (a, b):
+                    lay22.place(whole, ranks[r][key], leaf, r)
+                _close(whole, want)
+            sharded += 1
+    assert sharded > 0
     keys = [k for k in ranks[0] if k.startswith("wvw/wire/")
-            and k.split("/")[-1] not in ("w_in", "w_gate", "w_out")]
+            and lay14.replicated(k[len("wvw/wire"):])]
     assert keys
     for key in keys:
         for r in range(1, 4):

@@ -222,8 +222,8 @@ def _port_rank(rank: int, inp_path: str, out_dir: str, port: int) -> None:
                            "w_in": torch.from_numpy(inp["arr/experts"]),
                            "w_out": torch.from_numpy(inp["arr/bits"].view(np.int16)).view(
                                torch.bfloat16)}}}}}
-    lay41 = TreeLayout(make_plan(meshes["41"], fsdp=False), meshes["41"])
-    lay22 = TreeLayout(make_plan(meshes["22"], fsdp=False), meshes["22"])
+    lay41 = TreeLayout(make_plan(meshes["41"], fsdp=False), meshes["41"], _tiny_cfg(tc))
+    lay22 = TreeLayout(make_plan(meshes["22"], fsdp=False), meshes["22"], _tiny_cfg(tc))
     ckpt.save(path("arr41"), 1, tree, layout=lay41)
     back = ckpt.restore(path("arr41"), 1, lay22.shard(_zeros(tree)), layout=lay22)
     out["arr/22"] = back["params"]["blocks"]["0_global"]["moe"]["w_in"]

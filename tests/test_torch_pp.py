@@ -436,14 +436,34 @@ def _coords(name: str, rank: int) -> tuple[int, int, int, int]:
     return int(c["stage"]), shape[0], int(c["model"]), shape[axes.index("model")]
 
 
+class _GridMesh:
+    """A mesh's rank grid and dim names, without a process group: what
+    ``TreeLayout`` reads when every rank is named."""
+
+    def __init__(self, shape, names):
+        import torch
+
+        self.mesh = torch.arange(int(np.prod(shape))).reshape(shape)
+        self.mesh_dim_names = names
+
+    def size(self, dim):
+        return int(self.mesh.shape[dim])
+
+
+def _layout(n: int, p: int):
+    from repro_torch.models import config as tc
+    from repro_torch.parallel.sharding import TreeLayout, make_plan
+
+    grid = _GridMesh((n, p), ("stage", "model"))
+    return TreeLayout(make_plan(grid, fsdp=False), grid, _cfg(tc))
+
+
 def _shard(full: np.ndarray, key: str, s: int, n: int, m: int, p: int) -> np.ndarray:
-    """The part of a whole leaf that rank (stage s of n, model m of p) holds."""
-    if key.startswith("/blocks/"):
-        reps = full.shape[0] // n
-        full = full[s * reps:(s + 1) * reps]
-        if key.split("/")[-1] in EXPERT_LEAVES:
-            e = full.shape[1] // p
-            full = full[:, m * e:(m + 1) * e]
+    """The part of a whole leaf that rank (stage s of n, model m of p) holds:
+    its stage's repeats, its expert slots and its tensor-parallel shard
+    (``TreeLayout``'s rule)."""
+    if key.startswith("/blocks/") or key in ("/embed", "/lm_head"):
+        return _layout(n, p).part(full, key, s * p + m)
     return full
 
 
@@ -528,15 +548,33 @@ def test_every_rank_reports_the_same_metrics(runs):
 
 
 def test_non_expert_parameters_identical_across_a_stage_model_group(runs):
-    _, ranks, _ = runs
-    seen = 0
+    """Every leaf ``TreeLayout`` replicates is bit-identical across each
+    stage's model group; each tensor-parallel leaf's parts, placed into the
+    whole leaf, equal the JAX package's within the file's tolerance."""
+    jax_out, ranks, _ = runs
+    layout = _layout(2, 2)
+    seen = sharded = 0
     for a, b in ((0, 1), (2, 3)):
         for key in ranks[a]:
-            if key.startswith(("step22/p/", "trainer/p/")) and \
-                    key.split("/")[-1] not in EXPERT_LEAVES:
+            if not key.startswith(("step22/p/", "trainer/p/")):
+                continue
+            tag, leaf = key.split("/p/", 1)
+            leaf = "/" + leaf
+            if leaf.split("/")[-2] == "moe" and leaf.split("/")[-1] in EXPERT_LEAVES:
+                continue
+            if ranks[a][key].shape == ranks[b][key].shape and layout.slices(
+                    leaf, jax_out[key].shape, a) == layout.slices(leaf, jax_out[key].shape, b):
                 np.testing.assert_array_equal(ranks[a][key], ranks[b][key], key)
                 seen += 1
-    assert seen > 0
+                continue
+            whole = np.zeros_like(jax_out[key])
+            held = np.zeros(whole.shape, bool)
+            for r in (a, b):
+                layout.place(whole, ranks[r][key], leaf, r)
+                held[layout.slices(leaf, whole.shape, r)] = True
+            _close(whole[held], jax_out[key][held])
+            sharded += 1
+    assert seen > 0 and sharded > 0
 
 
 def test_stage_transfers_are_cross_region_bytes(runs):
