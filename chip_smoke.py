@@ -227,6 +227,23 @@ Phases, one printed line (or more) each:
    device's; per rank the median step and tick, peak memory, the tensor
    parallel bytes a step on the model axis and the launches of kernels 2,
    3 and 8, and the grok-1 mesh-serve tick of phase 14e;
+14g. ZeRO-3 and sequence parallelism — four ranks on the card over gloo,
+   a ``(2, 2)`` ``("data", "model")`` mesh whose plan shards the
+   parameters and the AdamW moments over ``"data"`` (``make_plan(mesh)``),
+   every model at its published widths; first, in this process, the
+   one-device runs; then (a) Mixtral-8x7B depth 1, 4 steps, bit for bit
+   phase 14's replicated ``(2, 2)`` run (losses and every parameter, its
+   ZeRO-3 shards gathered); (b) Mixtral depth 2, 2 steps after a wire plan
+   (layer 0) and a weight plan across the model axis (layer 1) with the
+   FSDP ring prefetch, and again with both as weight moves gathering on
+   demand: bit for bit each other, losses within 1e-4 relative of one
+   device; (c) gemma2-2b, all 26 layers, 6 steps of 4 x 256 tokens with
+   ``sp_shardmap=True`` (the residual stream sequence-sharded over the
+   model axis) and without: losses and every parameter bit for bit each
+   other, losses within 1e-4 relative of a one-device run taking each
+   batch in the data axis's two halves; per rank the median step, the
+   data-axis and model-axis bytes a step, peak memory, parameters held and
+   launches; kernels 2, 7 and 8 at shapes of the path the table lacked;
 15. the kernels of one decode tick of each serve, the sha256 of each
    serve's tokens (to set beside another tree's), the kernels line (JSON),
    the card line, and the result line ``{"ok": true, "device": {...}}``.
@@ -266,8 +283,9 @@ BF16_GRAD_REL = 2e-2
 # in another order, rounded once to bf16, where results near 0 come from
 # cancellation; 1e-2 of the largest magnitude (a bf16 ulp there is 0.4%).
 BF16_GEMM_REL = 1e-2
-# Kernel 8's dw: f32 sums over the step's 512 rows in another order than
-# autograd's, rounded once to bf16: 1e-2 of the largest magnitude.
+# Kernel 8's dw: f32 sums over a tree block's rows (a quarter of the step's)
+# in another order than autograd's, which rounds to bf16: 1e-2 of the
+# largest magnitude.
 NORM_DW_REL = 1e-2
 LAYERS = 4  # of grok-1's 64: 42.6 GB of weights on an 80 GB card
 SPEC_K = 4  # draft tokens a speculative round (the verify pass scores k + 1)
@@ -406,6 +424,16 @@ KERNEL_ROWS = {
                                 "src/repro/kernels/flash_attention.py:226"),
     "grouped_matmul_blocks_mesh": ("src/repro_torch/csrc/grouped_matmul.cu",
                                    "src/repro/kernels/grouped_matmul.py:116"),
+    # Phase 14g, with rank 0's launches there: kernel 2 (and its backward) at
+    # a (2, 2) rank's heads of gemma2, kernel 8 at a sequence-parallel rank's
+    # slice of the stream, kernel 7 at a ZeRO-3 rank's received layout.
+    "flash_attention_gemma2_rank": ("src/repro_torch/csrc/flash_attention.cu",
+                                    "src/repro/kernels/flash_attention.py:105"),
+    "flash_attention_bwd_gemma2_rank": ("src/repro_torch/csrc/flash_attention.cu",
+                                        "src/repro/kernels/flash_attention.py:105"),
+    "rmsnorm_gemma2_sp": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30"),
+    "grouped_matmul_blocks_zero3": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                    "src/repro/kernels/grouped_matmul.py:116"),
 }
 # End-to-end numbers the serve phases leave for the summary line (measured,
 # not claimed: they move with the host).
@@ -1443,8 +1471,12 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
                      "rmsnorm_mixtral (F.rms_norm)"),
         (2 * t * d + d) * 2, 4.0 * t * d, "bfloat16", f"x [{t}, {d}] bf16, w [{d}]", graph=True,
     )
+    # The backward at one tree block of the step's rows (``models.layers``'
+    # ``_TreeNorm``: 4 sequence blocks, each block's f32 dw summed on).
+    tb = t // 4
+    xn, dyn = xn[:tb].contiguous(), dyn[:tb].contiguous()
     want_dx, want_dw = _grads(torch, lambda a, b: ref.rmsnorm(a, b, eps), [xn, wn], dyn)
-    gdx, gdw = krms.rmsnorm_bwd_cuda(xn, wn, dyn, eps)
+    gdx, gdw = krms.rmsnorm_bwd_cuda(xn, wn, dyn, eps, dw_dtype=torch.float32)
     err = max(check(torch, gdx, want_dx, BF16_TOL, "rmsnorm_bwd dx"),
               check_rel(gdw, want_dw, NORM_DW_REL, "rmsnorm_bwd dw"))
     xp, wp = xn.detach().clone().requires_grad_(), wn.detach().clone().requires_grad_()
@@ -1452,12 +1484,14 @@ def train_kernel_phase(torch, cfg, batch: int, seq: int, seed: int):
     xl, wl = xn.detach().clone().requires_grad_(), w1.detach().clone().requires_grad_()
     lib_out = F.rms_norm(xl, (d,), wl, eps)
     rows["rmsnorm_bwd"] = kernel_row(
-        torch, "rmsnorm_bwd", err, lambda: krms.rmsnorm_bwd_cuda(xn, wn, dyn, eps), 200,
+        torch, "rmsnorm_bwd", err,
+        lambda: krms.rmsnorm_bwd_cuda(xn, wn, dyn, eps, dw_dtype=torch.float32), 200,
         time_ms(torch, lambda: torch.autograd.grad(plain_out, (xp, wp), dyn, retain_graph=True),
                 50),
         timed(torch, lambda: torch.autograd.grad(lib_out, (xl, wl), dyn, retain_graph=True), 100),
-        (3 * t * d + 2 * d) * 2, 8.0 * t * d, "bfloat16",
-        f"x, dy [{t}, {d}] bf16 -> dx, dw [{d}]", graph=True,
+        3 * tb * d * 2 + d * 2 + d * 4, 8.0 * tb * d, "bfloat16",
+        f"x, dy [{tb}, {d}] bf16 -> dx, f32 dw [{d}] (one tree block of the step's norm)",
+        graph=True,
     )
     del xn, dyn, gdx, want_dx, plain_out, lib_out
 
@@ -2043,6 +2077,9 @@ SHAPE_ROWS = {
     "paged_flash_decode_group1": "paged_flash_decode", "rmsnorm_mistral": "rmsnorm",
     "paged_flash_decode_mesh": "paged_flash_decode",
     "grouped_matmul_blocks_mesh": "grouped_matmul_blocks",
+    "flash_attention_gemma2_rank": "flash_attention",
+    "flash_attention_bwd_gemma2_rank": "flash_attention_bwd", "rmsnorm_gemma2_sp": "rmsnorm",
+    "grouped_matmul_blocks_zero3": "grouped_matmul_blocks",
 }
 # Kernels that only the forward launches (the backward launches moe_dispatch
 # and moe_combine too): under remat each launches twice a step.
@@ -2960,11 +2997,14 @@ DENSE_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_b
 DENSE_LOGIT_REL = 5e-2
 
 
-def dense_attention_rows(torch, cfg, seed: int) -> dict:
+def dense_attention_rows(torch, cfg, seed: int, b: int = 2, p: int = 1,
+                         suffix: str = "gemma2") -> dict:
     """Kernel 2 forward and backward at gemma2's training shape (q [2, 8,
     256, 256] bf16, causal, its window of 4096 and softcap 50; at 256
     positions the window does not bind), against the plain version and its
-    autograd.  SDPA takes no softcap: its time is SDPA's without one."""
+    autograd; ``b`` rows and a model axis of ``p`` (the rank's heads) for a
+    mesh rank's shape.  SDPA takes no softcap: its time is SDPA's without
+    one."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -2972,7 +3012,7 @@ def dense_attention_rows(torch, cfg, seed: int) -> dict:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 26)
-    b, s, hq, hkv, d = 2, 256, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    s, hq, hkv, d = 256, cfg.num_heads // p, cfg.num_kv_heads // p, cfg.resolved_head_dim
     kw = dict(causal=True, window=cfg.window_size, softcap=cfg.logit_softcap)
     randn = lambda *shape: torch.randn(shape, generator=g, device=dev).bfloat16()  # noqa: E731
     q, kk, vv, do = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), randn(b, hq, s, d)
@@ -2981,9 +3021,10 @@ def dense_attention_rows(torch, cfg, seed: int) -> dict:
     pairs = sum(min(i + 1, cfg.window_size) for i in range(s))
     shape = (f"q [{b}, {hq}, {s}, {d}], k/v [{b}, {hkv}, {s}, {d}] bf16 causal, window "
              f"{cfg.window_size}, softcap {cfg.logit_softcap}; library: SDPA without softcap")
-    rows = {"flash_attention_gemma2": kernel_row(
-        torch, "flash_attention_gemma2",
-        check(torch, out, ref.flash_attention(q, kk, vv, **kw), BF16_TOL, "flash_attention gemma2"),
+    fwd, bwd = f"flash_attention_{suffix}", f"flash_attention_bwd_{suffix}"
+    rows = {fwd: kernel_row(
+        torch, fwd,
+        check(torch, out, ref.flash_attention(q, kk, vv, **kw), BF16_TOL, fwd),
         lambda: kfa.flash_attention_cuda(q, kk, vv, return_lse=True, **kw), 50,
         time_ms(torch, lambda: ref.flash_attention(q, kk, vv, **kw), 10),
         timed(torch, lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 50),
@@ -2992,12 +3033,11 @@ def dense_attention_rows(torch, cfg, seed: int) -> dict:
     )}
     want = _grads(torch, lambda a, c, e: ref.flash_attention(a, c, e, **kw), [q, kk, vv], do)
     got = kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do, **kw)
-    err = max(check_rel(a, w, BF16_GRAD_REL, f"flash_attention_bwd gemma2 d{nm}")
-              for a, w, nm in zip(got, want, "qkv"))
+    err = max(check_rel(a, w, BF16_GRAD_REL, f"{bwd} d{nm}") for a, w, nm in zip(got, want, "qkv"))
     ql, kl, vl = (a.detach().clone().requires_grad_() for a in (q, kk, vv))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-    rows["flash_attention_bwd_gemma2"] = kernel_row(
-        torch, "flash_attention_bwd_gemma2", err,
+    rows[bwd] = kernel_row(
+        torch, bwd, err,
         lambda: kfa.flash_attention_bwd_cuda(q, kk, vv, out, lse, do, **kw), 20,
         time_ms(torch, lambda: ref.flash_attention_bwd(q, kk, vv, do, **kw), 5),
         timed(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), 20),
@@ -3007,9 +3047,14 @@ def dense_attention_rows(torch, cfg, seed: int) -> dict:
     return rows
 
 
-def dense_norm_rows(torch, t: int, d: int, seed: int, suffix: str, backward: bool) -> dict:
-    """Kernel 8 (and its backward) at ``x [t, d]`` bf16 against the plain
-    version (and its autograd); ``F.rms_norm`` as the library call."""
+def dense_norm_rows(torch, t: int, d: int, seed: int, suffix: str, backward: bool,
+                    shape_rows: int | None = None) -> dict:
+    """Kernel 8 at ``x [t, d]`` bf16 against the plain version, and its
+    backward at one tree block of those rows (``[t / 4, d]``, the f32 dw
+    the training norm sums on: ``models.layers``' ``_TreeNorm``) against
+    autograd; ``F.rms_norm`` as the library call.  ``shape_rows``: the
+    launch shaped as that many rows (a sequence-parallel rank's slice of
+    the stream)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -3024,17 +3069,24 @@ def dense_norm_rows(torch, t: int, d: int, seed: int, suffix: str, backward: boo
     want = ref.rmsnorm(x, w, eps)
     w1 = (1.0 + w.float()).bfloat16()  # the library's weight, formed before timing
     name = f"rmsnorm_{suffix}"
+    kw = {} if shape_rows is None else dict(shape_rows=shape_rows)
     rows = {name: kernel_row(
-        torch, name, check(torch, krms.rmsnorm_cuda(x, w, eps), want, BF16_TOL, name),
-        lambda: krms.rmsnorm_cuda(x, w, eps), 200, time_ms(torch, lambda: ref.rmsnorm(x, w, eps), 50),
+        torch, name, check(torch, krms.rmsnorm_cuda(x, w, eps, **kw), want, BF16_TOL, name),
+        lambda: krms.rmsnorm_cuda(x, w, eps, **kw), 200,
+        time_ms(torch, lambda: ref.rmsnorm(x, w, eps), 50),
         library_time(torch, lambda: F.rms_norm(x, (d,), w1, eps), want, BF16_TOL["rtol"], 200,
                      f"{name} (F.rms_norm)"),
-        (2 * t * d + d) * 2, 4.0 * t * d, "bfloat16", f"x [{t}, {d}] bf16, w [{d}]", graph=True,
+        (2 * t * d + d) * 2, 4.0 * t * d, "bfloat16",
+        f"x [{t}, {d}] bf16, w [{d}]" + ("" if shape_rows is None else
+                                         f", launched as {shape_rows} rows (a rank's slice)"),
+        graph=True,
     )}
     if not backward:
         return rows
+    t //= 4
+    x, dy = x[:t].contiguous(), dy[:t].contiguous()
     want_dx, want_dw = _grads(torch, lambda a, c: ref.rmsnorm(a, c, eps), [x, w], dy)
-    gdx, gdw = krms.rmsnorm_bwd_cuda(x, w, dy, eps)
+    gdx, gdw = krms.rmsnorm_bwd_cuda(x, w, dy, eps, dw_dtype=torch.float32)
     err = max(check(torch, gdx, want_dx, BF16_TOL, f"rmsnorm_bwd {suffix} dx"),
               check_rel(gdw, want_dw, NORM_DW_REL, f"rmsnorm_bwd {suffix} dw"))
     xp, wp = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
@@ -3043,10 +3095,12 @@ def dense_norm_rows(torch, t: int, d: int, seed: int, suffix: str, backward: boo
     lib_out = F.rms_norm(xl, (d,), wl, eps)
     name = f"rmsnorm_bwd_{suffix}"
     rows[name] = kernel_row(
-        torch, name, err, lambda: krms.rmsnorm_bwd_cuda(x, w, dy, eps), 200,
+        torch, name, err, lambda: krms.rmsnorm_bwd_cuda(x, w, dy, eps, dw_dtype=torch.float32),
+        200,
         time_ms(torch, lambda: torch.autograd.grad(plain_out, (xp, wp), dy, retain_graph=True), 20),
         timed(torch, lambda: torch.autograd.grad(lib_out, (xl, wl), dy, retain_graph=True), 100),
-        (3 * t * d + 2 * d) * 2, 8.0 * t * d, "bfloat16", f"x, dy [{t}, {d}] bf16 -> dx, dw [{d}]",
+        3 * t * d * 2 + d * 2 + d * 4, 8.0 * t * d, "bfloat16",
+        f"x, dy [{t}, {d}] bf16 -> dx, f32 dw [{d}] (one tree block of the step's norm)",
         graph=True,
     )
     return rows
@@ -3453,9 +3507,10 @@ def multi_cfg(layers: int):
 
 
 def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wire: bool = True,
-                  **tcfg_kw):
+                  plan_set=MULTI_PLANS, devices: int = MULTI_RANKS, **tcfg_kw):
     """A ``Trainer`` over ``mesh`` (None: one device) with the two plans of
-    MULTI_PLANS applied before the first step when ``plans``: the AdamW
+    ``plan_set`` (over a control plane of ``devices`` devices) applied
+    before the first step when ``plans``: the AdamW
     moments stay in their slots (as the reference's), so a weight move
     after a step would give the weight run other moments than the wire
     run's; before the first step both are zero.  ``tcfg_kw``: more
@@ -3471,11 +3526,11 @@ def multi_trainer(torch, cfg, seed: int, plan, mesh, device, *, plans: bool, wir
                  seed=seed, device=device)
     if plans:
         tr.controlplane = ControlPlane(num_layers=cfg.num_layers,
-                                       num_experts=cfg.moe.num_experts, num_devices=4)
+                                       num_experts=cfg.moe.num_experts, num_devices=devices)
         if not wire:
             tr._wire_capable = lambda: False
         tr._apply_layer_plans([LayerPlan(layer, True, perm=np.array(perm))
-                               for layer, perm in MULTI_PLANS if layer < cfg.num_layers])
+                               for layer, perm in plan_set if layer < cfg.num_layers])
     return tr
 
 
@@ -3527,15 +3582,20 @@ def multi_digests(tr) -> dict:
     """sha1 of every parameter leaf of this rank: an expert leaf per layer
     (``#layer``), a leaf the layout replicates as it is, a tensor-parallel
     leaf's parts all-gathered over the model axis in rank order
-    (``@model``: the same bits on every rank when the parts agree).  Over a
-    mesh every rank calls it at the same point (the gathers are
-    collectives)."""
+    (``@model``: the same bits on every rank when the parts agree); a
+    ZeRO-3 leaf's data shards are gathered over the data axis first, so a
+    ZeRO-3 run's digests are the replicated run's.  Over a mesh every rank
+    calls it at the same point (the gathers are collectives)."""
     from repro_torch.core import commruntime as cr
     from repro_torch.parallel.sharding import TreeLayout
 
     layout = TreeLayout(tr.plan, tr.mesh, tr.cfg)
     out = {}
     for path, leaf in _flat_tree(tr.params):
+        dim = None if tr.mesh is None else layout.fsdp_dim(path)
+        if dim is not None:
+            leaf = cr.all_gather_raw(leaf.detach().movedim(dim, 0).contiguous(),
+                                     cr.axis_group(tr.mesh, tr.plan.fsdp_axis)).movedim(0, dim)
         if path.split("/")[-2:-1] == ["moe"] and path.split("/")[-1] in ("w_in", "w_gate",
                                                                           "w_out"):
             for li in range(leaf.shape[0]):
@@ -3549,19 +3609,23 @@ def multi_digests(tr) -> dict:
 
 
 def multi_run(torch, cr, cfg, seed: int, mesh, device, *, plans: bool, wire: bool = True,
-              count: bool = False, **tcfg_kw) -> dict:
-    """One rank's run: MULTI_STEPS steps, each ``train`` call clocked whole,
+              count: bool = False, fsdp: bool = False, steps: int = MULTI_STEPS,
+              plan_set=MULTI_PLANS, **tcfg_kw) -> dict:
+    """One rank's run: ``steps`` steps, each ``train`` call clocked whole,
     the wire bytes and host-staged bytes of each step, peak memory, the
     launch counts when ``count`` (reset just before the first step, read
     just after the last), the digests of the final parameters, and the MoE
     knobs the trainer ran with (``tcfg_kw``: more ``TrainerConfig``
-    fields)."""
+    fields).  ``fsdp``: ZeRO-3 over the data axis (``make_plan(mesh)``);
+    ``plan_set``: the plans, over a control plane of the model axis's
+    devices."""
     from repro_torch.kernels import ops
     from repro_torch.parallel.sharding import make_plan
 
-    plan = make_plan(mesh, fsdp=False)
+    plan = make_plan(mesh, fsdp=fsdp)
     t0 = time.perf_counter()
-    tr = multi_trainer(torch, cfg, seed, plan, mesh, device, plans=plans, wire=wire, **tcfg_kw)
+    tr = multi_trainer(torch, cfg, seed, plan, mesh, device, plans=plans, wire=wire,
+                       plan_set=plan_set, devices=plan.model_size, **tcfg_kw)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -3578,7 +3642,7 @@ def multi_run(torch, cr, cfg, seed: int, mesh, device, *, plans: bool, wire: boo
 
     if count:
         ops.reset_launch_counts()
-    losses = multi_steps(torch, tr, cfg, seed, on_step)
+    losses = multi_steps(torch, tr, cfg, seed, on_step, steps=steps)
     counts = ops.launch_counts() if count else None
     step_ms = [1e3 * m["step_time_s"] for m in tr.metrics_log]
     t0 = time.perf_counter()
@@ -3688,17 +3752,18 @@ def rank_kernel_rows(torch, cfg, seed: int) -> dict:
 
 
 def chunk_kernel_row(torch, cfg, seed: int, tc: int, suffix: str = "_chunk",
-                     what: str = "one chunk of {tc} tokens a rank, the tuned run") -> dict:
+                     what: str = "one chunk of {tc} tokens a rank, the tuned run",
+                     p: int = MULTI_RANKS) -> dict:
     """Kernel 7 at one chunk's shapes of the tuned (1, 4) run: ``tc``
     tokens a rank and chunk routed top-2 over 8 experts, 2 of them local;
     every source's dropless send buffer of the chunk for this rank packed
     into the 2-expert blocks (``suffix`` and ``what`` name another path's
-    layout of ``tc`` tokens a rank)."""
+    layout of ``tc`` tokens a rank, over a model axis of ``p``)."""
     from repro_torch.kernels import ref
 
     bf16 = torch.bfloat16
     d, f = cfg.d_model, cfg.moe.d_ff
-    e, k, p = cfg.moe.num_experts, cfg.moe.top_k, MULTI_RANKS
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
     epd = e // p
     randn, valid, counts2, plan2, _ = received_layout(torch, cfg, seed + 47, p, tc)
     rx = randn(p * tc * k, d, dt=bf16)
@@ -4745,35 +4810,39 @@ def tp_einsum_cfg():
     return dataclasses.replace(c, moe=dataclasses.replace(c.moe, backend="einsum"))
 
 
-def dense_trainer(torch, cfg, seed: int, plan, mesh, device):
+def dense_trainer(torch, cfg, seed: int, plan, mesh, device, microbatches: int = 1):
     """The dense phase's gemma2 ``Trainer`` (its AdamW settings and seed)
-    over ``mesh`` (None: one device)."""
+    over ``mesh`` (None: one device), taking each batch in
+    ``microbatches`` slices."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     return Trainer(cfg, AdamWConfig(warmup_steps=2, total_steps=DENSE_STEPS),
-                   TrainerConfig(total_steps=0), plan, mesh=mesh, seed=seed, device=device)
+                   TrainerConfig(total_steps=0, num_microbatches=microbatches), plan, mesh=mesh,
+                   seed=seed, device=device)
 
 
-def tp_train_run(torch, cr, tr, cfg, seed: int) -> dict:
-    """TP_STEPS steps of 2 x 256 tokens, launches counted (reset just before
-    the first step, read just after the last), the model axis's wire bytes
-    of each step, peak memory."""
+def tp_train_run(torch, cr, tr, cfg, seed: int, steps: int = TP_STEPS, batch: int = 2) -> dict:
+    """``steps`` steps of ``batch`` x 256 tokens, launches counted (reset
+    just before the first step, read just after the last), the model axis's
+    and the data axis's wire bytes of each step (``comm.link_bytes``
+    scale_out and cross_region), peak memory."""
     from repro_torch.kernels import ops
 
     torch.cuda.reset_peak_memory_stats()
-    model_bytes, marks = [], [cr.wire_bytes().scale_out]
+    model_bytes, data_bytes, marks = [], [], [cr.wire_bytes()]
 
     def on_step(_):
-        now = cr.wire_bytes().scale_out
-        model_bytes.append(now - marks[0])
+        now = cr.wire_bytes()
+        model_bytes.append(now.scale_out - marks[0].scale_out)
+        data_bytes.append(now.cross_region - marks[0].cross_region)
         marks[0] = now
 
     ops.reset_launch_counts()
-    losses = multi_steps(torch, tr, cfg, seed, on_step, steps=TP_STEPS)
+    losses = multi_steps(torch, tr, cfg, seed, on_step, batch=batch, steps=steps)
     counts = ops.launch_counts()
     return dict(losses=losses, step_ms=[1e3 * m["step_time_s"] for m in tr.metrics_log],
-                model_bytes=model_bytes, counts=counts,
+                model_bytes=model_bytes, data_bytes=data_bytes, counts=counts,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, digests=multi_digests(tr),
                 params=sum(t.numel() for _, t in _flat_tree(tr.params)))
 
@@ -4991,6 +5060,242 @@ def tp_phase(torch, seed: int, dense_losses: list) -> dict:
             "mixtral_counts": [r["mixtral"]["counts"] for r in ranks]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14g: ZeRO-3 over the data axis, the FSDP prefetch, sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+ZERO3_STEPS = 2  # the depth-2 wire and weight runs'
+ZERO3_DENSE_STEPS = 6
+ZERO3_DENSE_BATCH = 4  # gemma2-2b's rows a step: 2 a data rank
+# A model axis of 2 holds 4 of Mixtral's 8 slots a rank: layer 0's two blocks
+# swap whole (a wire re-address, no weight moves), layer 1 swaps slots 0 and 4
+# across the ranks (the weight path, each data coordinate's ZeRO-3 shards).
+ZERO3_PLANS = ((0, (4, 5, 6, 7, 0, 1, 2, 3)), (1, (4, 1, 2, 3, 0, 5, 6, 7)))
+
+
+def zero3_reference(torch, seed: int) -> dict:
+    """The one-device runs phase 14g holds its ranks to: Mixtral depth 2
+    with ZERO3_PLANS (weight moves on one device) for ZERO3_STEPS steps of
+    2 x 256 tokens, and gemma2-2b (all 26 layers) for ZERO3_DENSE_STEPS
+    steps of ZERO3_DENSE_BATCH x 256, same seed, same data.  gemma2 takes
+    each batch in two microbatches, the data axis's two halves: its
+    gradient is then the two halves' gradients summed (the data axis's sum
+    of two terms, divided by 2 exactly), not one product over the four
+    rows, whose other rounding Adam's first sign-like steps carried to
+    1.894e-4 of the loss by step 3 on the H100 (``PERF.md``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.sharding import make_plan
+
+    out = {}
+    cfg = multi_cfg(2)
+    tr = multi_trainer(torch, cfg, seed, make_plan(None), None, MULTI_DEVICE, plans=True,
+                       plan_set=ZERO3_PLANS, devices=2)
+    out["mixtral"] = multi_steps(torch, tr, cfg, seed, steps=ZERO3_STEPS)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma2-2b")
+    tr = dense_trainer(torch, cfg, seed, make_plan(None), None, MULTI_DEVICE, microbatches=2)
+    out["gemma2"] = multi_steps(torch, tr, cfg, seed, batch=ZERO3_DENSE_BATCH,
+                                steps=ZERO3_DENSE_STEPS)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero3_rank_main(rank: int, seed: int, port: int, out_path: str) -> None:
+    """One of the four ranks of a ``(2, 2)`` ``("data", "model")`` mesh,
+    ZeRO-3 over ``"data"`` (``make_plan(mesh)``): (a) Mixtral depth 1,
+    MULTI_STEPS steps (launches counted); (b) Mixtral depth 2 with
+    ZERO3_PLANS, through the wire path with the FSDP prefetch (launches
+    counted) and forced through the weight path gathering on demand; (c)
+    gemma2-2b, all 26 layers, with ``sp_shardmap=True`` and without."""
+    import datetime
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import commruntime as cr
+    from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
+    from repro_torch.parallel.sharding import make_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, _, backend = init_distributed(
+        "auto", rank=rank, world_size=MULTI_RANKS, init_method=f"tcp://localhost:{port}",
+        device_type=MULTI_DEVICE, timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    device = local_device(rank, MULTI_DEVICE)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    res = {"rank": rank, "backend": backend}
+    t0 = time.perf_counter()
+    c1 = multi_cfg(1)
+    res["a"] = multi_run(torch, cr, c1, seed, mesh, device, plans=False, fsdp=True, count=True)
+    for tag, wire in (("wire", True), ("weight", False)):
+        c2 = dataclasses.replace(multi_cfg(2), fsdp_prefetch=wire)
+        res[tag] = multi_run(torch, cr, c2, seed, mesh, device, plans=True, wire=wire, fsdp=True,
+                             steps=ZERO3_STEPS, plan_set=ZERO3_PLANS, count=wire)
+    res["mixtral_s"] = time.perf_counter() - t0
+    cfg = get_config("gemma2-2b")
+    res["layers"] = cfg.num_layers
+    for tag, c in (("sp", dataclasses.replace(cfg, sp_shardmap=True)), ("tp", cfg)):
+        tr = dense_trainer(torch, c, seed, make_plan(mesh), mesh, device)
+        res[tag] = tp_train_run(torch, cr, tr, c, seed, steps=ZERO3_DENSE_STEPS,
+                                batch=ZERO3_DENSE_BATCH)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    gathered = cr.all_gather_objects(res)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps({"ranks": gathered}))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def zero3_kernel_rows(torch, seed: int) -> dict:
+    """The kernels at shapes a ``(2, 2)`` rank of phase 14g launches and the
+    table lacks: kernel 2 (and its backward) at gemma2's rank (2 rows, 4 of
+    8 q heads, 2 of 4 kv heads), kernel 8 at a sequence-parallel rank's
+    slice ([256, 2304] launched as the stream's 512 rows), kernel 7 at a
+    ZeRO-3 rank's received layout (128 tokens a source routed top-2 from
+    2 sources to its 4 experts, weights gathered whole)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-2b")
+    rows = dense_attention_rows(torch, cfg, seed, b=ZERO3_DENSE_BATCH // 2, p=2,
+                                suffix="gemma2_rank")
+    rows.update(dense_norm_rows(torch, ZERO3_DENSE_BATCH // 2 * 128, cfg.d_model, seed,
+                                "gemma2_sp", backward=False,
+                                shape_rows=ZERO3_DENSE_BATCH // 2 * 256))
+    rows.update(chunk_kernel_row(torch, multi_cfg(1), seed, 128, suffix="_zero3",
+                                 what="a (2, 2) ZeRO-3 rank's {tc} tokens a source", p=2))
+    return rows
+
+
+def zero3_sp_phase(torch, seed: int, multi: dict) -> dict:
+    """Phase 14g: four ranks on the card over gloo, a ``(2, 2)`` ``("data",
+    "model")`` mesh with ZeRO-3 over ``"data"``, every model at its
+    published widths.  (a) Mixtral depth 1 bit for bit the replicated
+    ``(2, 2)`` run of phase 14 (``multi``: its ranks' results); (b)
+    Mixtral depth 2 with a wire and a weight plan, prefetching, against
+    both plans as weight moves gathering on demand: bit for bit each other
+    (the wire path equals the weight path, the FSDP prefetch the on-demand
+    gather), losses within 1e-4 of one device; (c) gemma2-2b's 26 layers
+    with ``sp_shardmap=True``: losses and parameters the tensor-parallel
+    run's bit for bit, losses within 1e-4 of one device.  The one-device
+    runs are made here first; the kernel rows after the ranks exit."""
+    t_phase = time.perf_counter()
+    ref = zero3_reference(torch, seed)
+    t_ref = time.perf_counter() - t_phase
+    ranks = spawn_ranks(torch, zero3_rank_main, seed)["ranks"]
+    t_ranks = time.perf_counter() - t_phase - t_ref
+    rows = zero3_kernel_rows(torch, seed) if MULTI_DEVICE == "cuda" else {}
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    rel = lambda got, want: max(abs(a - b) / abs(b) for a, b in zip(got, want))  # noqa: E731
+    mib = lambda b: "%.2f" % (b / 1e6)  # noqa: E731
+    replicated = [r["mesh22"] for r in multi["ranks"]]
+    for tag, what in (("a", "Mixtral depth 1"),
+                      ("wire", "Mixtral depth 2, prefetch, wire + weight plans"),
+                      ("weight", "Mixtral depth 2, on demand, two weight plans")):
+        runs = [r[tag] for r in ranks]
+        print(f"zero3 {what} (2, 2) over {ranks[0]['backend']} (four ranks share the card): "
+              f"losses {['%.6f' % v for v in runs[0]['losses']]}; per-rank median step ms "
+              f"(steps 2-, trainer's clock) {['%.1f' % med(r['step_ms'][1:]) for r in runs]}; "
+              f"data-axis / model-axis MB a step, rank 0 (comm.link_bytes cross_region / "
+              f"scale_out) {[mib(b[2]) + ' / ' + mib(b[1]) for b in runs[0]['wire_bytes']]}; "
+              f"host-staged MB a step (rank 0) {[mib(b) for b in runs[0]['staged_bytes']]}; "
+              f"peak GB per rank {['%.2f' % r['peak_gb'] for r in runs]}; parameters per rank "
+              f"{[r['params'] for r in runs]}", flush=True)
+    rep_params = [r["params"] for r in replicated]
+    print(f"zero3: phase 14's replicated (2, 2) depth 1, for comparison: losses "
+          f"{['%.6f' % v for v in replicated[0]['losses']]}; median step ms per rank "
+          f"{['%.1f' % med(r['step_ms'][1:]) for r in replicated]}; peak GB per rank "
+          f"{['%.2f' % r['peak_gb'] for r in replicated]}; parameters per rank {rep_params}",
+          flush=True)
+    for tag, what in (("sp", "sp_shardmap=True"), ("tp", "sp_shardmap=False")):
+        runs = [r[tag] for r in ranks]
+        print(f"zero3 gemma2-2b, {ranks[0]['layers']} layers, (2, 2), {what}: losses "
+              f"{['%.6f' % v for v in runs[0]['losses']]}; per-rank median step ms "
+              f"{['%.1f' % med(r['step_ms'][1:]) for r in runs]}; model-axis MB a step (rank 0, "
+              f"scale_out) {[mib(b) for b in runs[0]['model_bytes']]}; data-axis MB a step "
+              f"(cross_region) {[mib(b) for b in runs[0]['data_bytes']]}; peak GB per rank "
+              f"{['%.2f' % r['peak_gb'] for r in runs]}; parameters per rank "
+              f"{[r['params'] for r in runs]}; launches per rank "
+              f"{[{k: r['counts'][k] for k in TP_SHOWN if r['counts'][k]} for r in runs]}",
+              flush=True)
+    err_b = rel(ranks[0]["wire"]["losses"], ref["mixtral"])
+    err_c = rel(ranks[0]["sp"]["losses"], ref["gemma2"])
+    same_c = ranks[0]["sp"]["losses"] == ref["gemma2"]
+    print(f"zero3: one device, Mixtral depth 2 with the plans "
+          f"{['%.6f' % v for v in ref['mixtral']]}: max rel diff {err_b:.3e}; gemma2-2b "
+          f"{['%.6f' % v for v in ref['gemma2']]} (two microbatches: the data axis's halves): "
+          f"{err_c:.3e} (limit {MULTI_LOSS_REL}; {'bit for bit' if same_c else 'not its bits'}); "
+          f"phase "
+          f"{time.perf_counter() - t_phase:.1f} s (one-device references {t_ref:.1f} s, ranks "
+          f"{t_ranks:.1f} s: Mixtral {ranks[0]['mixtral_s']:.1f} s, all "
+          f"{['%.1f' % r['seconds'] for r in ranks]})", flush=True)
+    wire0 = ranks[0]["wire"]["wire_perm"]
+    assert wire0 is not None and wire0[0] == [1, 0] and wire0[1] == [0, 1], wire0
+    for r, got in enumerate(ranks):
+        a, want = got["a"], replicated[r]
+        assert a["losses"] == want["losses"], \
+            f"rank {r}: ZeRO-3 losses {a['losses']} != replicated {want['losses']}"
+        assert a["digests"] == want["digests"], f"rank {r}: ZeRO-3 parameters != replicated"
+        wire, weight = got["wire"], got["weight"]
+        assert wire["losses"] == ranks[0]["wire"]["losses"], "ranks disagree on the loss"
+        assert weight["losses"] == wire["losses"], \
+            f"rank {r}: weight-path losses {weight['losses']} != wire {wire['losses']}"
+        assert wire["wire_reconfigs"] == 1 and wire["reconfigs"] == 2, wire["reconfigs"]
+        assert weight["wire_reconfigs"] == 0 and weight["reconfigs"] == 2
+        d, m = divmod(r, 2)
+        for key, dg in wire["digests"].items():
+            _, expert, layer = key.partition("#")
+            # The weight run moved layer 0's expert blocks across the model
+            # axis: rank (d, m) holds what the wire run keeps on (d, wire0[0][m]).
+            src = ranks[d * 2 + wire0[0][m]]["wire"]["digests"][key] if layer == "0" else dg
+            assert weight["digests"][key] == src, \
+                f"rank {r} {key}: the on-demand weight run != the prefetched wire run"
+        for k in ("losses", "digests"):
+            assert got["sp"][k] == got["tp"][k], f"rank {r}: sequence parallel {k} != TP's"
+        assert got["sp"]["losses"] == ranks[0]["sp"]["losses"], "ranks disagree on the loss"
+        for tag, kernels in (("a", MULTI_KERNELS), ("wire", MULTI_KERNELS),
+                             ("sp", TP_TRAIN_KERNELS), ("tp", TP_TRAIN_KERNELS)):
+            missing = [k for k in kernels if not got[tag]["counts"][k]]
+            assert not missing, f"rank {r}: {tag} never launched {missing}"
+    assert all(math.isfinite(v) for r in ranks for t in ("a", "wire", "sp")
+               for v in r[t]["losses"])
+    assert err_b <= MULTI_LOSS_REL, f"ZeRO-3 Mixtral depth 2 vs one device: {err_b:.3e}"
+    assert err_c <= MULTI_LOSS_REL, f"ZeRO-3 + SP gemma2-2b vs one device: {err_c:.3e}"
+    print(f"zero3: checks held: (a) ZeRO-3 equals phase 14's replicated (2, 2) run bit for "
+          f"bit (losses and every parameter, gathered); (b) the prefetched wire run equals the "
+          f"on-demand weight run bit for bit, within "
+          f"{MULTI_LOSS_REL} of one device; (c) gemma2-2b with sp_shardmap=True equals "
+          f"sp_shardmap=False bit for bit, within {MULTI_LOSS_REL} of one device; kernels "
+          f"{MULTI_KERNELS} (Mixtral) and {TP_TRAIN_KERNELS} (gemma2) launched on every rank",
+          flush=True)
+    E2E["zero3 (2, 2) Mixtral depth 1 median step ms per rank"] = [
+        med(r["a"]["step_ms"][1:]) for r in ranks]
+    E2E["zero3 (2, 2) Mixtral depth 2 prefetch / on demand median step ms per rank"] = [
+        [med(r[t]["step_ms"][1:]) for t in ("wire", "weight")] for r in ranks]
+    E2E["zero3 (2, 2) gemma2-2b sp median step ms per rank"] = [
+        med(r["sp"]["step_ms"][1:]) for r in ranks]
+    E2E["zero3 (2, 2) gemma2-2b tp median step ms per rank"] = [
+        med(r["tp"]["step_ms"][1:]) for r in ranks]
+    E2E["zero3 gemma2-2b model-axis bytes per step, rank 0, sp / tp"] = [
+        ranks[0]["sp"]["model_bytes"], ranks[0]["tp"]["model_bytes"]]
+    for name, tag, kernel in (("flash_attention_gemma2_rank", "sp", "flash_attention"),
+                              ("flash_attention_bwd_gemma2_rank", "sp", "flash_attention_bwd"),
+                              ("rmsnorm_gemma2_sp", "sp", "rmsnorm"),
+                              ("grouped_matmul_blocks_zero3", "a", "grouped_matmul_blocks")):
+        if name in rows:
+            rows[name]["launches"] = ranks[0][tag]["counts"][kernel]
+    return {"rows": rows, "counts": [r["a"]["counts"] for r in ranks],
+            "depth2_counts": [r["wire"]["counts"] for r in ranks],
+            "sp_counts": [r["sp"]["counts"] for r in ranks]}
+
+
 # Mixtral's mesh serve: mixnet prefills (kernels 1, 2, 4, 5, 7, 8), dense
 # decode ticks (kernels 1 and 8).
 MESH_MIXTRAL_KERNELS = ("topk_gating", "flash_attention", "moe_dispatch", "moe_combine",
@@ -5169,6 +5474,8 @@ def main(argv=None) -> int:
     mesh_sv = mesh_serve_phase(torch, args.seed, mesh_ckpt_dir)
     rows.update(mesh_sv["rows"])
     tp = tp_phase(torch, args.seed, dense["losses"])
+    z3 = zero3_sp_phase(torch, args.seed, multi)
+    rows.update(z3["rows"])
 
     # launches: each kernel's count from the path it belongs to — the
     # capacity training run for kernel 6 and its backward, the dropless run
@@ -5206,12 +5513,15 @@ def main(argv=None) -> int:
                               "mesh_serve_mixtral": [c[name] for c in mesh_sv["mixtral_counts"]],
                               "tensor_parallel": [c[name] for c in tp["counts"]],
                               "tensor_parallel_mixtral": [c[name] for c in tp["mixtral_counts"]],
-                              "tensor_parallel_serve": [c[name] for c in tp["serve_counts"]]},
+                              "tensor_parallel_serve": [c[name] for c in tp["serve_counts"]],
+                              "zero3": [c[name] for c in z3["counts"]],
+                              "zero3_depth2_prefetch": [c[name] for c in z3["depth2_counts"]],
+                              "sequence_parallel": [c[name] for c in z3["sp_counts"]]},
         ))
     assert all(math.isfinite(v) for r in line for k, v in r.items()
                if k.endswith("ms") and v is not None)
     assert all(r["launches"] > 0 for r in line), [r["name"] for r in line if not r["launches"]]
-    assert len(line) == len(KERNEL_ROWS) == 53, [r["name"] for r in line]
+    assert len(line) == len(KERNEL_ROWS) == 57, [r["name"] for r in line]
     spec_key = f"grok spec round kernels (draft, verify), reconfig_every=4, spec_k={SPEC_K}"
     print(f"end to end (measured, not claimed): {json.dumps(E2E)}", flush=True)
     print(f"decode tick kernel launches (one pure decode tick under the profiler): grok-1 "

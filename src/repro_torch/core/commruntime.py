@@ -39,6 +39,8 @@ executes.
 from __future__ import annotations
 
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,7 +55,8 @@ __all__ = [
     "hierarchical_all_to_all", "mixnet_all_to_all", "hierarchical_psum", "ring_all_gather",
     "ring_reduce_scatter", "axis_size", "axis_index", "axis_group", "all_reduce",
     "all_gather_objects", "host_staged_bytes", "wire_bytes", "all_gather_raw",
-    "reduce_scatter_raw", "all_to_all_rows", "psum", "psum_scatter", "all_gather",
+    "reduce_scatter_raw", "all_to_all_rows", "psum", "psum_scatter", "all_gather", "tree_sum",
+    "reduce_scatter_ordered", "all_reduce_ordered", "side_group", "run_async",
 ]
 
 # ---------------------------------------------------------------------------
@@ -73,9 +76,13 @@ def axis_index(mesh, axis: str | None) -> int:
     return int(mesh.get_local_rank(axis))
 
 
+def _axis_link(axis: str) -> str:
+    return "cross_region" if axis in ("pod", "data", "stage") else "scale_out"
+
+
 def axis_group(mesh, axis: str):
     grp = mesh.get_group(axis)
-    _GROUP_LINK[id(grp)] = "cross_region" if axis in ("pod", "data", "stage") else "scale_out"
+    _GROUP_LINK[id(grp)] = _axis_link(axis)
     return grp
 
 
@@ -233,6 +240,130 @@ def reduce_scatter_raw(x: torch.Tensor, group) -> torch.Tensor:
         lambda o, i, g, a: dist.reduce_scatter_tensor(o, i, group=g, async_op=a),
         out, x, group,
     ).wait()
+
+
+def tree_sum(parts: list) -> torch.Tensor:
+    """``parts`` summed as a binary tree in their order: pairs, then pairs of
+    the pair sums (an odd one out carried up)."""
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] if i + 1 < len(parts) else parts[i]
+                 for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def reduce_scatter_ordered(x: torch.Tensor, group) -> torch.Tensor:
+    """``[p * n, ...]`` -> this rank's ``[n, ...]`` of the sum over the
+    group, the same bits whatever the library's reduction order: one
+    all-to-all of the ``n``-row shares, then the ``p`` received shares
+    summed in f32 as :func:`tree_sum` over rank order and cast once to
+    ``x``'s dtype.  A data axis's gradient sums take it under ZeRO-3 and
+    replicated alike (:func:`all_reduce_ordered`), so both give each
+    element the same bits (gloo's own sum order is its ring's)."""
+    p = dist.get_world_size(group)
+    if p == 1:
+        return x
+    if x.shape[0] % p:
+        raise ValueError(f"dim 0 ({x.shape[0]}) not divisible by the group's {p} ranks")
+    got = _a2a_raw(x, group).wait().reshape(p, x.shape[0] // p, *x.shape[1:])
+    return tree_sum([s.float() for s in got.unbind(0)]).to(x.dtype)
+
+
+def all_reduce_ordered(x: torch.Tensor, group, *, inplace: bool = False) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``x`` (no autograd) as
+    :func:`reduce_scatter_ordered` of its flat elements (zero-padded to a
+    multiple of the group) and an all-gather of the sums: the ring
+    all-reduce's bytes, and each element the bits a ZeRO-3 rank's shard of
+    it gets.  ``inplace``: into ``x`` (contiguous), else a new tensor."""
+    p = dist.get_world_size(group)
+    out = x.detach() if inplace else x.detach().clone()
+    if p == 1:
+        return out
+    flat = out.reshape(-1)
+    pad = -flat.numel() % p
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    mine = reduce_scatter_ordered(flat.reshape(p, -1), group)
+    full = all_gather_raw(mine, group).reshape(-1)
+    out.reshape(-1).copy_(full[:out.numel()])
+    return out
+
+
+_SIDE_GROUPS: dict = {}
+
+
+def side_group(mesh, axis: str):
+    """A second process group over this rank's ``axis`` of ``mesh``, made
+    once (collectively: every rank makes every row's, in one order), for
+    transfers a worker thread runs (:func:`run_async`) while the calling
+    thread runs collectives on the mesh's own groups: two threads never
+    share a group."""
+    key = (id(mesh), axis)
+    if key not in _SIDE_GROUPS:
+        dim = mesh.mesh_dim_names.index(axis)
+        rows = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.mesh.shape[dim]).tolist()
+        me, mine = dist.get_rank(), None
+        for row in rows:
+            grp = dist.new_group(row)
+            if me in row:
+                mine = grp
+                _GROUP_LINK[id(grp)] = _axis_link(axis)
+        _SIDE_GROUPS[key] = (mesh, mine)  # the mesh pins id(mesh)
+    return _SIDE_GROUPS[key][1]
+
+
+# One worker: asynchronous transfers run in the order they were issued,
+# which is the same on every rank.
+_WORKER: list = []
+_WORKER_LOCK = threading.Lock()
+_SIDE_STREAMS: dict = {}
+
+
+class _Async:
+    """A transfer running on the worker thread: ``wait()`` returns its
+    result, ordered after the transfer on the caller's CUDA stream."""
+
+    def __init__(self, fut, cuda: bool):
+        self.fut, self.cuda = fut, cuda
+
+    def wait(self):
+        out, done = self.fut.result()
+        if self.cuda:
+            cur = torch.cuda.current_stream(out.device)
+            cur.wait_event(done)
+            out.record_stream(cur)
+        return out
+
+
+def run_async(fn, x: torch.Tensor) -> _Async:
+    """``fn(x)`` (a transfer over a :func:`side_group`, no autograd) on a
+    worker thread, so that it runs while this thread issues compute.  On
+    the card the worker runs on a stream of its own that first waits for
+    everything this thread's stream had issued (``x`` is ready) and is
+    waited for by ``wait()``'s caller: staged copies through host memory
+    then wait for the transfer's own stream only."""
+    with _WORKER_LOCK:
+        if not _WORKER:
+            _WORKER.append(ThreadPoolExecutor(max_workers=1, thread_name_prefix="comm"))
+    cuda = x.device.type == "cuda"
+    if cuda:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(x.device))
+        if x.device not in _SIDE_STREAMS:
+            _SIDE_STREAMS[x.device] = torch.cuda.Stream(x.device)
+        side = _SIDE_STREAMS[x.device]
+
+        def job():
+            with torch.no_grad(), torch.cuda.device(x.device), torch.cuda.stream(side):
+                side.wait_event(ready)
+                out = fn(x)
+                done = torch.cuda.Event()
+                done.record(side)
+            return out, done
+    else:
+        def job():
+            with torch.no_grad():
+                return fn(x), None
+    return _Async(_WORKER[0].submit(job), cuda)
 
 
 def all_to_all_rows(send: torch.Tensor, in_split: list[int], out_split: list[int], group

@@ -150,7 +150,9 @@ def permute_expert_weights(params, inv_stack: np.ndarray, num_virtual: int, *, m
 
     Over a mesh whose ``axis`` shards the slots (each rank holds ``[L,
     E_virtual / P, ...]``), the slots a plan moves across ranks travel in one
-    all-to-all over the axis per layer and leaf (:func:`_exchange_slots`).
+    all-to-all over the axis per layer and leaf (:func:`_exchange_slots`);
+    under ZeRO-3 each rank's slots are its data shard of them, so each data
+    coordinate's model group exchanges its own shards.
 
     ``layers=(lo, hi)``: ``params`` holds the repeats ``[lo, hi)`` of the
     stack (a pipeline stage's), so only those rows of ``inv_stack`` apply."""

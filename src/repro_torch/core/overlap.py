@@ -13,13 +13,15 @@ The pricing side (netsim) is :func:`pipelined_phase`, the flow-level event
 timeline of the same schedule on two resources (network, compute): with
 ``chunks=1`` it is exactly the additive serial sum, with more it reports how
 much of the priced communication hid under the compute window; and
-:func:`decode_tick_phase`, its serving-tick form.  The ZeRO-3 prefetch
-``ring_gather_leaf`` comes with parameter sharding.
+:func:`decode_tick_phase`, its serving-tick form.  :func:`ring_gather_leaf`
+is the ZeRO-3 prefetch's gather: the transformer issues it for block l+1's
+FFN weights before block l computes (``models.transformer.apply_layers``).
 """
 
 from __future__ import annotations
 
-__all__ = ["chunk_count", "software_pipeline", "pipelined_phase", "decode_tick_phase"]
+__all__ = ["chunk_count", "software_pipeline", "pipelined_phase", "decode_tick_phase",
+           "ring_gather_leaf"]
 
 
 def chunk_count(total: int, requested: int) -> int:
@@ -134,3 +136,33 @@ def decode_tick_phase(
     return pipelined_phase(
         dispatch, expert + prefill_compute, combine, chunks, serial_prefix=attn
     )
+
+
+def ring_gather_leaf(x, mesh, fsdp_axis: str, fsdp_dim: int, *, async_op: bool = False):
+    """Gather one ZeRO-3 weight shard over ``fsdp_axis`` along its
+    ``fsdp_dim`` with the explicit ring (``commruntime`` ``_ring_gather``:
+    p - 1 neighbour hops, in ascending device order), no autograd: the
+    caller's :func:`repro_torch.parallel.fsdp.gather` gives it its
+    backward.  Port of ``src/repro/core/overlap.py:172-211``; the shard is
+    the rank's part of the leaf over every other axis already (layouts are
+    explicit in the port), so only ``fsdp_dim`` is gathered.
+
+    ``async_op``: the ring runs on the comm worker thread over the axis's
+    :func:`~repro_torch.core.commruntime.side_group` (``commruntime.run_async``)
+    and a handle returns, whose ``wait()`` gives the gathered leaf: the
+    FSDP prefetch issues block l+1's gather before block l's compute and
+    waits for it when block l+1 starts."""
+    from repro_torch.core import commruntime as cr
+
+    def ring(t, group):
+        full = cr._ring_gather(t.detach().movedim(fsdp_dim, 0).contiguous(), group)
+        return full.movedim(0, fsdp_dim).contiguous()
+
+    if async_op:
+        grp = cr.side_group(mesh, fsdp_axis)
+        return cr.run_async(lambda t: ring(t, grp), x)
+    import torch
+
+    with torch.no_grad():
+        return ring(x, cr.axis_group(mesh, fsdp_axis))
+

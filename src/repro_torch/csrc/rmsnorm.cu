@@ -392,13 +392,14 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-// dw[d] = sum over the workspace's G rows, rounded once.  A CTA takes
-// kDwCols groups of 4 columns; its kDwSlices thread rows each sum the
-// workspace rows s, s + kDwSlices, ... in order, then thread row 0 sums the
-// slices in order: a fixed order, whatever runs first.
-template <typename T>
+// dw[d] = sum over the workspace's G rows, rounded once (to OutT: x's
+// dtype, or f32 for a sum the caller continues).  A CTA takes kDwCols
+// groups of 4 columns; its kDwSlices thread rows each sum the workspace
+// rows s, s + kDwSlices, ... in order, then thread row 0 sums the slices in
+// order: a fixed order, whatever runs first.
+template <typename OutT>
 __global__ void __launch_bounds__(kDwCols * kDwSlices)
-    rmsnorm_dw_kernel(const float* __restrict__ part, T* __restrict__ dw, int G, int D) {
+    rmsnorm_dw_kernel(const float* __restrict__ part, OutT* __restrict__ dw, int G, int D) {
   __shared__ float4 slice[kDwSlices][kDwCols];
   repro::grid_dependency_wait();
   const int c = threadIdx.x % kDwCols, sl = threadIdx.x / kDwCols;
@@ -426,10 +427,10 @@ __global__ void __launch_bounds__(kDwCols * kDwSlices)
     s.z += v.z;
     s.w += v.w;
   }
-  dw[4 * q] = repro::from_f32<T>(s.x);
-  dw[4 * q + 1] = repro::from_f32<T>(s.y);
-  dw[4 * q + 2] = repro::from_f32<T>(s.z);
-  dw[4 * q + 3] = repro::from_f32<T>(s.w);
+  dw[4 * q] = repro::from_f32<OutT>(s.x);
+  dw[4 * q + 1] = repro::from_f32<OutT>(s.y);
+  dw[4 * q + 2] = repro::from_f32<OutT>(s.z);
+  dw[4 * q + 3] = repro::from_f32<OutT>(s.w);
 }
 
 // The one-pass kernels' shape for a row of nv vectors, lanes aiming at
@@ -448,12 +449,13 @@ Shape row_shape(int nv, int target) {
 
 template <typename T, bool kGate>
 cudaError_t launch_fwd(const void* x, const void* z, const void* w, void* y, int rows, int D,
-                       float eps, cudaStream_t st) {
+                       float eps, int shape_rows, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const T* zp = static_cast<const T*>(z);
   const T* wp = static_cast<const T*>(w);
   T* yp = static_cast<T*>(y);
-  const Shape s = row_shape(D / Vec<T>::n, rows >= kManyRows ? kManyVecTarget : kVecTarget);
+  const Shape s =
+      row_shape(D / Vec<T>::n, shape_rows >= kManyRows ? kManyVecTarget : kVecTarget);
   const dim3 grid(rows), block(32 * s.warps);
   switch (s.vpl) {
     case 0:
@@ -470,7 +472,7 @@ cudaError_t launch_fwd(const void* x, const void* z, const void* w, void* y, int
 
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
-                       void* part, int rows, int D, float eps, cudaStream_t st) {
+                       void* part, int rows, int D, float eps, bool dw_f32, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* dyp = static_cast<const T*>(dy);
@@ -495,9 +497,12 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, v
   }
   if (err != cudaSuccess) return err;
   const int groups = D / 4;
-  return repro::launch_pdl(rmsnorm_dw_kernel<T>, dim3((groups + kDwCols - 1) / kDwCols),
-                           dim3(kDwCols * kDwSlices), st, static_cast<const float*>(part),
-                           static_cast<T*>(dw), G, D);
+  const dim3 dw_grid((groups + kDwCols - 1) / kDwCols), dw_block(kDwCols * kDwSlices);
+  if (dw_f32)
+    return repro::launch_pdl(rmsnorm_dw_kernel<float>, dw_grid, dw_block, st,
+                             static_cast<const float*>(part), static_cast<float*>(dw), G, D);
+  return repro::launch_pdl(rmsnorm_dw_kernel<T>, dw_grid, dw_block, st,
+                           static_cast<const float*>(part), static_cast<T*>(dw), G, D);
 }
 
 }  // namespace
@@ -505,18 +510,21 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, v
 // dtype: repro::kF32 or repro::kBF16 (x, the gate, w and y share it).  gate:
 // null for the plain norm, else z of x's shape.  D must be a multiple of 16
 // bytes' worth of elements and every pointer 16-byte aligned (the wrapper
-// checks both).  Returns cudaGetLastError() after the launch.
+// checks both).  shape_rows: the row count that picks the CTA shape (rows,
+// or the whole sequence's rows when these are a rank's slice of it: a
+// row's bits then do not depend on how the rows are split).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int rmsnorm_fwd(const void* x, const void* gate, const void* w, void* y, int rows,
-                           int D, float eps, int dtype, void* stream) {
+                           int D, float eps, int shape_rows, int dtype, void* stream) {
   if (rows <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == repro::kBF16)
-    err = gate ? launch_fwd<__nv_bfloat16, true>(x, gate, w, y, rows, D, eps, st)
-               : launch_fwd<__nv_bfloat16, false>(x, gate, w, y, rows, D, eps, st);
+    err = gate ? launch_fwd<__nv_bfloat16, true>(x, gate, w, y, rows, D, eps, shape_rows, st)
+               : launch_fwd<__nv_bfloat16, false>(x, gate, w, y, rows, D, eps, shape_rows, st);
   else
-    err = gate ? launch_fwd<float, true>(x, gate, w, y, rows, D, eps, st)
-               : launch_fwd<float, false>(x, gate, w, y, rows, D, eps, st);
+    err = gate ? launch_fwd<float, true>(x, gate, w, y, rows, D, eps, shape_rows, st)
+               : launch_fwd<float, false>(x, gate, w, y, rows, D, eps, shape_rows, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -524,17 +532,19 @@ extern "C" int rmsnorm_fwd(const void* x, const void* gate, const void* w, void*
 // Rows of the backward's f32 workspace for T rows (its columns: D).
 extern "C" int rmsnorm_bwd_blocks(int rows) { return rows < kBwdBlocks ? rows : kBwdBlocks; }
 
-// dx [T, D] and dw [D] (x's dtype) for dy [T, D]; part: rmsnorm_bwd_blocks(T)
-// x D f32, 16-byte aligned.  Two launches: the rows, then dw's sum over the
-// workspace.  Returns cudaGetLastError().
+// dx [T, D] (x's dtype) and dw [D] (x's dtype, or f32 when dw_f32: one
+// block's share of a sum the caller continues) for dy [T, D]; part:
+// rmsnorm_bwd_blocks(T) x D f32, 16-byte aligned.  Two launches: the rows,
+// then dw's sum over the workspace.  Returns cudaGetLastError().
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
-                           void* part, int rows, int D, float eps, int dtype, void* stream) {
+                           void* part, int rows, int D, float eps, int dw_f32, int dtype,
+                           void* stream) {
   if (rows <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == repro::kBF16
-          ? launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, part, rows, D, eps, st)
-          : launch_bwd<float>(x, w, dy, dx, dw, part, rows, D, eps, st);
+          ? launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, part, rows, D, eps, dw_f32 != 0, st)
+          : launch_bwd<float>(x, w, dy, dx, dw, part, rows, D, eps, dw_f32 != 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,7 +61,8 @@ def shard_params(tree, plan, mesh, rank: int | None = None, *, cfg):
     """A rank's shard of a global numpy tree (the JAX package's, converted),
     by the one layout rule of :class:`repro_torch.parallel.sharding.TreeLayout`:
     the expert leaves keep the rank's ``E_virtual / P`` slots of the model
-    axis and the tensor-parallel leaves their model-axis shard, over a
+    axis and the tensor-parallel leaves their model-axis shard, under ZeRO-3
+    the data shard of each leaf the data axis shards, over a
     ``"stage"`` axis the rank keeps its stage's repeats and ends (``cfg``,
     the model's config, sizes the tensor-parallel leaves and says whether
     the head is tied), every other leaf stays whole.

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFn,
     flash_attention_bwd_cuda,
@@ -42,8 +43,8 @@ from repro_torch.kernels.topk_gating import TopkGatingFn, topk_gating_bwd_cuda, 
 
 __all__ = [
     "topk_gating", "flash_attention", "paged_flash_decode", "moe_dispatch", "moe_combine",
-    "grouped_matmul", "rmsnorm", "ssd_chunk", "KERNELS", "launch_counts", "launch_shapes",
-    "reset_launch_counts",
+    "grouped_matmul", "rmsnorm", "rmsnorm_bwd", "ssd_chunk", "KERNELS", "launch_counts",
+    "launch_shapes", "reset_launch_counts",
 ]
 
 # Every kernel's CUDA wrapper, by kernel name (backward kernels included).
@@ -181,11 +182,12 @@ def _no_backward(name: str, *tensors) -> None:
         )
 
 
-def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
+def rmsnorm(x, w, *, eps: float = 1e-6, gate=None, shape_rows: int | None = None):
     """Fused RMSNorm over ``x [T, D]`` with weight ``w [D]`` (the norm is
     ``1 + w``), rounded once to x's dtype.  ``gate``: z ``[T, D]``; the norm
     is then of ``x * silu(z)`` (Mamba-2's gated norm, fused into the kernel
-    on the card)."""
+    on the card).  ``shape_rows``: the whole stream's rows when ``x`` is a
+    rank's slice of it (the kernel's CTA shape; no gradient)."""
     if _on_cpu(x):
         return ref.rmsnorm(x, w, eps, gate)
     if gate is not None:
@@ -194,7 +196,23 @@ def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
     x, w = x.contiguous(), w.contiguous()
     if _wants_grad(x, w):
         return RMSNormFn.apply(x, w, eps)
+    if shape_rows is not None and shape_rows != x.shape[0]:
+        return rmsnorm_cuda(x, w, eps, shape_rows=shape_rows)
     return rmsnorm_cuda(x, w, eps)
+
+
+def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
+    """The ungated norm's backward for ``dy [T, D]``: ``(dx [T, D]`` in x's
+    dtype, ``dw [D]`` in f32, rounded once from its f32 sum over the rows)
+    -- one block's share of a weight gradient the caller sums on.  Kernel 8's
+    backward on the card; autograd of the plain version on the CPU."""
+    if _on_cpu(x):
+        xg = x.detach().requires_grad_()
+        wg = w.detach().float().requires_grad_()
+        with torch.enable_grad():
+            return torch.autograd.grad(ref.rmsnorm(xg, wg, eps), (xg, wg), dy)
+    return krms.rmsnorm_bwd_cuda(x.contiguous(), w.contiguous(), dy.contiguous(), eps,
+                                 dw_dtype=torch.float32)
 
 
 def ssd_chunk(x, da, bmat, cmat, *, heads: int):

@@ -29,9 +29,9 @@ MAX_VECTORS = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "rmsnorm_fwd": ((_P, _P, _P, _P, _I, _I, _F, _I, _P), ctypes.c_int),
+    "rmsnorm_fwd": ((_P, _P, _P, _P, _I, _I, _F, _I, _I, _P), ctypes.c_int),
     "rmsnorm_bwd_blocks": ((_I,), ctypes.c_int),
-    "rmsnorm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P), ctypes.c_int),
+    "rmsnorm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P), ctypes.c_int),
 }
 
 
@@ -56,13 +56,17 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, **others) -> None:
 
 
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
-                 gate: torch.Tensor | None = None) -> torch.Tensor:
+                 gate: torch.Tensor | None = None, shape_rows: int | None = None
+                 ) -> torch.Tensor:
     """``x [T, D]`` and ``w [D]`` on the card, both f32 or both bf16, D a
     multiple of 16 bytes' worth of elements -> ``[T, D]`` in x's dtype.
     ``gate``: z ``[T, D]`` in x's dtype; the norm is then of ``x *
     silu(z)``, bit for bit what this kernel gives on that product formed by
     PyTorch.  Up to ``MAX_VECTORS`` of them (8192 bf16, 4096 f32) the row is
-    read once into registers; a wider row is read twice."""
+    read once into registers; a wider row is read twice.  ``shape_rows``:
+    the row count that picks the CTA shape (default T): a sequence-parallel
+    rank's slice of a stream passes the whole stream's, so its rows get the
+    bits the whole stream's launch gives them."""
     _check("rmsnorm_cuda", x, w, **({} if gate is None else {"gate": gate}))
     t, d = x.shape
     out = torch.empty_like(x)
@@ -71,7 +75,8 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     lib = build.library("rmsnorm", _SIGNATURES)
     err = lib.rmsnorm_fwd(
         x.data_ptr(), None if gate is None else gate.data_ptr(), w.data_ptr(), out.data_ptr(),
-        t, d, float(eps), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        t, d, float(eps), t if shape_rows is None else int(shape_rows), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed (CUDA error {err})")
@@ -85,21 +90,25 @@ rmsnorm_cuda.shapes = {}  # (T, D) -> launches
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-                     eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
-    """(``dx [T, D]``, ``dw [D]``), both in x's dtype, of the ungated norm for
-    the output gradient ``dy [T, D]``: f32 math, dw summed over the rows in a
-    fixed order (per-CTA shares, then their sum)."""
+                     eps: float = 1e-6, *, dw_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(``dx [T, D]``, ``dw [D]``) of the ungated norm for the output
+    gradient ``dy [T, D]``: f32 math, dx in x's dtype, dw summed over the
+    rows in a fixed order (per-CTA shares, then their sum) and rounded once
+    to ``dw_dtype``: x's (default), or f32 for one block's share of a sum
+    the caller continues (``models.layers``' tree over sequence blocks)."""
     _check("rmsnorm_bwd_cuda", x, w, dy=dy)
+    dw_f32 = dw_dtype == torch.float32 and x.dtype != torch.float32
     t, d = x.shape
     dx = torch.empty_like(x)
     if t == 0:
-        return dx, torch.zeros_like(w)
-    dw = torch.empty_like(w)
+        return dx, torch.zeros(w.shape, dtype=dw_dtype or w.dtype, device=w.device)
+    dw = torch.empty(w.shape, dtype=torch.float32 if dw_f32 else w.dtype, device=w.device)
     lib = build.library("rmsnorm", _SIGNATURES)
     part = torch.empty((lib.rmsnorm_bwd_blocks(t), d), dtype=torch.float32, device=x.device)
     err = lib.rmsnorm_bwd(
         x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), part.data_ptr(),
-        t, d, float(eps), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        t, d, float(eps), int(dw_f32), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"rmsnorm_bwd kernel launch failed (CUDA error {err})")

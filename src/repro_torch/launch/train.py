@@ -93,9 +93,7 @@ def run(args, rank: int | None = None, world: int | None = None,
             rank=rank, world_size=world, init_method=init_method, device_type=args.device)
         device = local_device(rank, args.device)
         mesh = make_mesh(mesh_shape(world), ("data", "model"))
-    # ZeRO-3 parameter sharding comes with a later slice: the plan keeps the
-    # parameters whole over the data axis.
-    plan = make_plan(mesh, fsdp=False)
+    plan = make_plan(mesh)  # ZeRO-3 over the data axis, as the reference's launcher
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                       total_steps=args.steps * 2, moment_dtype=cfg.opt_moment_dtype)
     tcfg = TrainerConfig(

@@ -5,8 +5,8 @@ Port of :mod:`repro.models.layers`.  Layers are plain functions on tensors
 with the JAX package's layouts at the public functions (``wq [d, h, dh]``,
 caches ``[B, S, Hkv, dh]``, page pools ``[N, page, Hkv, dh]``).  Decode
 writes its chunk's K/V into the cache IN PLACE (index writes into the
-caller's tensors: no copy of a multi-GB cache per tick).  MLA and the
-sequence-parallel paths come with later slices.
+caller's tensors: no copy of a multi-GB cache per tick).  MLA comes with
+a later slice.
 
 Over a model axis (``plan`` and ``mesh`` with tensor parallelism on,
 :mod:`repro_torch.parallel.tp`) attention runs the rank's q heads with the
@@ -18,6 +18,21 @@ summed over the axis in f32) and its output projection's f32 partials are
 summed over the axis and cast once.  Whether a block runs
 so is read off its leaves: a leaf narrower than the config's is the rank's
 shard (:class:`~repro_torch.parallel.sharding.TreeLayout` decides).
+
+Sequence parallelism (``sp=True``, the reference's ``mlp_apply_sp`` and
+``oproj_sp``, ``layers.py:565-641``): the block's input is the rank's
+``[B, S / P, D]`` slice of a sequence-sharded stream; a tensor-parallel
+block gathers the sequence before its column products
+(``tp.seq_gather``) and sums its row-parallel partials into the rank's
+slice (``tp.seq_scatter``), a block whose sizes do not divide the model
+axis runs whole on the gathered sequence and keeps the rank's slice of its
+output.  Either way every element is the replicated stream's bits.
+
+A training norm (:func:`rms_norm` with ``tree``) sums its weight gradient
+as a fixed tree over ``tp.TREE_LEAVES`` sequence blocks, which one device,
+a tensor-parallel rank and a sequence-parallel rank (its blocks, then the
+model axis's ranks) all take: the stream's sequence split leaves the bits
+as they are.
 """
 
 from __future__ import annotations
@@ -30,14 +45,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.parallel import tp
-from repro_torch.parallel.sharding import local_kv_heads
+from repro_torch.parallel.sharding import local_kv_heads, token_gather, token_slice
 
 __all__ = [
     "rms_norm", "init_rms_norm", "rope_frequencies", "apply_rope",
     "init_attention", "attention_apply", "init_attention_cache",
     "init_paged_attention_cache", "DecodeWrites", "decode_writes", "normal", "decode_rows",
     "DECODE_ROWS", "column_products", "row_products", "init_mlp", "mlp_apply", "ffn",
-    "kv_heads_of_rank",
+    "kv_heads_of_rank", "can_use_sp_mlp", "norm_tree", "whole_in_sp",
 ]
 
 _NEG = -1e30
@@ -81,11 +96,66 @@ def normal(gen: torch.Generator, shape, dtype, device, scale: float) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, tree=None) -> torch.Tensor:
     """RMSNorm over the last dim, ``[..., D]`` as ``[T, D]`` through
     :func:`ops.rmsnorm`: kernel 8 on the card (its backward kernel when a
-    gradient is wanted), the plain version on the CPU."""
-    return ops.rmsnorm(x.reshape(-1, x.shape[-1]), w, eps=eps).reshape(x.shape)
+    gradient is wanted), the plain version on the CPU.  ``tree``
+    (:func:`norm_tree`'s, for ``x [B, S', D]``): the stream's norm in train
+    and prefill mode, the weight gradient summed as the tree over sequence
+    blocks (:class:`_TreeNorm`), a sequence-parallel rank's launch shaped as
+    the whole stream's."""
+    if tree is None:
+        return ops.rmsnorm(x.reshape(-1, x.shape[-1]), w, eps=eps).reshape(x.shape)
+    n, group, p = tree
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _TreeNorm.apply(x, w, eps, n, group, p)
+    b, s, d = x.shape
+    return ops.rmsnorm(x.reshape(-1, d), w, eps=eps, shape_rows=b * s * p).reshape(x.shape)
+
+
+def norm_tree(x: torch.Tensor, plan=None, mesh=None, sp: bool = False):
+    """The ``tree`` argument of :func:`rms_norm` for a stream ``x [B, S',
+    D]`` in train or prefill mode: ``(blocks this rank sums, the model
+    group or None, the ranks sharing the sequence)``; one device and a
+    replicated stream take ``tp.TREE_LEAVES`` blocks, a sequence-parallel
+    rank ``tp.leaves(P)`` and the model axis (one block where they do not
+    divide its rows)."""
+    s = x.shape[1]
+    if not sp:
+        return (tp.TREE_LEAVES if s % tp.TREE_LEAVES == 0 else 1), None, 1
+    n = tp.leaves(plan.model_size)
+    return (n if s % n == 0 else 1), tp.model_group(plan, mesh), plan.model_size
+
+
+class _TreeNorm(torch.autograd.Function):
+    """The norm of ``x [B, S', D]`` as one launch over its rows (shaped as
+    the whole stream's over ``p`` ranks); the backward runs kernel 8's
+    backward on each of ``n`` sequence blocks (``[B, S' / n, D]`` rows:
+    the same shape on one device and on every rank) and sums their f32
+    weight gradients as the tree, the rank's blocks then the ranks' sums
+    over ``group`` in rank order (``tp._across``), cast once."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, n, group, p):
+        ctx.eps, ctx.n, ctx.group = eps, n, group
+        ctx.save_for_backward(x, w)
+        b, s, d = x.shape
+        return ops.rmsnorm(x.reshape(-1, d), w, eps=eps, shape_rows=b * s * p).reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        b, s, d = x.shape
+        k = s // ctx.n
+        dxs, dws = [], []
+        for i in range(ctx.n):
+            xb = x[:, i * k:(i + 1) * k].reshape(-1, d).contiguous()
+            dyb = dy[:, i * k:(i + 1) * k].reshape(-1, d).contiguous()
+            dx, dw = ops.rmsnorm_bwd(xb, w, dyb, eps=ctx.eps)
+            dxs.append(dx.reshape(b, k, d))
+            dws.append(dw.float())
+        dx = dxs[0] if ctx.n == 1 else torch.cat(dxs, dim=1)
+        return dx, tp._across(tp._tree(dws), ctx.group, w.dtype), None, None, None, None
 
 
 def init_rms_norm(d: int, dtype, device, reps: int | None = None) -> torch.Tensor:
@@ -324,13 +394,27 @@ def attention_apply(
     write_mask: torch.Tensor | None = None,
     page_table: torch.Tensor | None = None,
     writes: DecodeWrites | None = None,
+    sp: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
-    b, s, _ = x.shape
+    """GQA attention over ``x [B, S, D]`` (``sp``: the rank's ``[B, S / P,
+    D]`` slice of a sequence-parallel stream; the output is then the
+    rank's slice too)."""
+    sharded = tp.enabled(plan, mesh) and params["wq"].shape[1] < cfg.num_heads
+    if sp and not sharded:
+        # Heads the model axis does not divide: whole attention on the
+        # gathered sequence, the rank's slice of its output.
+        return whole_in_sp(lambda xg: attention_apply(
+            params, xg, cfg, kind=kind, mode=mode, positions=positions, cache=cache, t=t,
+            write_mask=write_mask, page_table=page_table, writes=writes), x, plan, mesh)
+    if sp:
+        xg = tp.seq_gather(x, plan, mesh)  # [B, S, D] f32: the partials come back here
+    else:
+        xg = x
+    b, s, _ = xg.shape
     window = cfg.window_size if kind == "local" else None
     # Decode-mode products on fixed row blocks (``decode_rows``): a verify
     # pass's rows equal a serial tick's.
     fixed = mode == "decode"
-    sharded = tp.enabled(plan, mesh) and params["wq"].shape[1] < cfg.num_heads
     tpp = (plan, mesh) if sharded else (None, None)
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
     if sharded and wk.shape[1] == cfg.num_kv_heads:
@@ -339,9 +423,12 @@ def attention_apply(
         idx = kv_heads_of_rank(cfg, plan, tp.model_rank(plan, mesh))
         wk = tp.copy_to_model(wk, plan, mesh)[:, idx]
         wv = tp.copy_to_model(wv, plan, mesh)[:, idx]
-    q, k, v = (y.reshape(b, s, -1, w.shape[-1]) for y, w in zip(
-        column_products(x.reshape(b * s, -1), [w.reshape(w.shape[0], -1) for w in (wq, wk, wv)],
-                        fixed, *tpp), (wq, wk, wv)))
+    ws = [w.reshape(w.shape[0], -1) for w in (wq, wk, wv)]
+    if sp:
+        ys = tp.column_parallel(xg.reshape(b * s, -1), ws, plan, mesh, reduce=False)
+    else:
+        ys = column_products(xg.reshape(b * s, -1), ws, fixed, *tpp)
+    q, k, v = (y.reshape(b, s, -1, w.shape[-1]) for y, w in zip(ys, (wq, wk, wv)))
     if mode == "decode":
         # Per-slot positions: t scalar (lockstep) or [B] (continuous
         # batching); s > 1 writes the chunked-prefill positions t..t+s-1.
@@ -371,8 +458,33 @@ def attention_apply(
             v.transpose(1, 2).contiguous(),
             causal=True, window=window, softcap=cfg.logit_softcap,
         ).transpose(1, 2)
-    return row_products(out.reshape(b * s, -1), params["wo"].reshape(-1, params["wo"].shape[-1]),
-                        fixed, *tpp).reshape(b, s, -1), cache
+    wo = params["wo"].reshape(-1, params["wo"].shape[-1])
+    if sp:
+        return _sp_row_out(out.reshape(b * s, -1), wo, b, s, plan, mesh), cache
+    return row_products(out.reshape(b * s, -1), wo, fixed, *tpp).reshape(b, s, -1), cache
+
+
+def whole_in_sp(fn, x: torch.Tensor, plan, mesh):
+    """``fn`` of the whole sequence for a rank's slice ``x [B, S / P, D]`` of a
+    sequence-parallel stream: the slices all-gathered (the backward keeps
+    the rank's slice of the gradient every rank computes alike), ``fn``
+    run as on a replicated stream, the rank's slice of its output kept (the
+    backward all-gathers the slices' gradients).  Returns what ``fn`` does
+    with its first value sliced."""
+    s = x.shape[1] * plan.model_size
+    got = fn(token_gather(x, plan, mesh, s))
+    if isinstance(got, tuple):
+        return (token_slice(got[0], plan, mesh), *got[1:])
+    return token_slice(got, plan, mesh)
+
+
+def _sp_row_out(h: torch.Tensor, w: torch.Tensor, b: int, s: int, plan, mesh) -> torch.Tensor:
+    """A sequence-parallel block's output product: the rank's rows of the
+    row-parallel ``h [B * S, K / P] @ w [K / P, N]`` as f32 leaves
+    (``tp.partial_mm``), summed over the model axis into the rank's ``[B,
+    S / P, N]`` sequence slice (``tp.seq_scatter``), cast once."""
+    part = tp.partial_mm(h, w, tp.leaves(plan.model_size)).reshape(b, s, -1)
+    return tp.seq_scatter(part, plan, mesh, h.dtype)
 
 
 def column_products(x: torch.Tensor, ws, fixed_rows: bool, plan=None, mesh=None) -> list:
@@ -466,8 +578,19 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def can_use_sp_mlp(cfg, plan, mesh, mode: str, seq_len: int) -> bool:
+    """The reference's condition for the sequence-parallel MLP
+    (``layers.py:609-618``): a model axis, not decode, and the whole
+    sequence and the MLP's width (the config's: the port's leaves are the
+    rank's shards) divide it; a rank's rows always divide its data axis."""
+    if mesh is None or plan is None or plan.model_axis is None or mode == "decode":
+        return False
+    p = max(plan.model_size, 1)
+    return seq_len % p == 0 and cfg.d_ff % p == 0
+
+
 def mlp_apply(params: dict, x: torch.Tensor, cfg, fixed_rows: bool = False, *, plan=None,
-              mesh=None) -> torch.Tensor:
+              mesh=None, sp: bool = False) -> torch.Tensor:
     """``x [B, S, D]`` through the dense MLP: gated (``act(x @ w_gate) * (x @
     w_in)``, silu for silu/swiglu, gelu for geglu) when ``w_gate`` is there,
     else ``gelu``/``silu`` of ``x @ w_in``; then ``@ w_out``.  The three
@@ -475,26 +598,39 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg, fixed_rows: bool = False, *, p
     XLA (:func:`ffn`).  ``fixed_rows``: on ``decode_rows`` blocks (decode
     mode), so a row's bits do not depend on how many rows share the step.
     With the rank's columns of ``w_in``, tensor-parallel over ``plan``'s
-    model axis."""
+    model axis; ``sp``: ``x`` is the rank's slice of a sequence-parallel
+    stream (:func:`ffn`)."""
     if "w_gate" in params:
         act = F.silu if cfg.act in ("silu", "swiglu") else _gelu
     else:
         act = _gelu if cfg.act == "gelu" else F.silu
     sharded = tp.enabled(plan, mesh) and params["w_in"].shape[-1] < cfg.d_ff
+    if sp and not (sharded and can_use_sp_mlp(cfg, plan, mesh, "train",
+                                              x.shape[1] * plan.model_size)):
+        return whole_in_sp(lambda xg: mlp_apply(params, xg, cfg, fixed_rows), x, plan, mesh)
     return ffn(params["w_in"], params.get("w_gate"), params["w_out"], x, act, fixed_rows,
-               *((plan, mesh) if sharded else (None, None)))
+               *((plan, mesh) if sharded else (None, None)), sp=sp)
 
 
-def ffn(w_in, w_gate, w_out, x: torch.Tensor, act, fixed_rows: bool, plan=None, mesh=None
-        ) -> torch.Tensor:
+def ffn(w_in, w_gate, w_out, x: torch.Tensor, act, fixed_rows: bool, plan=None, mesh=None,
+        sp: bool = False) -> torch.Tensor:
     """``x [B, S, D]`` through ``w_in`` / ``w_gate`` (``act(x @ w_gate) * (x
     @ w_in)``, or ``act(x @ w_in)`` without a gate; :func:`column_products`)
     and ``w_out`` (:func:`row_products`); with ``mesh``, the rank's columns
     and rows over ``plan``'s model axis.  ``fixed_rows``: on
-    ``decode_rows`` blocks."""
-    b, s, d = x.shape
+    ``decode_rows`` blocks.  ``sp`` (with ``mesh``): ``x`` is the rank's
+    ``[B, S / P, D]`` slice of a sequence-parallel stream, gathered before
+    the column products and returned as the rank's slice of the sum (the
+    reference's ``mlp_apply_sp``)."""
     gated = w_gate is not None
-    h, *g = column_products(x.reshape(b * s, d), [w_in, w_gate] if gated else [w_in],
-                            fixed_rows, plan, mesh)
+    ws = [w_in, w_gate] if gated else [w_in]
+    if sp:
+        xg = tp.seq_gather(x, plan, mesh)
+        b, s, d = xg.shape
+        h, *g = tp.column_parallel(xg.reshape(b * s, d), ws, plan, mesh, reduce=False)
+        h = act(g[0]) * h if gated else act(h)
+        return _sp_row_out(h, w_out, b, s, plan, mesh)
+    b, s, d = x.shape
+    h, *g = column_products(x.reshape(b * s, d), ws, fixed_rows, plan, mesh)
     h = act(g[0]) * h if gated else act(h)
     return row_products(h, w_out, fixed_rows, plan, mesh).reshape(b, s, d)

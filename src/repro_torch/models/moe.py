@@ -27,7 +27,15 @@ outputs over the model axis; in training the experts' input enters through
 ``copy_to_model`` (its gradient summed over the model axis) and the
 router reads the replicated input (its gradient is not summed: every rank
 routes the group's rows).  The shared expert is tensor-parallel over the
-model axis (``layers.ffn``) where its width divides it.
+model axis (``layers.ffn``) where its width divides it.  In a
+sequence-parallel stream (``sp``) the layer's input is already the rank's
+sequence slice: the mixnet region takes it as it is and leaves its output
+sharded, the einsum and dense-decode backends run on the gathered sequence
+(``layers.whole_in_sp``: their routers see the model group's rows) and keep
+the rank's slice.  Under ZeRO-3 the expert leaves arrive gathered over the
+data axis (``models.transformer.apply_layers``): each rank's are its model
+rank's ``E_virtual / P`` slots, whole, as the reference's GSPMD gathers
+them before its ``shard_map`` (``moe.py:522-553``).
 
 Speculative decoding's draft passes (``MoEConfig.draft_mode``, picked by
 :func:`resolve_draft_mode` and :func:`draft_config`): ``topk1`` narrows the
@@ -47,7 +55,7 @@ from repro_torch.core.commruntime import AllToAll, CommSpec, fuse_pack, fuse_unp
 from repro_torch.core.overlap import chunk_count, software_pipeline
 from repro_torch.kernels import ops
 from repro_torch.models import routing
-from repro_torch.models.layers import decode_rows, ffn, normal
+from repro_torch.models.layers import decode_rows, ffn, normal, whole_in_sp
 from repro_torch.models.routing import MoEStats, router_losses
 from repro_torch.parallel import sharding, tp
 from repro_torch.parallel.sharding import ShardingPlan, virtual_experts
@@ -700,11 +708,8 @@ class _ChunkGMM(torch.autograd.Function):
         return dx, None, None, None, None, None
 
 
-_LATER = "comes with a later item of ROADMAP.md §1 (ZeRO-3, the sequence-parallel paths)"
-
-
 def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm=None,
-                gate_weights=None, per_shard=False):
+                gate_weights=None, per_shard=False, sp=False):
     """``expert_perm``: THIS layer's ``[E_virtual]`` expert->slot map;
     ``wire_perm``: its optional ``[P]`` device map; ``gate_weights``: an
     optional ``[B, S]`` per-token telemetry weight.
@@ -718,7 +723,8 @@ def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm
     all-gathered over the data axis, as the reference's layer sees it, and
     keeps the rank's rows; with ``per_shard`` it runs on the rank's rows
     with per-shard aux losses, as the reference's pipeline stage body
-    (``pp_step.py:217-221``) does."""
+    (``pp_step.py:217-221``) does.  ``sp``: ``x`` is already the rank's
+    sequence slice (a sequence-parallel stream), and so is the output."""
     weights = (params["router"], params["w_in"], params["w_gate"], params["w_out"])
     if mesh is None or (plan.model_size <= 1 and plan.data_size <= 1):
         out, load, balance, z, drop = _moe_mixnet_local(
@@ -735,7 +741,7 @@ def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm
         )
         i = cr.axis_index(mesh, ax)
         return out[i * b:(i + 1) * b], MoEStats(load, balance, z, drop)
-    s = x.shape[1]
+    s = x.shape[1] * (plan.model_size if sp else 1)
     if plan.model_size <= 1:  # per_shard on a data-only mesh
         out, load, balance, z, drop = _moe_mixnet_local(
             weights, x, cfg, plan, expert_perm, tuple(plan.batch_axes), wire_perm=wire_perm,
@@ -745,7 +751,7 @@ def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm
     sharded = sharding.seq_sharded(plan, s)
     axis_names = tuple(plan.batch_axes) + (plan.model_axis,)
     token_axes = tuple(plan.batch_axes) + ((plan.model_axis,) if sharded else ())
-    xl = sharding.token_slice(x, plan, mesh)
+    xl = x if sp else sharding.token_slice(x, plan, mesh)
     gw = None
     if gate_weights is not None:
         gw = gate_weights
@@ -756,6 +762,8 @@ def _moe_mixnet(params, x, cfg, plan: ShardingPlan, mesh, expert_perm, wire_perm
         weights, xl, cfg, plan, expert_perm, axis_names, wire_perm=wire_perm,
         token_axes=token_axes, gate_weights=gw, mesh=mesh,
     )
+    if sp:
+        return out, MoEStats(load, balance, z, drop)
     return sharding.token_gather(out, plan, mesh, s), MoEStats(load, balance, z, drop)
 
 
@@ -772,13 +780,16 @@ def moe_apply(
     mode: str | None = None,
     gate_weights: torch.Tensor | None = None,
     per_shard: bool = False,
+    sp: bool = False,
 ):
     """``expert_perm``: this layer's ``[Ev]`` expert->slot map;
     ``wire_perm``: optional ``[P]`` device map, composed into the slot
     addressing (the dense backends hit the physically resident weights);
     ``gate_weights``: optional ``[B, S]`` telemetry weight per token;
     ``per_shard``: over a data-only mesh, the rank's rows alone (a
-    pipeline stage's layer, :func:`_moe_mixnet`)."""
+    pipeline stage's layer, :func:`_moe_mixnet`); ``sp``: ``x`` is the
+    rank's ``[B, S / P, D]`` slice of a sequence-parallel stream, and the
+    output is too (see the module docstring)."""
     e = cfg.moe
     if e.draft_mode == "topk1" and e.top_k > 1:
         # Speculative draft: narrow the routed fan-out to the gate's single
@@ -788,7 +799,8 @@ def moe_apply(
         )
         cfg = dataclasses.replace(cfg, moe=e)
     backend = backend or e.backend
-    if backend != "einsum" and (x.shape[1] == 1 or mode == "decode"):
+    seq_len = x.shape[1] * (plan.model_size if sp else 1)
+    if backend != "einsum" and (seq_len == 1 or mode == "decode"):
         # Decode: the weight-stationary dense path, unless the config pins
         # the mixnet backend's sparse dispatch at decode.
         if not (backend == "mixnet" and e.decode_backend == "sparse"):
@@ -809,26 +821,33 @@ def moe_apply(
         stats = MoEStats(
             torch.zeros((e.num_experts,), dtype=torch.float32, device=x.device), zero, zero, zero
         )
-    elif backend == "dense_decode":
-        out, stats = _moe_dense_decode(
-            params, x, cfg, plan, expert_perm=perm, gate_weights=gate_weights, mesh=mesh,
-        )
     elif backend == "mixnet":
         out, stats = _moe_mixnet(
             params, x, cfg, plan, mesh, perm, wire_perm=wire_perm, gate_weights=gate_weights,
-            per_shard=per_shard,
+            per_shard=per_shard, sp=sp,
         )
-    elif backend == "einsum":
-        out, stats = _moe_einsum(params, x, cfg, plan, expert_perm=perm,
-                                 fixed_rows=mode == "decode", mesh=mesh)
+    elif backend in ("dense_decode", "einsum"):
+        def dense(xg):
+            if backend == "dense_decode":
+                return _moe_dense_decode(params, xg, cfg, plan, expert_perm=perm,
+                                         gate_weights=gate_weights, mesh=mesh)
+            return _moe_einsum(params, xg, cfg, plan, expert_perm=perm,
+                               fixed_rows=mode == "decode", mesh=mesh)
+
+        out, stats = whole_in_sp(dense, x, plan, mesh) if sp else dense(x)
     else:
         raise ValueError(f"unknown MoE backend {backend!r}")
     if "shared" in params:
         sh = params["shared"]
         sharded = tp.enabled(plan, mesh) and sh["w_in"].shape[-1] < e.d_ff * e.num_shared_experts
-        out = out + ffn(sh["w_in"], sh["w_gate"], sh["w_out"], x, F.silu,
-                        mode == "decode" or backend == "dense_decode",
-                        *((plan, mesh) if sharded else (None, None)))
+        fixed = mode == "decode" or backend == "dense_decode"
+        if sp and not sharded:
+            y = whole_in_sp(lambda xg: ffn(sh["w_in"], sh["w_gate"], sh["w_out"], xg, F.silu,
+                                           fixed), x, plan, mesh)
+        else:
+            y = ffn(sh["w_in"], sh["w_gate"], sh["w_out"], x, F.silu, fixed,
+                    *((plan, mesh) if sharded else (None, None)), sp=sp)
+        out = out + y
     return out, stats
 
 

@@ -20,6 +20,23 @@ keeps the products without batch dims (:func:`_dots_policy`) and recomputes
 the rest, the hand-written kernels included.  The recompute runs the same
 deterministic kernels on the same inputs, so values and gradients do not
 change; only memory and time do.
+
+ZeRO-3 (a plan with ``fsdp_axis``): each layer group gathers its block
+leaves' data shards over the data axis before use
+(:func:`repro_torch.parallel.fsdp.gather_block`), in the forward and again
+in a remat recompute, and the embedding and LM head once a step; the
+gathers' backward reduce-scatters the gradients to the shards.  With
+``cfg.fsdp_prefetch`` the next group's FFN leaves are ring-gathered on the
+comm worker thread while this group computes (the reference's
+double-buffered prefetch, ``transformer.py:455-500``).
+
+Sequence parallelism (``cfg.sp_shardmap`` over a model axis that divides
+the sequence, in ``train`` and ``prefill`` mode, :func:`seq_parallel`):
+the residual stream lives sequence-sharded, each rank holding its ``[B, S
+/ P, D]`` slice from the embedding to the final norm (the reference's
+activation spec, ``transformer.py:427-447``); the blocks gather and
+scatter the sequence around their products (``models.layers``), the mixnet
+MoE region takes the rank's slice as it is.  Decode is unchanged.
 """
 
 from __future__ import annotations
@@ -35,14 +52,20 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.parallel import tp
-from repro_torch.parallel.sharding import ShardingPlan, TreeLayout, virtual_experts
+from repro_torch.parallel import fsdp, tp
+from repro_torch.parallel.sharding import (
+    ShardingPlan,
+    TreeLayout,
+    token_gather,
+    token_slice,
+    virtual_experts,
+)
 
 __all__ = [
     "init_model", "model_apply", "embed", "apply_layers", "LayerOutputs",
     "final_norm", "logits_from_features", "local_logits", "gather_logits", "init_caches",
     "init_paged_caches", "paged_supported", "pad_caches", "ForwardAux",
-    "chunked_cross_entropy",
+    "chunked_cross_entropy", "seq_parallel",
 ]
 
 
@@ -52,10 +75,6 @@ def _is_ssm(cfg) -> bool:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.sp_shardmap:
-        raise NotImplementedError(
-            f"{cfg.name}: sp_shardmap=True (the sequence-parallel MLP and output projection) "
-            f"{moe_mod._LATER}")
     if cfg.vision_patches or cfg.encoder_layers:
         raise NotImplementedError(f"{cfg.name}: encoder and vision inputs come with later slices")
     if _is_ssm(cfg):
@@ -67,14 +86,23 @@ def _check_supported(cfg) -> None:
         )
 
 
+def seq_parallel(cfg, plan, mesh, mode: str, seq_len: int) -> bool:
+    """True when the residual stream runs sequence-sharded over the model
+    axis: ``cfg.sp_shardmap``, tensor parallelism on, ``train`` or
+    ``prefill`` mode and a sequence the axis divides (the reference's
+    ``seq_shardable``; its batch condition holds for every rank's rows)."""
+    return (bool(cfg.sp_shardmap) and tp.enabled(plan, mesh) and mode in ("train", "prefill")
+            and seq_len % plan.model_size == 0)
+
+
 def init_model(seed: int, cfg, plan: ShardingPlan, *, device=None, mesh=None) -> dict:
     """Seeded parameters drawn directly on ``device`` (the card unless the
     caller asks for the CPU) in ``cfg.dtype``.  Over a ``mesh`` every rank
     draws the same values, leaf by leaf, and keeps its part of each
     (:class:`~repro_torch.parallel.sharding.TreeLayout`: its model-axis
-    shard of the expert and tensor-parallel leaves, its stage's repeats and
-    ends over a ``"stage"`` axis), so the ranks together hold the one-device
-    draw."""
+    shard of the expert and tensor-parallel leaves, under ZeRO-3 its data
+    shard of them, its stage's repeats and ends over a ``"stage"`` axis),
+    so the ranks together hold the one-device draw."""
     cfg.validate()
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -251,6 +279,7 @@ def _remat(fn, remat: str):
 def _apply_block(
     kind, p, x, cfg, plan, mode, cache, t, expert_perm, positions,
     wire_perm=None, gate_weights=None, page_table=None, writes=None, mesh=None, per_shard=False,
+    sp=False,
 ):
     if kind == "ssm":
         # norm1 + SSD only (no norm2, no MLP), as the reference.  Every slot
@@ -264,20 +293,21 @@ def _apply_block(
     write_mask = None
     if mode == "decode" and gate_weights is not None:
         write_mask = gate_weights[:, 0] > 0
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    tree = None if mode == "decode" else L.norm_tree(x, plan, mesh, sp)
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps, tree)
     y, ac = L.attention_apply(
         p["attn"], h, cfg, kind=kind, mode=mode, cache=cache, t=t,
         positions=positions, plan=plan, mesh=mesh, write_mask=write_mask,
-        page_table=page_table, writes=writes,
+        page_table=page_table, writes=writes, sp=sp,
     )
     x = x + y
-    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps, tree)
     if "mlp" in p:
         return x + L.mlp_apply(p["mlp"], h2, cfg, fixed_rows=mode == "decode", plan=plan,
-                               mesh=mesh), ac, None
+                               mesh=mesh, sp=sp), ac, None
     y, stats = moe_mod.moe_apply(
         p["moe"], h2, cfg, plan, mesh=mesh, expert_perm=expert_perm, wire_perm=wire_perm,
-        mode=mode, gate_weights=gate_weights, per_shard=per_shard,
+        mode=mode, gate_weights=gate_weights, per_shard=per_shard, sp=sp,
     )
     return x + y, ac, stats
 
@@ -308,13 +338,20 @@ def model_apply(
     ``mesh``: the ``DeviceMesh`` of ``plan``; ``batch`` is then this rank's
     data slice, the dense layers run it tensor-parallel over the model axis
     (or whole, where their sizes do not divide it), and the MoE layers
-    shard it over the model axis.  Returns ``(features [B, S, D], aux,
-    caches)``: the features replicated over the model axis.
+    shard it over the model axis; under ZeRO-3 each block's data shards
+    are gathered before use.  Returns ``(features [B, S, D], aux, caches)``:
+    the features replicated over the model axis, or in ``train`` mode of a
+    sequence-parallel stream (:func:`seq_parallel`) the rank's ``[B, S /
+    P, D]`` slice (:func:`chunked_cross_entropy` takes either).
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
+    params = fsdp.gather_ends(params, cfg, plan, mesh)
+    sp = seq_parallel(cfg, plan, mesh, mode, s)
     x = embed(params, tokens, cfg, plan, mesh)
+    if sp:
+        x = token_slice(x, plan, mesh)
     reps = cfg.pattern_repeats
     names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
     if expert_perm is None and cfg.is_moe:
@@ -336,7 +373,7 @@ def model_apply(
     x, out = apply_layers(
         params["blocks"], x, cfg, plan, mesh=mesh, mode=mode, caches=caches, t=t,
         expert_perm=expert_perm, wire_perm=wire_perm, positions=batch.get("positions"),
-        gate_weights=gate_weights, page_table=page_table, writes=writes,
+        gate_weights=gate_weights, page_table=page_table, writes=writes, sp=sp,
     )
     new_caches = caches
     if mode == "prefill":
@@ -344,7 +381,9 @@ def model_apply(
             n: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
             for n, cs in out.caches.items()
         }
-    x = final_norm(params, x, cfg)
+    x = final_norm(params, x, cfg, None if mode == "decode" else L.norm_tree(x, plan, mesh, sp))
+    if sp and mode != "train":
+        x = token_gather(x, plan, mesh, s)
     moe = out.loads[0] is not None
     aux = ForwardAux(
         moe_stats=torch.stack(out.loads) if moe else None,
@@ -363,8 +402,9 @@ def embed(params, tokens: torch.Tensor, cfg, plan=None, mesh=None) -> torch.Tens
     """``[B, S]`` tokens -> the scaled ``[B, S, D]`` embeddings in
     ``cfg.dtype`` (the first half of :func:`model_apply`, on its own for a
     pipeline's first stage); with the rank's vocab rows, the vocab-parallel
-    lookup (``tp.vocab_embed``)."""
-    table = params["embed"]
+    lookup (``tp.vocab_embed``); a ZeRO-3 shard of the table is gathered
+    first."""
+    table = fsdp.gather_ends(params, cfg, plan, mesh)["embed"]
     if _vocab_sharded(table, 0, cfg, plan, mesh):
         x = tp.vocab_embed(table, tokens, plan, mesh).to(getattr(torch, cfg.dtype))
     else:
@@ -372,11 +412,12 @@ def embed(params, tokens: torch.Tensor, cfg, plan=None, mesh=None) -> torch.Tens
     return x * (cfg.d_model**0.5)
 
 
-def final_norm(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def final_norm(params, x: torch.Tensor, cfg, tree=None) -> torch.Tensor:
     """The final norm of the block stack's output: the features the LM head
     reads (:func:`logits_from_features`, :func:`chunked_cross_entropy`),
-    on its own for a pipeline's last stage."""
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    on its own for a pipeline's last stage; ``tree``: ``layers.norm_tree``'s
+    (train and prefill mode)."""
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps, tree)
 
 
 @dataclasses.dataclass
@@ -393,7 +434,7 @@ class LayerOutputs:
 def apply_layers(
     blocks: dict, x, cfg, plan: ShardingPlan, *, mesh=None, mode: str = "train", caches=None,
     t=None, expert_perm=None, wire_perm=None, positions=None, gate_weights=None,
-    page_table=None, writes=None, per_shard: bool = False,
+    page_table=None, writes=None, per_shard: bool = False, sp: bool = False,
 ):
     """The block loop of :func:`model_apply` over the repeats that
     ``blocks`` holds (its leaves' leading dim): the whole stack, or a
@@ -401,6 +442,11 @@ def apply_layers(
     ``wire_perm`` (and ``caches``) hold the same repeats' rows.
     ``per_shard``: the MoE layers run on this rank's rows even over a
     data-only mesh (see ``moe.moe_apply``), as a pipeline stage does.
+    ``sp``: ``x`` is the rank's slice of a sequence-parallel stream
+    (:func:`seq_parallel`).  Under ZeRO-3 each repeat's data shards are
+    gathered inside its group (again in a remat recompute); with
+    ``cfg.fsdp_prefetch`` in ``train`` mode repeat ``li + 1``'s FFN shards
+    are issued to the comm worker before repeat ``li`` runs.
     Returns ``(x, LayerOutputs)``."""
     _check_supported(cfg)
     names = [f"{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
@@ -408,20 +454,29 @@ def apply_layers(
     block_params = {n: _layers(blocks[n], reps) for n in names}
     out = LayerOutputs([], [], [], [], {n: [] for n in names})
     dev = x.device
+    zero3 = fsdp.active(plan, mesh)
+    prefetch = zero3 and cfg.fsdp_prefetch and mode == "train"
+    # repeat -> {leaf path: prefetch handle}; a group's first run takes its
+    # handles, a remat recompute finds none and gathers on demand.
+    pending: dict = {}
 
     def group(x, li):
         """One repeat of the block pattern.  Returns its output and stats
         (and its prefill caches): under remat the backward runs it again, so
         it touches nothing outside."""
         stats_list, ncs = [], []
+        handles = pending.pop(li, {})
         for i, kind in enumerate(cfg.block_pattern):
             cache_i = _layer(caches[names[i]], li) if caches is not None else None
+            bp = block_params[names[i]][li]
+            if zero3:
+                bp = fsdp.gather_block(bp, f"blocks/{names[i]}", cfg, plan, mesh, handles)
             x, nc, st = _apply_block(
-                kind, block_params[names[i]][li], x, cfg, plan, mode,
+                kind, bp, x, cfg, plan, mode,
                 cache_i, t, None if expert_perm is None else expert_perm[li], positions,
                 wire_perm=None if wire_perm is None else wire_perm[li],
                 gate_weights=gate_weights, page_table=page_table, writes=writes, mesh=mesh,
-                per_shard=per_shard,
+                per_shard=per_shard, sp=sp,
             )
             ncs.append(nc)
             if st is not None:
@@ -437,6 +492,10 @@ def apply_layers(
     if mode == "train" and torch.is_grad_enabled():
         run = _remat(lambda x, li: group(x, li)[:5], cfg.remat)
     for li in range(reps):
+        if prefetch:
+            for lj in ((0, 1) if li == 0 else (li + 1,)):
+                if lj < reps:
+                    pending[lj] = fsdp.prefetch_ffn(blocks, lj, cfg, plan, mesh)
         x, b_, z_, load, drop, *rest = run(x, li)
         if mode == "prefill":
             for n, nc in zip(names, rest[0]):
@@ -453,13 +512,14 @@ def _head(params, cfg):
     return (params["embed"], 0) if cfg.tie_embeddings else (params["lm_head"], 1)
 
 
-def _logits(params, x, cfg, plan=None, mesh=None):
+def _logits(params, x, cfg, plan=None, mesh=None, reduce: bool = True):
     """``x`` through the head the rank holds as a column product
     (``tp.column_parallel``: the whole vocab, or with ``plan`` and ``mesh``
-    the rank's vocab slice), gemma2's final softcap applied."""
+    the rank's vocab slice; ``reduce=False``: ``x`` is ``tp.seq_gather``'s),
+    gemma2's final softcap applied."""
     w, dim = _head(params, cfg)
     out = tp.column_parallel(x.reshape(-1, x.shape[-1]), [w.t() if dim == 0 else w],
-                             plan, mesh)[0].reshape(*x.shape[:-1], -1)
+                             plan, mesh, reduce=reduce)[0].reshape(*x.shape[:-1], -1)
     if cfg.final_softcap is not None:
         out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
     return out
@@ -473,6 +533,7 @@ def _head_sharded(params, cfg, plan, mesh) -> bool:
 def local_logits(params, x, cfg, plan=None, mesh=None):
     """The rank's ``[B, S, V / P]`` vocab slice of the logits under tensor
     parallelism (``tp.column_parallel``), else ``[B, S, V]``."""
+    params = fsdp.gather_ends(params, cfg, plan, mesh)
     if _head_sharded(params, cfg, plan, mesh):
         return _logits(params, x, cfg, plan, mesh)
     return _logits(params, x, cfg)
@@ -499,17 +560,29 @@ def chunked_cross_entropy(params, features, labels, cfg, *, num_chunks: int = 8,
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
     Each token's loss is ``tp.vocab_cross_entropy`` (with the rank's vocab
     slice of the head, the vocab-parallel loss; one device and the ranks
-    sum the same terms in the same order)."""
+    sum the same terms in the same order).  ``features`` narrower than
+    ``labels`` along the sequence are a sequence-parallel rank's slice: the
+    sequence is gathered first (``tp.seq_gather`` for a vocab-parallel
+    head, whose input gradient is then summed over the model axis as the
+    replicated stream's is; a copy for a whole head, which every rank runs
+    alike)."""
+    params = fsdp.gather_ends(params, cfg, plan, mesh)
+    sharded = _head_sharded(params, cfg, plan, mesh)
+    tpp = (plan, mesh) if sharded else (None, None)
+    reduce = True
+    if features.shape[1] != labels.shape[1]:
+        if sharded:
+            features, reduce = tp.seq_gather(features, plan, mesh), False
+        else:
+            features = token_gather(features, plan, mesh, labels.shape[1])
     b, s, d = features.shape
     while s % num_chunks:
         num_chunks -= 1
     step = s // num_chunks
-    sharded = _head_sharded(params, cfg, plan, mesh)
-
-    tpp = (plan, mesh) if sharded else (None, None)
 
     def chunk(f, lab):
-        return torch.sum(tp.vocab_cross_entropy(_logits(params, f, cfg, *tpp).float(), lab, *tpp))
+        logits = _logits(params, f, cfg, *tpp, reduce=reduce).float()
+        return torch.sum(tp.vocab_cross_entropy(logits, lab, *tpp))
 
     total = torch.zeros((), dtype=torch.float32, device=features.device)
     for c in range(num_chunks):

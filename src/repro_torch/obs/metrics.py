@@ -39,6 +39,11 @@ def _series_key(name: str, labels: dict) -> str:
     return f"{name}{{{inner}}}"
 
 
+# Counters are bumped from the comm worker thread too (the FSDP prefetch's
+# transfers, ``core.commruntime.run_async``): ``+=`` is a read-modify-write.
+_INC_LOCK = threading.Lock()
+
+
 class Counter:
     """Monotonically increasing value (events, bytes, tokens)."""
 
@@ -50,7 +55,8 @@ class Counter:
         self.value = 0.0
 
     def inc(self, v: float = 1.0) -> None:
-        self.value += v
+        with _INC_LOCK:
+            self.value += v
 
     def to_json(self) -> dict:
         return {"labels": self.labels, "value": self.value}

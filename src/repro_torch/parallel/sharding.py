@@ -3,11 +3,11 @@
 Port of :mod:`repro.parallel.sharding`.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with named dims; the plan says
 which axes shard the batch (DP), which is the regional model axis (EP for
-the MoE layers) and whether parameters shard over the data axis (ZeRO-3,
-which the trainer refuses until a later slice: build the plan with
-``make_plan(mesh, fsdp=False)``).  A pipeline's ``"stage"`` axis (and any
-other name) is invisible to the plan, as in the reference: inside a stage
-the batch and model axes mean what they mean without one.
+the MoE layers) and whether parameters shard over the data axis (ZeRO-3:
+``make_plan(mesh)``, the reference's default; ``make_plan(mesh,
+fsdp=False)`` keeps every leaf whole over it).  A pipeline's ``"stage"``
+axis (and any other name) is invisible to the plan, as in the reference:
+inside a stage the batch and model axes mean what they mean without one.
 :func:`stage_layers` gives a rank's stage and the repeats it holds.
 
 Where each parameter and optimizer leaf lives is ONE rule
@@ -24,8 +24,17 @@ heads of ``wq``/``wo`` (of ``wk``/``wv`` when the kv heads divide too), the
 MLP's and the shared expert's ``w_in``/``w_gate`` columns and ``w_out``
 rows, the embedding's and the LM head's vocab; the serving engine's paged
 KV pools keep the rank's kv heads.  Every other leaf (the norms, the
-router, the SSM leaves) is replicated.  ``models.transformer.init_model``,
-``interop.shard_params`` and ``train.checkpoint`` all go through it.
+router, the SSM leaves) is replicated over the model axis.  Under ZeRO-3
+(``plan.fsdp_axis``) the data axis also shards each leaf the reference's
+init specs give an FSDP dim (``layers.py:107-110``, ``:546-551``,
+``moe.py:112-128``, ``transformer.py:87``, ``:117``, ``ssm.py:47-57``):
+the ``d_model`` dim of the attention, MLP, expert, shared-expert and
+Mamba-2 projections, of the embedding and of the LM head, where the data
+axis divides ``d_model`` (else the leaf stays whole over it); this
+composes with the expert and tensor-parallel dims (:meth:`TreeLayout.fsdp_dim`).
+``models.transformer.init_model``, ``interop.shard_params`` and
+``train.checkpoint`` all go through it, for the parameters and the AdamW
+moments alike.
 
 Layouts are explicit in the port, so :func:`constrain` is the identity.  In
 place of ``shard_map``'s token spec for the MoE region (``moe.py:503-520``
@@ -49,7 +58,7 @@ from repro_torch.core import commruntime as cr
 __all__ = [
     "ShardingPlan", "make_plan", "virtual_experts", "constrain", "seq_sharded", "token_slice",
     "token_gather", "mesh_coord", "stage_layers", "TreeLayout", "EXPERT_LEAVES",
-    "local_kv_heads",
+    "local_kv_heads", "fsdp_leaf_dim",
 ]
 
 # The stacked expert leaves under ``blocks/*/moe`` (sharded over the model
@@ -68,6 +77,19 @@ _TP_BLOCK_LEAVES = {
     ("mlp", "w_in"): (2, "d_ff"), ("mlp", "w_gate"): (2, "d_ff"), ("mlp", "w_out"): (1, "d_ff"),
     ("shared", "w_in"): (2, "shared_ff"), ("shared", "w_gate"): (2, "shared_ff"),
     ("shared", "w_out"): (1, "shared_ff"),
+}
+
+# The leaves ZeRO-3 shards over the data axis: a leaf's last two path words
+# (one word for an end leaf) -> the dim of its ``d_model`` in the stored
+# array (block leaves stacked ``[repeats, ...]``), the reference's FSDP dim.
+_FSDP_LEAVES = {
+    ("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1, ("attn", "wo"): 3,
+    ("mlp", "w_in"): 1, ("mlp", "w_gate"): 1, ("mlp", "w_out"): 2,
+    ("shared", "w_in"): 1, ("shared", "w_gate"): 1, ("shared", "w_out"): 2,
+    ("moe", "w_in"): 2, ("moe", "w_gate"): 2, ("moe", "w_out"): 3,
+    ("ssm", "w_z"): 1, ("ssm", "w_x"): 1, ("ssm", "w_B"): 1, ("ssm", "w_C"): 1,
+    ("ssm", "w_dt"): 1, ("ssm", "w_out"): 2,
+    ("embed",): 1, ("lm_head",): 0,
 }
 
 
@@ -151,6 +173,18 @@ def stage_layers(mesh, reps: int, axis: str = "stage", rank: int | None = None
     return s, n, s * per, (s + 1) * per
 
 
+def fsdp_leaf_dim(path: str) -> int | None:
+    """The dim of the stored leaf at ``path`` that ZeRO-3 may shard (its
+    ``d_model``), or None for a leaf it never shards; on a block leaf's
+    one-repeat slice it is one less."""
+    parts = _model_path(path)
+    if parts in (["embed"], ["lm_head"]):
+        return _FSDP_LEAVES[tuple(parts)]
+    if parts[:1] == ["blocks"] and len(parts) >= 3:
+        return _FSDP_LEAVES.get(tuple(parts[-2:]))
+    return None
+
+
 def _model_path(path: str) -> list[str]:
     """A leaf path's words from the model tree's root: ``opt/mu/blocks/x``
     -> ``["blocks", "x"]``."""
@@ -226,6 +260,28 @@ class TreeLayout:
                 "pool holds repeated heads); such a pool is not checkpointed")
         return None
 
+    def _data_sharded(self) -> bool:
+        return (self.plan.fsdp_axis is not None and self.mesh is not None
+                and self.plan.data_size > 1 and self.cfg.d_model % self.plan.data_size == 0)
+
+    def fsdp_dim(self, path: str) -> int | None:
+        """The dim of the stored leaf at ``path`` that the data axis shards
+        under this plan (ZeRO-3), or None (the leaf is whole over it)."""
+        return fsdp_leaf_dim(path) if self._data_sharded() else None
+
+    def data_blocks(self, path: str) -> tuple[int, int] | None:
+        """``(dim, n)``: the ``n`` blocks along ``dim`` in which a rank's
+        gradient of the leaf at ``path`` holds the data axis's ZeRO-3
+        shards: the plan's data size where the leaf is whole over a data
+        axis that could shard it (a replicated plan sums a leaf's squares
+        over the same blocks as ZeRO-3's ranks do), 1 where the rank holds
+        its shard; None where no data axis could shard it."""
+        dim = fsdp_leaf_dim(path)
+        n = self.plan.data_size
+        if dim is None or self.mesh is None or n <= 1 or self.cfg.d_model % n:
+            return None
+        return dim, 1 if self._data_sharded() else n
+
     def slices(self, path: str, shape, rank: int | None = None) -> tuple | None:
         """The index (a tuple of slices) of the part of the global leaf of
         ``shape`` that ``rank`` holds, or None when it holds none of it."""
@@ -253,6 +309,11 @@ class TreeLayout:
             m = mesh_coord(self.mesh, self.plan.model_axis, rank)
             k = shape[dim] // self.plan.model_size
             idx[dim] = slice(m * k, (m + 1) * k)
+        dim = self.fsdp_dim(path)
+        if dim is not None:
+            i = mesh_coord(self.mesh, self.plan.fsdp_axis, rank)
+            k = shape[dim] // self.plan.data_size
+            idx[dim] = slice(i * k, (i + 1) * k)
         return tuple(idx)
 
     def global_shape(self, path: str, local_shape) -> tuple:
@@ -266,6 +327,9 @@ class TreeLayout:
         leaf = self._tp_leaf(parts)
         if leaf is not None and leaf[1] % self.plan.model_size == 0:
             shape[leaf[0]] = leaf[1]
+        dim = self.fsdp_dim(path)
+        if dim is not None:
+            shape[dim] = self.cfg.d_model
         return tuple(shape)
 
     def part(self, a, path: str, rank: int | None = None):
@@ -298,8 +362,9 @@ class TreeLayout:
         return out
 
     def replicated(self, path: str) -> bool:
-        """True when every rank of a model group holds the whole leaf at
-        ``path`` (its global size read from the config); False for the
+        """True when every rank of a model group holds the same part of the
+        leaf at ``path`` (its global size read from the config): the whole
+        leaf, or under ZeRO-3 the group's data shard of it; False for the
         expert and the tensor-parallel leaves the model axis shards."""
         parts = _model_path(path)
         if self._experts_sharded(parts):

@@ -20,6 +20,18 @@ collective goes through :mod:`repro_torch.core.commruntime`, so its bytes
 are counted under the model axis's link class, and a failed collective
 raises.
 
+Sequence parallelism (``cfg.sp_shardmap``, the reference's
+``mlp_apply_sp`` / ``oproj_sp``, ``layers.py:565-641``): the residual
+stream lives sequence-sharded over the model axis, each rank holding its
+``[B, S / P, D]`` slice.  A block's input is :func:`seq_gather`-ed into the
+whole sequence before its column products (the backward sums the ranks'
+f32 input-gradient partials of the rank's slice as the same tree and casts
+once), and its row-parallel f32 partial is :func:`seq_scatter`-ed: one
+all-to-all of the f32 sequence shares, the tree over rank order on the
+rank's share, cast once.  Every element is summed exactly as
+:func:`across` sums it, so the stream's slices are the replicated
+stream's bits, and no all-gather of the casts follows.
+
 The vocab-parallel pieces: :func:`vocab_embed` (a masked local lookup plus
 an all-reduce, exact: one rank contributes each row), :func:`vocab_cross_entropy`
 (the max, the sum of exponentials and the target's logit all-reduced; the
@@ -38,7 +50,7 @@ from repro_torch.core import commruntime as cr
 __all__ = [
     "enabled", "model_group", "model_rank", "copy_to_model", "reduce_from_model",
     "column_parallel", "partial_mm", "across", "TREE_LEAVES", "leaves", "vocab_embed",
-    "vocab_cross_entropy", "gather_vocab",
+    "vocab_cross_entropy", "gather_vocab", "seq_gather", "seq_scatter",
 ]
 
 
@@ -114,11 +126,7 @@ def leaves(p: int) -> int:
     return TREE_LEAVES // p if TREE_LEAVES % p == 0 else 1
 
 
-def _tree(parts: list) -> torch.Tensor:
-    while len(parts) > 1:
-        parts = [parts[i] + parts[i + 1] if i + 1 < len(parts) else parts[i]
-                 for i in range(0, len(parts), 2)]
-    return parts[0]
+_tree = cr.tree_sum
 
 
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -173,13 +181,16 @@ def _leaf_sums(gs, ws, n: int) -> torch.Tensor:
 
 class _ColumnParallel(torch.autograd.Function):
     """``x [M, K]`` through column blocks ``w_i [K, N_i]``: ``y_i = x @
-    w_i``.  The backward sums the input gradients ``g_i @ w_i^T`` as one
-    tree over the columns (:func:`_leaf_sums` of the rank's ``n`` leaves,
-    then the ranks') and casts once; ``dw_i = x^T g_i`` as autograd's."""
+    w_i``, ``x`` taken in the blocks' dtype.  The backward sums the input
+    gradients ``g_i @ w_i^T`` as one tree over the columns
+    (:func:`_leaf_sums` of the rank's ``n`` leaves, then the ranks') and
+    casts once to ``x``'s dtype (an f32 ``x``, :func:`seq_gather`'s, gets
+    the f32 partial); ``dw_i = x^T g_i`` as autograd's."""
 
     @staticmethod
     def forward(ctx, x, group, n, *ws):
-        ctx.group, ctx.n = group, n
+        ctx.group, ctx.n, ctx.dtype = group, n, x.dtype
+        x = x.to(ws[0].dtype)
         ctx.save_for_backward(x, *ws)
         return tuple(x @ w for w in ws)
 
@@ -188,19 +199,23 @@ class _ColumnParallel(torch.autograd.Function):
         x, *ws = ctx.saved_tensors
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = _across(_leaf_sums(gs, ws, ctx.n), ctx.group, x.dtype)
+            dx = _across(_leaf_sums(gs, ws, ctx.n), ctx.group, ctx.dtype)
         dws = [x.t() @ g if need else None for g, need in zip(gs, ctx.needs_input_grad[3:])]
         return (dx, None, None, *dws)
 
 
-def column_parallel(x: torch.Tensor, ws, plan=None, mesh=None) -> tuple:
+def column_parallel(x: torch.Tensor, ws, plan=None, mesh=None, *, reduce: bool = True
+                    ) -> tuple:
     """``x [M, K]`` through each of the column blocks ``ws`` (a block's
     input products), the input gradient summed as one f32 tree over their
     columns and cast once; with ``plan`` and ``mesh``, ``ws`` are the
-    rank's shards and the tree runs over the model axis too."""
+    rank's shards and the tree runs over the model axis too, unless not
+    ``reduce``: then the rank's f32 partial of the input gradient returns
+    (``x`` is :func:`seq_gather`'s, whose backward sums the partials)."""
     if mesh is None:
         return _ColumnParallel.apply(x, None, TREE_LEAVES, *ws)
-    return _ColumnParallel.apply(x, model_group(plan, mesh), leaves(plan.model_size), *ws)
+    return _ColumnParallel.apply(x, model_group(plan, mesh) if reduce else None,
+                                 leaves(plan.model_size), *ws)
 
 
 class _PartialMM(torch.autograd.Function):
@@ -245,6 +260,71 @@ def across(partial: torch.Tensor, plan, mesh, dtype) -> torch.Tensor:
     rest of the tree and cast to ``dtype`` once, the same bits on every
     rank (identity backward)."""
     return _Across.apply(partial, model_group(plan, mesh), dtype)
+
+
+def _seq_scatter_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``[B, S, ...]`` f32 partials -> this rank's ``[B, S / P, ...]`` of
+    their sum over ``group``: one all-to-all of the sequence shares, then
+    :func:`_tree` over rank order (f32)."""
+    p = dist.get_world_size(group)
+    xs = x.transpose(0, 1).contiguous()  # [S, B, ...]: the shares are rows
+    got = cr._a2a_raw(xs, group).wait().reshape(p, xs.shape[0] // p, *xs.shape[1:])
+    return _tree(list(got.unbind(0))).transpose(0, 1)
+
+
+def _seq_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``[B, S / P, ...]`` slices -> ``[B, S, ...]`` in rank order."""
+    full = cr.all_gather_raw(x.transpose(0, 1).contiguous(), group)
+    return full.transpose(0, 1).contiguous()
+
+
+class _SeqGather(torch.autograd.Function):
+    """The ranks' sequence slices all-gathered, upcast to f32 (exactly);
+    the backward sums the ranks' f32 partials of this rank's slice
+    (:func:`_seq_scatter_sum`) and casts once to the slice's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.dtype = group, x.dtype
+        return _seq_all_gather(x, group).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_scatter_sum(g.float(), ctx.group).to(ctx.dtype), None
+
+
+def seq_gather(x: torch.Tensor, plan, mesh) -> torch.Tensor:
+    """A sequence-parallel block's input: the rank's ``[B, S / P, D]``
+    slice -> the whole ``[B, S, D]``, in f32 (the values of ``x``'s dtype),
+    for :func:`column_parallel` ``(..., reduce=False)``: the input
+    gradient's f32 partials come back here and are summed over the model
+    axis as the tree :func:`across` takes, for the rank's slice only, and
+    cast once."""
+    return _SeqGather.apply(x, model_group(plan, mesh))
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The ranks' f32 ``[B, S, D]`` partials summed (:func:`_seq_scatter_sum`)
+    into the rank's slice, cast to ``dtype``; the backward all-gathers the
+    slices' gradients, as f32 (what :class:`_Across`'s backward gives)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.group = group
+        return _seq_scatter_sum(x, group).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_all_gather(g, ctx.group).float(), None, None
+
+
+def seq_scatter(partial: torch.Tensor, plan, mesh, dtype) -> torch.Tensor:
+    """A sequence-parallel block's output: the ranks' f32 row-parallel
+    partials ``[B, S, D]`` (:func:`partial_mm`'s) summed over the model
+    axis as :func:`across` sums them and cast to ``dtype`` once, the rank
+    keeping its ``[B, S / P, D]`` sequence slice (the reference's
+    ``psum_scatter`` over the sequence)."""
+    return _SeqScatter.apply(partial, model_group(plan, mesh), dtype)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, plan, mesh) -> torch.Tensor:

@@ -22,7 +22,9 @@ written by either package restore in the other.
   the training state on the card.
 * **Over a mesh** (``layout=``, a :class:`~repro_torch.parallel.sharding.TreeLayout`
   of more than one rank): the files hold the same GLOBAL logical arrays, so
-  a checkpoint restores under any mesh, or on one rank.  Save gathers each
+  a checkpoint restores under any mesh, or on one rank; a ZeRO-3 rank's
+  data shards are parts like any other (the layout's ``slices``), so one
+  checkpoint restores under ZeRO-3, replicated or on one device.  Save gathers each
   leaf to the writer (global rank 0), leaf by leaf, the parts sent by the
   lowest rank holding each, over a gloo group (host buffers); every
   collective runs on the calling thread in the same order on every rank.  A

@@ -39,6 +39,17 @@ Port of :mod:`repro.train.pp_step`.  One process per rank of a
   (leaf, repeat) order on every rank from per-repeat squares gathered over
   the stage axis (the experts' in logical expert order), so PP(S) and
   PP(1) clip by the same norm bit for bit.
+* **ZeRO-3 inside a stage** (a plan with ``fsdp_axis`` over a ``"data"``
+  axis of the mesh, as the reference's ``_stage_leaf_spec`` and
+  ``_gather_ffn``, ``pp_step.py:118-135``, ``:180-226``): a stage holds
+  its data shards and gathers its block leaves whole once a step
+  (``fsdp.gather_stage``); their gradients are summed over the
+  microbatches, then reduce-scattered once, so the ZeRO-3 stages equal the
+  replicated stages bit for bit.  With ``cfg.fsdp_prefetch`` the FFN leaves
+  stay shards and ``transformer.apply_layers`` ring-gathers them layer by
+  layer inside each microbatch (reduce-scattered there, each microbatch
+  on its own: within rounding of the replicated stages).  The ends gather
+  theirs where they are used.
 
 The DP reduction over a data axis is ``train_step.reduce_grads``.
 ``batch`` is this rank's rows, microbatch-major: row ``j`` of microbatch
@@ -52,15 +63,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import commruntime as cr
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, square_sum
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.parallel import fsdp
 from repro_torch.parallel.sharding import ShardingPlan, TreeLayout, stage_layers, virtual_experts
 from repro_torch.train.pipeline import GPipe, broadcast_from
 from repro_torch.train.train_step import (
     _flat,
     _physical_slots,
     _unflat,
+    data_summed,
     grad_kind,
+    leaf_squares,
     model_summed,
     reduce_grads,
 )
@@ -134,25 +149,34 @@ def _tied_embed_grad(lookup, head, pipe: GPipe) -> torch.Tensor:
 
 
 def _repeat_squares(grads: dict, plan, mesh, perm, wire, layout) -> list:
-    """Per block leaf (sorted path order), per repeat, the f32 sum of its
-    gradient's squares; a tensor-parallel leaf's summed over the model axis
-    in rank order, an expert leaf's slots gathered over the model axis and
-    read in logical expert order (``train_step._mesh_grad_norm``)."""
-    out, tensors = [], []
+    """Per block leaf (sorted path order), per repeat, the f64 sum of its
+    gradient's squares (``train_step.leaf_squares``: a ZeRO-3 shard's summed
+    over the data axis in rank order); a tensor-parallel leaf's summed over
+    the model axis in rank order, an expert leaf's slots gathered over the
+    model axis and read in logical expert order
+    (``train_step._mesh_grad_norm``)."""
+    out, tensors, shards = [], [], []
     for path in sorted(k for k in grads if k.startswith("/blocks/")):
         g = grads[path]
         kind = grad_kind(path, layout)
+        sharded = layout.fsdp_dim(path) is not None
         if kind != "expert":
+            rows = range(len(out), len(out) + len(g))
             if kind == "tensor":
-                tensors.extend(range(len(out), len(out) + len(g)))
-            out.extend(square_sum(row) for row in g)
+                tensors.extend(rows)
+            if sharded:
+                shards.extend(rows)
+            out.extend(leaf_squares(row, path, layout, lead=1) for row in g)
             continue
-        sq = torch.stack([torch.stack([square_sum(e) for e in layer]) for layer in g])
+        sq = torch.stack([torch.stack([leaf_squares(e, path, layout, lead=2) for e in layer])
+                          for layer in g])
+        if sharded:
+            sq = data_summed([sq], [0], plan, mesh)[0]
         if plan.model_size > 1:
             sq = cr.all_gather_raw(sq.t().contiguous(), cr.axis_group(mesh, plan.model_axis)).t()
         slots = _physical_slots(perm, wire, sq.shape, g.device)
         out.extend(torch.sum(torch.gather(row, 0, idx)) for row, idx in zip(sq, slots))
-    return model_summed(out, tensors, plan, mesh)
+    return model_summed(data_summed(out, shards, plan, mesh), tensors, plan, mesh)
 
 
 def _pp_grad_norm(grads: dict, plan, mesh, stage_axis: str, reps_local: int, perm, wire,
@@ -165,10 +189,13 @@ def _pp_grad_norm(grads: dict, plan, mesh, stage_axis: str, reps_local: int, per
     vals = _repeat_squares(grads, plan, mesh, perm, wire, layout)
     k = len(vals)
     dev = next(iter(grads.values())).device
-    ends = [square_sum(grads[path]) if path in grads
+    ends = [leaf_squares(grads[path], path, layout) if path in grads
             else torch.zeros((), dtype=torch.float64, device=dev) for path, _ in _END_LEAVES]
-    # A vocab-parallel end's parts summed over the model axis (every rank
-    # joins, holding the leaf or not: a model group lies in one stage).
+    # A ZeRO-3 end's shards summed over the data axis, a vocab-parallel
+    # end's parts over the model axis (every rank joins, holding the leaf or
+    # not: a data or model group lies in one stage).
+    ends = data_summed(ends, [i for i, (path, _) in enumerate(_END_LEAVES)
+                              if layout.fsdp_dim(path) is not None], plan, mesh)
     ends = model_summed(ends, [i for i, (path, _) in enumerate(_END_LEAVES)
                                if grad_kind(path, layout) == "tensor"], plan, mesh)
     table = torch.stack([*vals, *ends]).reshape(1, -1)
@@ -235,6 +262,8 @@ def make_pp_train_step(
         pipe = GPipe(mesh, m, stage_axis)
         leaves = dict(_flat(params))
         wrt = [k for k, t in leaves.items() if t.requires_grad]
+        stage_blocks, whole = fsdp.gather_stage(params["blocks"], "/blocks", cfg, plan, mesh,
+                                                keep_ffn=cfg.fsdp_prefetch)
 
         inputs = x_emb = None
         if pipe.first:
@@ -244,7 +273,7 @@ def make_pp_train_step(
         like = torch.empty((mb, t_len, cfg.d_model), dtype=dtype, device=dev)
 
         def stage_fn(x, _):
-            return tfm.apply_layers(params["blocks"], x, cfg, plan, mesh=mesh, mode="train",
+            return tfm.apply_layers(stage_blocks, x, cfg, plan, mesh=mesh, mode="train",
                                     expert_perm=perm, wire_perm=wire, per_shard=True)
 
         ys, outs = pipe.forward(stage_fn, inputs, like,
@@ -258,7 +287,7 @@ def make_pp_train_step(
             if cfg.tie_embeddings and "/embed" in wrt:
                 ends.append("/embed")
             with torch.enable_grad():
-                feats = tfm.final_norm(params, feats_in, cfg)
+                feats = tfm.final_norm(params, feats_in, cfg, L.norm_tree(feats_in))
                 ce = tfm.chunked_cross_entropy(params, feats, labels, cfg, plan=plan, mesh=mesh)
                 got = torch.autograd.grad(ce, [leaves[k] for k in ends] + [feats_in])
             grads.update(zip(ends, got[:-1]))
@@ -270,9 +299,11 @@ def make_pp_train_step(
             return [t for li in range(hi - lo) for t in ((o.balance[li], w_bal), (o.z[li], w_z))]
 
         blocks = [k for k in wrt if k.startswith("/blocks/")]
-        got, in_grads = pipe.backward([leaves[k] for k in blocks], out_grads,
-                                      aux_terms if cfg.is_moe else None)
-        grads.update(zip(blocks, got))
+        got, in_grads = pipe.backward([whole[k][0] if k in whole else leaves[k] for k in blocks],
+                                      out_grads, aux_terms if cfg.is_moe else None)
+        grads.update((k, g if g is None or k not in whole
+                      else fsdp.scatter_grad(g, whole[k][1], plan, mesh))
+                     for k, g in zip(blocks, got))
         head = grads.pop("/embed", None)  # the tied head's part, on the last stage
         lookup = None
         if pipe.first and "/embed" in wrt:

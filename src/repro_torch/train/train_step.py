@@ -26,10 +26,20 @@ axis — and the DP gradient reduction follows one rule per leaf
   each rank of a model group: averaged over the data axis only; every rank
   of the group holds the same gradient bit for bit.
 
+Every sum over a data axis is ``commruntime``'s rank-order one
+(``all_reduce_ordered``).  Under ZeRO-3 (``plan.fsdp_axis``) a leaf the
+data axis shards (``parallel.fsdp``) arrives summed over it already, as the
+rank's shard (its gather's backward, ``reduce_scatter_ordered``: the same
+sum), and is only averaged here; the AdamW update then runs on the shards.
+
 The clipping norm is the whole model's: the replicated leaves once, each
 tensor-parallel leaf's squares gathered over the model axis and summed in
 rank order, the experts' squares in logical expert order whatever their
-placement.  ``dp_comm="runtime"`` computes per-shard gradients
+placement.  A leaf a data axis shards under ZeRO-3 adds its shards'
+squares in data rank order; the replicated plan sums the same blocks of
+its whole leaf in the same order (``TreeLayout.data_blocks``), so ZeRO-3
+and the replicated plan clip by one norm, bit for bit.
+``dp_comm="runtime"`` computes per-shard gradients
 on a data-only mesh and reduces them through the CommRuntime's
 hierarchical :class:`~repro_torch.core.commruntime.AllReduce`, optionally
 int8 with error feedback (``dp_compress``), as the reference's
@@ -58,14 +68,14 @@ from repro_torch.optim.adamw import (
     adamw_update,
     init_adamw,
     square_sum,
-    sum_of_squares,
 )
+from repro_torch.parallel import fsdp
 from repro_torch.parallel.sharding import EXPERT_LEAVES, ShardingPlan, TreeLayout
 
 __all__ = [
     "loss_fn", "make_train_step", "init_all", "init_ef_residual", "reduce_grads",
-    "grad_kind", "make_prefill_step", "make_prefill_chunk_step", "make_serve_step",
-    "make_verify_step", "make_draft_loop_step",
+    "grad_kind", "leaf_squares", "data_summed", "make_prefill_step", "make_prefill_chunk_step",
+    "make_serve_step", "make_verify_step", "make_draft_loop_step",
 ]
 
 
@@ -99,7 +109,10 @@ def _sample_rows(logits: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
 def loss_fn(params, batch, cfg, plan, mesh=None, expert_perm=None, wire_perm=None):
     """``(loss, (ce, aux))``: chunked cross entropy plus the MoE balance and
     router-z losses.  ``expert_perm``: ``[repeats, E_virtual]`` per-layer
-    expert->slot maps; ``wire_perm``: optional ``[repeats, P]`` device maps."""
+    expert->slot maps; ``wire_perm``: optional ``[repeats, P]`` device maps.
+    Under ZeRO-3 the embedding and the head are gathered once for both
+    uses."""
+    params = fsdp.gather_ends(params, cfg, plan, mesh)
     feats, aux, _ = tfm.model_apply(
         params, batch, cfg, plan, mesh=mesh, mode="train", expert_perm=expert_perm,
         wire_perm=wire_perm,
@@ -155,29 +168,65 @@ def reduce_grads(grads: dict, plan: ShardingPlan, mesh, cfg) -> dict:
         g = g.contiguous()
         if grad_kind(path, layout) == "router" and plan.model_size > 1:
             cr.all_reduce(g, cr.axis_group(mesh, plan.model_axis), inplace=True)
+        shard = fsdp.shard_dim(path, g, cfg, plan, mesh) is not None
         for ax in plan.batch_axes:
             n = cr.axis_size(mesh, ax)
             if n > 1:
-                cr.all_reduce(g, cr.axis_group(mesh, ax), inplace=True).div_(float(n))
+                if not (shard and ax == plan.fsdp_axis):  # else summed by the gather's backward
+                    cr.all_reduce_ordered(g, cr.axis_group(mesh, ax), inplace=True)
+                g.div_(float(n))
         grads[path] = g
     return grads
 
 
+def leaf_squares(g: torch.Tensor, path: str, layout: TreeLayout, lead: int = 0) -> torch.Tensor:
+    """The f64 sum of the squares of a rank's gradient ``g`` of the leaf at
+    ``path`` (``lead`` leading dims fewer than the stored leaf), over the
+    ZeRO-3 data blocks in rank order (``TreeLayout.data_blocks``): a
+    replicated plan's whole leaf sums its blocks as the sharded plan's ranks
+    do (:func:`data_summed` then adds those ranks' sums)."""
+    blocks = layout.data_blocks(path)
+    if blocks is None or blocks[1] == 1:
+        return square_sum(g)
+    dim, n = blocks
+    total = None
+    for part in g.chunk(n, dim - lead):
+        v = square_sum(part.contiguous())
+        total = v if total is None else total + v
+    return total
+
+
+def _axis_summed(vals: list, pos: list, mesh, axis: str) -> list:
+    """``vals`` (f64 tensors) with each entry at ``pos`` replaced by its sum
+    over ``axis`` in rank order (one all-gather of them all), the same bits
+    on every rank."""
+    flat = torch.cat([vals[i].reshape(-1) for i in pos])
+    table = cr.all_gather_raw(flat[None], cr.axis_group(mesh, axis))
+    summed = table[0]
+    for q in range(1, table.shape[0]):
+        summed = summed + table[q]
+    out, at = list(vals), 0
+    for i in pos:
+        k = vals[i].numel()
+        out[i] = summed[at:at + k].reshape(vals[i].shape)
+        at += k
+    return out
+
+
+def data_summed(vals: list, pos: list, plan: ShardingPlan, mesh) -> list:
+    """:func:`_axis_summed` over the ZeRO-3 data axis: the squares of a leaf
+    the data axis shards."""
+    if not pos or not fsdp.active(plan, mesh):
+        return vals
+    return _axis_summed(vals, pos, mesh, plan.fsdp_axis)
+
+
 def model_summed(vals: list, pos: list, plan: ShardingPlan, mesh) -> list:
-    """``vals`` (f64 scalars) with each entry at ``pos`` replaced by its sum
-    over the model axis in rank order (one all-gather of them all): a
-    tensor-parallel leaf's squares, the same bits on every rank."""
+    """:func:`_axis_summed` over the model axis: a tensor-parallel leaf's
+    squares."""
     if not pos or plan.model_size <= 1:
         return vals
-    table = cr.all_gather_raw(torch.stack([vals[i] for i in pos])[None],
-                              cr.axis_group(mesh, plan.model_axis))
-    out = list(vals)
-    for j, i in enumerate(pos):
-        v = table[0, j]
-        for q in range(1, table.shape[0]):
-            v = v + table[q, j]
-        out[i] = v
-    return out
+    return _axis_summed(vals, pos, mesh, plan.model_axis)
 
 
 def _mesh_grad_norm(grads: dict, plan: ShardingPlan, mesh, expert_perm, wire_perm, cfg):
@@ -190,22 +239,33 @@ def _mesh_grad_norm(grads: dict, plan: ShardingPlan, mesh, expert_perm, wire_per
     (its leaves' global sizes tell the tensor-parallel ones)."""
     layout = TreeLayout(plan, mesh, cfg)
     kinds = {p: grad_kind(p, layout) for p in grads}
-    # ``sum_of_squares`` walks the flat dict as a tree: its paths are "/" + key.
-    total = sum_of_squares(grads, lambda p: kinds[p[1:]] in ("redundant", "router"))
-    tensors = [p for p in sorted(grads) if kinds[p] == "tensor"]
-    sq = [square_sum(grads[p]) for p in tensors]
-    for v in model_summed(sq, list(range(len(sq))), plan, mesh):
+    paths = sorted(grads)
+    # Every leaf's squares (an expert leaf's per slot: [reps, E_virtual /
+    # P]), its ZeRO-3 shards' summed over the data axis.
+    sq = [torch.stack([torch.stack([leaf_squares(e, p, layout, lead=2) for e in layer])
+                       for layer in grads[p]]) if kinds[p] == "expert"
+          else leaf_squares(grads[p], p, layout) for p in paths]
+    sq = dict(zip(paths, data_summed(sq, [i for i, p in enumerate(paths)
+                                          if layout.fsdp_dim(p) is not None], plan, mesh)))
+    total = None
+    for p in paths:
+        if kinds[p] in ("redundant", "router"):
+            total = sq[p] if total is None else total + sq[p]
+    tensors = [p for p in paths if kinds[p] == "tensor"]
+    for v in model_summed([sq[p] for p in tensors], list(range(len(tensors))), plan, mesh):
         total = v if total is None else total + v
-    for path, g in sorted(grads.items()):
+    for path in paths:
         if kinds[path] != "expert":
             continue
+        g = grads[path]
         # [reps, E_virtual / P] per-slot sums, gathered to [reps, E_virtual]
         # in physical slot order, then read in logical expert order.
-        sq = torch.stack([torch.stack([square_sum(e) for e in layer]) for layer in g])
+        sq_e = sq[path]
         if plan.model_size > 1:
-            sq = cr.all_gather_raw(sq.t().contiguous(), cr.axis_group(mesh, plan.model_axis)).t()
-        slots = _physical_slots(expert_perm, wire_perm, sq.shape, g.device)
-        part = torch.sum(torch.gather(sq, 1, slots))
+            sq_e = cr.all_gather_raw(sq_e.t().contiguous(),
+                                     cr.axis_group(mesh, plan.model_axis)).t()
+        slots = _physical_slots(expert_perm, wire_perm, sq_e.shape, g.device)
+        part = torch.sum(torch.gather(sq_e, 1, slots))
         total = part if total is None else total + part
     return torch.sqrt(total).float()
 

@@ -52,8 +52,13 @@ warning, bumps ``autotune.cache_miss`` and keeps the configured constants.
 
 A model axis is tensor parallelism for the dense leaves and expert
 parallelism for the MoE layers (:class:`~repro_torch.parallel.sharding.TreeLayout`),
-on every MoE backend.  Not ported yet, raising ``NotImplementedError``:
-ZeRO-3 parameter sharding (a plan with ``fsdp_axis``).
+on every MoE backend, and with ``cfg.sp_shardmap`` sequence parallelism for
+the residual stream.  A plan with ``fsdp_axis`` (``make_plan(mesh)``, the
+reference's default) is ZeRO-3: each rank holds its data shard of the
+parameters and of the AdamW moments, the steps gather them
+(:mod:`repro_torch.parallel.fsdp`), a weight move exchanges each data
+coordinate's shards within its model group, and checkpoints hold the
+global arrays as they do without it.
 """
 
 from __future__ import annotations
@@ -137,11 +142,6 @@ class Trainer:
             raise ValueError(
                 "pp_stages > 1 composes with dp_comm='auto' only (the runtime DP reduction "
                 "needs a DP-only mesh)"
-            )
-        if plan.fsdp_axis is not None:
-            raise NotImplementedError(
-                "ZeRO-3 parameter sharding comes with a later slice; build the plan with "
-                "make_plan(mesh, fsdp=False)"
             )
         if tcfg.autotune_cache and tcfg.autotune_key:
             from repro_torch.core import autotune

@@ -1587,3 +1587,88 @@ def test_dense_decode_gather_over_one_rank_group_equals_unsharded(dev):
     finally:
         if owned:
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 and sequence parallelism: two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+def _zero3_sp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of two ranks on the card: the sequence reduce-scatter against
+    ``tp._across`` (f32 partials cast to bf16, and kept f32), the ZeRO-3
+    gather and its gradient reduce-scatter on bf16 leaves, and the
+    sequence-parallel norm against one device's tree (forward, dx, dw)."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import fsdp, tp
+    from repro_torch.parallel.sharding import make_plan
+
+    init_distributed("gloo", rank=rank, world_size=2, init_method=f"tcp://localhost:{port}",
+                     device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {}
+    mesh = make_mesh((2,), ("model",))
+    plan = make_plan(mesh)
+    grp = tp.model_group(plan, mesh)
+    g = torch.Generator(device=dev).manual_seed(11 + rank)
+    for dtype in (torch.bfloat16, torch.float32):
+        part = torch.randn((2, 64, 256), generator=g, device=dev) * 3
+        whole = tp._across(part, grp, dtype)
+        mine = tp.seq_scatter(part, plan, mesh, dtype)
+        res[f"scatter_{dtype}"] = torch.equal(mine, whole[:, rank * 32:(rank + 1) * 32])
+    dmesh = make_mesh((2,), ("data",))
+    dplan = make_plan(dmesh)
+    g0 = torch.Generator(device=dev).manual_seed(5)
+    leaf = (torch.randn((4, 64, 96), generator=g0, device=dev) * 0.1).bfloat16()
+    grads = [(torch.randn((4, 64, 96), generator=g0, device=dev)).bfloat16() for _ in range(2)]
+    shard = leaf[:, rank * 32:(rank + 1) * 32].clone().requires_grad_()
+    full = fsdp.gather(shard, 1, dplan, dmesh)
+    res["gather"] = torch.equal(full, leaf)
+    full.backward(grads[rank])
+    want = (grads[0].float() + grads[1].float()).bfloat16()[:, rank * 32:(rank + 1) * 32]
+    res["grad_scatter"] = torch.equal(shard.grad, want)
+    g1 = torch.Generator(device=dev).manual_seed(7)
+    x = (torch.randn((2, 512, 2304), generator=g1, device=dev) * 2).bfloat16()
+    w = (torch.randn((2304,), generator=g1, device=dev) * 0.1).bfloat16()
+    dy = torch.randn((2, 512, 2304), generator=g1, device=dev).bfloat16()
+    xo, wo = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yo = L.rms_norm(xo, wo, 1e-6, L.norm_tree(xo))
+    yo.backward(dy)
+    xs = x[:, rank * 256:(rank + 1) * 256].clone().requires_grad_()
+    ws = w.clone().requires_grad_()
+    ys = L.rms_norm(xs, ws, 1e-6, L.norm_tree(xs, plan, mesh, sp=True))
+    ys.backward(dy[:, rank * 256:(rank + 1) * 256].contiguous())
+    res["norm_y"] = torch.equal(ys, yo[:, rank * 256:(rank + 1) * 256])
+    res["norm_dx"] = torch.equal(xs.grad, xo.grad[:, rank * 256:(rank + 1) * 256])
+    res["norm_dw"] = torch.equal(ws.grad, wo.grad)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump({str(k): bool(v) for k, v in res.items()}, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_zero3_and_sp_collectives_bit_for_bit_on_the_card(dev, tmp_path):
+    """On the card's tensors, two gloo ranks: the sequence reduce-scatter
+    gives each rank's slice of ``tp._across``'s sum bit for bit (f32
+    partials, cast to bf16 and kept f32); a ZeRO-3 gather returns the whole
+    bf16 leaf and its backward the rank's shard of the rank-order sum; the
+    sequence-parallel norm (kernel 8 over the rank's half, its weight
+    gradient's f32 tree summed over the ranks) gives one device's output,
+    input gradient and weight gradient bit for bit."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.train import free_port
+
+    mp.spawn(_zero3_sp_rank, args=(free_port(), str(tmp_path)), nprocs=2, join=True)
+    for r in range(2):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert got and all(got.values()), got

@@ -304,15 +304,22 @@ def test_prefix_hit_equals_a_miss(monkeypatch):
 
 
 def test_sp_shardmap_is_refused():
-    """The sequence-parallel shard_map paths are not ported: asking for
-    them raises, at init and at apply, instead of running the plain path."""
+    """``sp_shardmap=True`` was refused until the sequence-parallel paths
+    were ported; without a model axis it is now the plain path, as in the
+    reference (its condition needs a mesh): the same init and the same
+    features bit for bit (``tests/test_torch_zero3_sp.py`` runs it over a
+    mesh)."""
     _, cfg = _cfgs("gemma2-2b")
     params = tfm.init_model(0, cfg, PLAN, device="cpu")
     sp = dataclasses.replace(cfg, sp_shardmap=True)
-    with pytest.raises(NotImplementedError, match="sp_shardmap=True.*later item"):
-        tfm.init_model(0, sp, PLAN, device="cpu")
-    with pytest.raises(NotImplementedError, match="sp_shardmap"):
-        tfm.model_apply(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, sp, PLAN)
+    drawn = tfm.init_model(0, sp, PLAN, device="cpu")
+    assert all(torch.equal(drawn["blocks"]["0_local"][k], v)
+               for k, v in params["blocks"]["0_local"].items() if not isinstance(v, dict))
+    toks = {"tokens": torch.arange(8, dtype=torch.int32).reshape(1, 8)}
+    with torch.no_grad():
+        assert not tfm.seq_parallel(sp, PLAN, None, "train", 8)
+        assert torch.equal(tfm.model_apply(params, toks, sp, PLAN)[0],
+                           tfm.model_apply(params, toks, cfg, PLAN)[0])
 
 
 # ---------------------------------------------------------------------------

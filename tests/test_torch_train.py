@@ -642,10 +642,11 @@ def test_remat_through_the_kernel_functions(monkeypatch, remat):
     fake(kgm, "grouped_matmul_dx_cuda", lambda dy, w: tref.grouped_matmul(dy, w.transpose(1, 2)))
     fake(kgm, "grouped_matmul_dw_cuda", tref.grouped_matmul_dw)
 
-    def rmsnorm_bwd(x, w, dy, eps=1e-6):
+    def rmsnorm_bwd(x, w, dy, eps=1e-6, dw_dtype=None):
         xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
         with torch.enable_grad():
-            return torch.autograd.grad(tref.rmsnorm(xg, wg, eps), (xg, wg), dy)
+            dx, dw = torch.autograd.grad(tref.rmsnorm(xg, wg, eps), (xg, wg), dy)
+        return dx, dw.to(dw_dtype or dw.dtype)
 
     fake(krms, "rmsnorm_cuda", tref.rmsnorm)
     fake(krms, "rmsnorm_bwd_cuda", rmsnorm_bwd)
